@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's erasure-coding path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--needles N] [--seed S]
+
+Phases (any failure ends the run with a traceback and a non-zero exit):
+
+1. Device: print the card's name and power limit, build the CUDA kernel
+   (``seaweedfs_tpu_torch/csrc/gf_linear.cu``, nvcc) and the needle CRC
+   library (``native/crc32c.cpp``, g++) from the checkout, in parallel.
+2. Kernel vs plain: ``gf_kernel.gf_linear`` on the card, byte-compared with
+   its plain PyTorch version (``gf_linear_plain``, also on the card) for
+   the encode matrix and the decode matrices of four loss sets, at lane
+   counts 0, 1, 127, 128, 32768+257 and 64 Mi, and at the main path's
+   encode slab [6, 10, 1 MiB]. At that slab and at 64 Mi lanes: the
+   kernel's median time over 20 launches (CUDA events), its memory bound,
+   GB/s, and the plain version's time. The JSON line carries the slab's.
+3. Main path, through the store-level entry points the volume server
+   calls, on a volume of ``--needles`` x 1,024 B needles (default
+   1,048,576: upstream ``weed benchmark -n 1048576 -size 1024``):
+   generate_ec_shards -> parity sample check -> lose shards {0,5,11,13} ->
+   rebuild_ec_shards (hashes must match) -> mount with those four shards
+   missing and read_ec_needle 4,096 sampled needles (degraded intervals
+   are rebuilt by the kernel) -> ec_shards_to_volume (after losing the
+   four shards again), whose .dat must hash like the original. Then
+   write_ec_files with 64 MiB large blocks (large-row path and the
+   large->small rollover), checked against a host plain-version encode.
+   ``gf_kernel.LAUNCHES`` is set to 0 before each phase and must rise in
+   each.
+4. Chunk sweep: write_ec_files at 16, 64 and 256 MiB codec slabs.
+5. Trace: one write_ec_files under torch.profiler; the card's busy time
+   (kernel, H2D, D2H) against the wall time.
+6. One JSON line with the kernel's numbers, the card's nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
+
+The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
+rounding.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+NEEDLE_SIZE = 1024
+LOSS_SETS = ((0,), (13,), (2, 5, 9, 12), (10, 11, 12, 13))
+LOST = (0, 5, 11, 13)
+BIG_LANES = 64 << 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(16 << 20)
+            if not b:
+                return h.hexdigest()
+            h.update(b)
+
+
+# --- phase 1 ------------------------------------------------------------------
+
+def build_all() -> float:
+    from seaweedfs_tpu_torch.native import crc
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(gf_kernel.load), pool.submit(crc.load)]:
+            fut.result()
+    secs = time.perf_counter() - t0
+    for line in gf_kernel.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    return secs
+
+
+# --- phase 2 ------------------------------------------------------------------
+
+def kernel_matrices():
+    from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon, coding_matrix
+    rs = ReedSolomon(backend="cpu")
+    mats = [("encode", coding_matrix()[10:])]
+    for lost in LOSS_SETS:
+        present = [i for i in range(14) if i not in lost]
+        mats.append((f"decode{lost}", rs.decode_matrix(present, list(lost))))
+    return mats
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median of ``reps`` single-call times from CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def main_path_encode_shape() -> tuple:
+    """The slab ``generate_ec_shards`` hands the kernel on a volume under
+    10 GiB: as many 10 x 1 MiB small rows as fit in the card's chunk."""
+    from seaweedfs_tpu_torch.ec.encoder import (
+        DEFAULT_CHUNK_CUDA, SMALL_BLOCK_SIZE)
+    rows = max(1, DEFAULT_CHUNK_CUDA // (10 * SMALL_BLOCK_SIZE))
+    return (rows, 10, SMALL_BLOCK_SIZE)
+
+
+def time_kernel(gm, data, label: str) -> dict:
+    """Kernel (20 launches) and plain version (3 calls) on one input; the
+    bound is the bytes moved, each input read and each output written once,
+    over the card's memory rate."""
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    ms = time_ms(lambda: gf_kernel.gf_linear(gm, data), 20)
+    plain_ms = time_ms(lambda: gf_kernel.gf_linear_plain(gm.m2, data), 3)
+    nbytes = data.numel() // gm.cols * (gm.rows + gm.cols)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  gf_linear {label} {tuple(data.shape)}: {ms:.4f} ms median of 20,"
+        f" {nbytes / ms / 1e6:.1f} GB/s, bound {bound_ms:.4f} ms "
+        f"({bound_ms / ms:.1%} of bound), plain {plain_ms:.2f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def phase_kernel(seed: int) -> dict:
+    """Byte equality with the plain version over every matrix and shape;
+    times at the main path's encode slab and at a 64 Mi-lane large row."""
+    import torch
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    max_err = 0
+    timing = {}
+    shapes = [(10, n) for n in (0, 1, 127, 128, 32768 + 257, BIG_LANES)]
+    shapes.append(main_path_encode_shape())
+    for shape in shapes:
+        data = torch.randint(0, 256, shape, generator=gen,
+                             device=dev, dtype=torch.uint8)
+        for name, m in kernel_matrices():
+            gm = gf_kernel.prepare_matrix(m, dev)
+            got = gf_kernel.gf_linear(gm, data)
+            want = gf_kernel.gf_linear_plain(gm.m2, data)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                raise AssertionError(f"{name} {shape}: shape {got.shape}")
+            err = int((got.int() - want.int()).abs().max()) \
+                if got.numel() else 0
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(f"gf_linear {name} {shape}: kernel "
+                                     f"differs from plain (max err {err})")
+            if name == "encode" and shape == shapes[-1]:
+                timing["main"] = time_kernel(gm, data, "encode, main path")
+            elif name == "encode" and shape[-1] == BIG_LANES:
+                timing["large_row"] = time_kernel(gm, data,
+                                                  "encode, 64 MiB large row")
+        log(f"  {shape}: kernel == plain for {len(LOSS_SETS) + 1} matrices")
+    return dict(max_abs_err=max_err, **timing)
+
+
+# --- phase 3 ------------------------------------------------------------------
+
+class Launches:
+    """Counts the kernel's launches over one phase."""
+
+    def __init__(self, backend: str):
+        self.backend = backend
+        self.per_phase = {}
+
+    def run(self, phase: str, fn, *args, **kwargs):
+        from seaweedfs_tpu_torch.ops import gf_kernel
+        gf_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        secs = time.perf_counter() - t0
+        n = gf_kernel.LAUNCHES
+        self.per_phase[phase] = n
+        if self.backend == "cuda" and n == 0:
+            raise AssertionError(f"{phase}: the kernel was never launched")
+        return out, secs
+
+
+def check_parity_spans(base: str, shard_size: int, rng, spans: int,
+                       span_len: int, device) -> None:
+    """Parity at a shard offset is the encode map of the ten data shards
+    at the same offset: hold sampled spans against gf_linear_plain."""
+    import torch
+    from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    from seaweedfs_tpu_torch.ops.rs_code import coding_matrix
+    gm = gf_kernel.prepare_matrix(coding_matrix()[10:], device)
+    files = [open(shard_file_name(base, i), "rb") for i in range(14)]
+    try:
+        for _ in range(spans):
+            length = min(span_len, shard_size)
+            off = int(rng.integers(0, shard_size - length + 1))
+            rows = []
+            for f in files:
+                f.seek(off)
+                rows.append(np.frombuffer(f.read(length), dtype=np.uint8))
+            stripe = torch.from_numpy(np.stack(rows)).to(device)
+            want = gf_kernel.gf_linear_plain(gm.m2, stripe[:10])
+            if not torch.equal(want, stripe[10:]):
+                raise AssertionError(f"{base}: parity wrong at {off}")
+    finally:
+        for f in files:
+            f.close()
+
+
+def shard_hashes(base: str) -> list:
+    from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        return list(pool.map(sha256_file,
+                             [shard_file_name(base, i) for i in range(14)]))
+
+
+def write_volume(store, payload, cookies) -> float:
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    store.add_volume(1)
+    t0 = time.perf_counter()
+    for i in range(len(payload)):
+        store.write_needle(1, Needle(id=i + 1, cookie=int(cookies[i]),
+                                     data=payload[i].tobytes()))
+    return time.perf_counter() - t0
+
+
+def phase_main_path(workdir: str, n_needles: int, seed: int,
+                    backend: str, large: int = 64 << 20) -> dict:
+    from seaweedfs_tpu_torch.ec import encoder, store_ec
+    from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+    from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    device = "cuda" if backend == "cuda" else "cpu"
+    codec = None if backend == "cuda" else ReedSolomon(backend="cpu")
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 256, (n_needles, NEEDLE_SIZE), dtype=np.uint8)
+    cookies = rng.integers(0, 1 << 32, n_needles, dtype=np.uint64)
+    vol_dir = os.path.join(workdir, "vol")
+    orig_dir = os.path.join(workdir, "orig")
+    os.makedirs(orig_dir)
+    store = Store([vol_dir])
+    launches = Launches(backend)
+    metrics = {}
+    try:
+        secs = write_volume(store, payload, cookies)
+        base = store.find_volume(1).file_name()
+        dat_size = os.path.getsize(base + ".dat")
+        dat_hash = sha256_file(base + ".dat")
+        log(f"  wrote {n_needles} needles of {NEEDLE_SIZE} B (seed {seed}):"
+            f" .dat {dat_size} B in {secs:.1f} s, sha256 {dat_hash[:16]}")
+
+        _, secs = launches.run("generate", store_ec.generate_ec_shards,
+                               store, 1, backend=backend)
+        metrics["encode_GBps"] = dat_size / secs / 1e9
+        shard_size = os.path.getsize(shard_file_name(base, 0))
+        log(f"  generate_ec_shards: {secs:.3f} s, "
+            f"{metrics['encode_GBps']:.3f} GB/s of .dat, "
+            f"{launches.per_phase['generate']} launches, shard {shard_size} B")
+        t0 = time.perf_counter()
+        encoder.write_sorted_file_from_idx(base)
+        log(f"  of which the .idx -> .ecx replay, timed again alone: "
+            f"{time.perf_counter() - t0:.3f} s")
+        check_parity_spans(base, shard_size, rng, 64, 64 << 10, device)
+        log("  parity of 64 sampled 64 KiB spans == gf_linear_plain")
+
+        # keep the original volume files aside; decode must recreate them
+        store.location_of(1).unload_volume(1)
+        for ext in (".dat", ".idx"):
+            os.replace(base + ext, os.path.join(orig_dir, "1" + ext))
+        hashes = shard_hashes(base)
+        for sid in LOST:
+            os.remove(shard_file_name(base, sid))
+        rebuilt, secs = launches.run("rebuild", store_ec.rebuild_ec_shards,
+                                     store, 1, backend=backend)
+        if sorted(rebuilt) != list(LOST) or shard_hashes(base) != hashes:
+            raise AssertionError(f"rebuild of {LOST} gave {rebuilt} with "
+                                 "different shard hashes")
+        metrics["rebuild_GBps"] = 10 * shard_size / secs / 1e9
+        log(f"  rebuild_ec_shards {LOST}: {secs:.3f} s, "
+            f"{metrics['rebuild_GBps']:.3f} GB/s of shards read, "
+            f"{launches.per_phase['rebuild']} launches, 14 hashes identical")
+
+        ecv = store_ec.mount_ec_shards(
+            store, 1, "", [i for i in range(14) if i not in LOST])
+        sample = rng.choice(n_needles, size=min(4096, n_needles),
+                            replace=False)
+        lat = {True: [], False: []}
+
+        def read_sample():
+            for i in sample.tolist():
+                _, _, ivs = ecv.locate_needle(i + 1)
+                degraded = any(
+                    iv.to_shard_and_offset(ecv.large_block,
+                                           ecv.small_block)[0] in LOST
+                    for iv in ivs)
+                t0 = time.perf_counter()
+                got = store_ec.read_ec_needle(
+                    store, 1, Needle(id=i + 1, cookie=int(cookies[i])),
+                    rs=codec)
+                lat[degraded].append(time.perf_counter() - t0)
+                if got.data != payload[i].tobytes():
+                    raise AssertionError(f"needle {i + 1}: wrong bytes")
+
+        _, secs = launches.run("degraded_read", read_sample)
+        for degraded, name in ((True, "degraded"), (False, "healthy")):
+            ms = np.array(lat[degraded]) * 1e3
+            if len(ms):
+                metrics[f"{name}_read_p50_ms"] = float(np.percentile(ms, 50))
+                metrics[f"{name}_read_p99_ms"] = float(np.percentile(ms, 99))
+            log(f"  {name} reads: {len(ms)}" + (
+                f", p50 {np.percentile(ms, 50):.3f} ms, "
+                f"p99 {np.percentile(ms, 99):.3f} ms" if len(ms) else ""))
+        log(f"  read_ec_needle x{len(sample)} with shards {LOST} missing: "
+            f"{secs:.2f} s, all bytes match, "
+            f"{launches.per_phase['degraded_read']} launches")
+
+        store_ec.unmount_ec_shards(store, 1, range(14))
+        for sid in LOST:
+            os.remove(shard_file_name(base, sid))
+        _, secs = launches.run("decode", store_ec.ec_shards_to_volume,
+                               store, 1, backend=backend)
+        if sha256_file(base + ".dat") != dat_hash:
+            raise AssertionError("decoded .dat differs from the original")
+        metrics["decode_GBps"] = dat_size / secs / 1e9
+        log(f"  ec_shards_to_volume with {LOST} lost: {secs:.3f} s, "
+            f"{metrics['decode_GBps']:.3f} GB/s, "
+            f"{launches.per_phase['decode']} launches, .dat sha256 identical")
+        t0 = time.perf_counter()
+        encoder.find_dat_file_size(base)
+        log(f"  of which the .ecx scan for the .dat size, timed again alone:"
+            f" {time.perf_counter() - t0:.3f} s")
+        store.location_of(1).delete_volume(1)
+        for path in [shard_file_name(base, i) for i in range(14)] + \
+                [base + ".ecx", base + ".ecj"]:
+            if os.path.exists(path):  # lost parity is not decoded back
+                os.remove(path)
+
+        large_base = os.path.join(orig_dir, "1")
+        _, secs = launches.run("large_rows", encoder.write_ec_files,
+                               large_base, backend=backend, large_block=large)
+        check_large_rows(large_base, large, dat_size, rng)
+        log(f"  write_ec_files large_block={large} B: {secs:.3f} s, "
+            f"{dat_size / secs / 1e9:.3f} GB/s, "
+            f"{launches.per_phase['large_rows']} launches, "
+            "large row + rollover row == host plain version")
+        metrics["shard_hashes"] = hashes
+        metrics["large_base"] = large_base
+        metrics["dat_size"] = dat_size
+    finally:
+        store.close()
+    metrics["launches"] = launches.per_phase
+    return metrics
+
+
+def check_large_rows(base: str, large: int, dat_size: int, rng) -> None:
+    """Against the plain version on the host: sampled spans of the first
+    large row, and the whole first small row after the rollover."""
+    import torch
+    from seaweedfs_tpu_torch.ec.encoder import SMALL_BLOCK_SIZE
+    if dat_size <= 10 * large:
+        raise AssertionError(f"volume too small for a {large} B large row")
+    check_parity_spans(base, large, rng, 16, 64 << 10, "cpu")
+    from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    from seaweedfs_tpu_torch.ops.rs_code import coding_matrix
+    rows = []
+    for i in range(14):
+        with open(shard_file_name(base, i), "rb") as f:
+            f.seek(large)
+            rows.append(np.frombuffer(f.read(SMALL_BLOCK_SIZE),
+                                      dtype=np.uint8))
+    with open(base + ".dat", "rb") as f:
+        f.seek(10 * large)
+        want_data = np.frombuffer(f.read(10 * SMALL_BLOCK_SIZE),
+                                  dtype=np.uint8)
+    stripe = np.stack(rows)
+    pad = np.zeros(10 * SMALL_BLOCK_SIZE, dtype=np.uint8)
+    pad[:len(want_data)] = want_data
+    if not np.array_equal(stripe[:10].reshape(-1), pad):
+        raise AssertionError("first small row's data shards != .dat slice")
+    gm = gf_kernel.prepare_matrix(coding_matrix()[10:], "cpu")
+    parity = gf_kernel.gf_linear_plain(gm.m2, torch.from_numpy(stripe[:10]))
+    if not np.array_equal(parity.numpy(), stripe[10:]):
+        raise AssertionError("first small row's parity != plain version")
+
+
+# --- phase 4 ------------------------------------------------------------------
+
+def phase_chunk_sweep(base: str, dat_size: int, want_hashes: list,
+                      backend: str) -> dict:
+    from seaweedfs_tpu_torch.ec import encoder
+    out = {}
+    for mib in (16, 64, 256):
+        t0 = time.perf_counter()
+        encoder.write_ec_files(base, backend=backend, chunk=mib << 20)
+        secs = time.perf_counter() - t0
+        if shard_hashes(base) != want_hashes:
+            raise AssertionError(f"chunk {mib} MiB: shards differ")
+        out[mib] = dat_size / secs / 1e9
+        log(f"  chunk {mib} MiB: {secs:.3f} s, {out[mib]:.3f} GB/s, "
+            "shards identical")
+    return out
+
+
+def phase_trace(base: str, backend: str) -> dict:
+    """One write_ec_files under torch.profiler: the card's time in the
+    kernel and in each copy direction, against the wall time. Sums of
+    event durations (the side stream runs one thing at a time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from seaweedfs_tpu_torch.ec import encoder
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        encoder.write_ec_files(base, backend=backend)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = {"kernel": 0.0, "HtoD": 0.0, "DtoH": 0.0, "other": 0.0}
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        kind = "kernel" if "gf_linear" in e.name else \
+            "HtoD" if "HtoD" in e.name else \
+            "DtoH" if "DtoH" in e.name else "other"
+        busy[kind] += ms
+    total = sum(busy.values())
+    log(f"  write_ec_files traced: wall {wall_ms:.1f} ms; card busy "
+        f"{total:.1f} ms ({total / wall_ms:.1%}), idle {1 - total / wall_ms:.1%}"
+        f"; " + ", ".join(f"{k} {v:.1f} ms" for k, v in busy.items()))
+    if total == 0:
+        log("  the profiler saw no device time: idle share not measured")
+    return dict(wall_ms=wall_ms, **{f"{k}_ms": v for k, v in busy.items()})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--needles", type=int, default=1 << 20)
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    import seaweedfs_tpu_torch  # noqa: F401  (fails outside the repo)
+    log(f"card: {nvidia_smi_line()}")
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+
+    log("phase 1: build")
+    log(f"  built gf_linear.cu (nvcc) and crc32c.cpp (g++) in "
+        f"{build_all():.1f} s")
+    log("phase 2: kernel vs plain on the card")
+    kstats = phase_kernel(args.seed)
+    log("phase 3: main path")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        log(f"  workdir {workdir}, "
+            f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB free")
+        m = phase_main_path(workdir, args.needles, args.seed, "cuda")
+        log("phase 4: chunk sweep")
+        sweep = phase_chunk_sweep(m["large_base"], m["dat_size"],
+                                  m["shard_hashes"], "cuda")
+        log("phase 5: trace of one encode")
+        trace = phase_trace(m["large_base"], "cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    main_launches = sum(m["launches"][p] for p in
+                        ("generate", "rebuild", "degraded_read", "decode"))
+    summary = {k: v for k, v in m.items()
+               if k not in ("shard_hashes", "large_base")}
+    summary["chunk_sweep_GBps"] = sweep
+    summary["kernel"] = kstats
+    summary["trace"] = trace
+    log("metrics: " + json.dumps(summary))
+    log('kernels: ["gf_linear"]')
+    print(json.dumps({"kernels": [{
+        "name": "gf_linear", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/gf_linear.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:45",
+        "launches": main_launches,
+        "max_abs_err": kstats["max_abs_err"],
+        **kstats["main"], "bound_by": "bytes",
+        "library_ms": None}]}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,161 @@
+"""Store-level EC operations: the volume server's EC surface.
+
+Counterparts of ``seaweedfs_tpu.ec.store_ec`` and the reference's
+store_ec.go / store_ec_delete.go and
+server/volume_grpc_erasure_coding.go:38-400: generate, rebuild,
+mount/unmount, EC needle reads with live recovery, delete, decode back to
+a normal volume. All take the Store as first argument. The codec runs on
+the card unless the caller passes ``backend="cpu"`` (or, for reads, a
+``rs=ReedSolomon(backend="cpu")``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterable, List, Optional
+
+from seaweedfs_tpu_torch.ec import encoder
+from seaweedfs_tpu_torch.ec.ec_volume import EcShardNotFound, EcVolume
+from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon
+from seaweedfs_tpu_torch.storage.needle import Needle, NeedleError
+from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.storage.volume import Volume
+
+
+def _find_ec_base(store: Store, vid: int,
+                  collection: Optional[str] = None) -> Optional[str]:
+    """Locate the <base>.ecx of a volume across disk locations.
+
+    A mounted EcVolume is authoritative; with no collection given the
+    directories are scanned for any [collection_]vid.ecx."""
+    ecv = store.find_ec_volume(vid)
+    if ecv is not None and os.path.exists(ecv.base_name + ".ecx"):
+        return ecv.base_name
+    for loc in store.locations:
+        if collection is not None:
+            name = f"{collection}_{vid}" if collection else str(vid)
+            base = os.path.join(loc.directory, name)
+            if os.path.exists(base + ".ecx"):
+                return base
+            continue
+        for name in os.listdir(loc.directory):
+            if not name.endswith(".ecx"):
+                continue
+            stem = name[:-len(".ecx")]
+            col, _, tail = stem.rpartition("_")
+            if tail == str(vid) or (not col and stem == str(vid)):
+                return os.path.join(loc.directory, stem)
+    return None
+
+
+def _location_of_base(store: Store, base: str):
+    return next(loc for loc in store.locations
+                if os.path.dirname(base) == loc.directory)
+
+
+def generate_ec_shards(store: Store, vid: int, backend: str = "cuda") -> str:
+    """VolumeEcShardsGenerate: .dat/.idx -> .ec00-13 + .ecx.
+
+    The volume is marked read-only and synced first. Returns the base
+    name the shard files were written under.
+    """
+    v = store.find_volume(vid)
+    if v is None:
+        raise NeedleError(f"volume {vid} not found for ec encode")
+    v.read_only = True
+    v.sync()
+    base = v.file_name()
+    encoder.write_ec_files(base, backend=backend)
+    encoder.write_sorted_file_from_idx(base)
+    return base
+
+
+def rebuild_ec_shards(store: Store, vid: int,
+                      collection: Optional[str] = None,
+                      backend: str = "cuda") -> List[int]:
+    """VolumeEcShardsRebuild: regenerate missing .ecNN from >=10 local
+    ones. Returns the rebuilt shard ids."""
+    base = _find_ec_base(store, vid, collection)
+    if base is None:
+        raise EcShardNotFound(f"no local ec files for volume {vid}")
+    return encoder.rebuild_ec_files(base, backend=backend)
+
+
+def mount_ec_shards(store: Store, vid: int, collection: str,
+                    shard_ids: Iterable[int]) -> EcVolume:
+    """VolumeEcShardsMount: open shard files and register the EcVolume."""
+    base = _find_ec_base(store, vid, collection)
+    if base is None:
+        raise EcShardNotFound(f"volume {vid}: no .ecx on any disk location")
+    loc = _location_of_base(store, base)
+    ecv = loc.ec_volumes.get(vid)
+    if ecv is None:
+        ecv = EcVolume(loc.directory, collection, vid)
+        loc.ec_volumes[vid] = ecv
+    for sid in shard_ids:
+        ecv.mount_shard(sid)
+    return ecv
+
+
+def unmount_ec_shards(store: Store, vid: int,
+                      shard_ids: Iterable[int]) -> None:
+    """VolumeEcShardsUnmount; drops the EcVolume when no shards remain."""
+    ecv = store.find_ec_volume(vid)
+    if ecv is None:
+        return
+    for sid in shard_ids:
+        ecv.unmount_shard(sid)
+    if not ecv.shards:
+        loc = store.location_of(vid)
+        ecv.close()
+        if loc is not None:
+            loc.ec_volumes.pop(vid, None)
+
+
+def read_ec_needle(store: Store, vid: int, n: Needle,
+                   rs: Optional[ReedSolomon] = None,
+                   version: int = 3) -> Needle:
+    """ReadEcShardNeedle: cookie-checked needle read over the local
+    shards with on-the-fly RS recovery (store_ec.go:122-262)."""
+    ecv = store.find_ec_volume(vid)
+    if ecv is None:
+        raise EcShardNotFound(f"ec volume {vid} not mounted")
+    return ecv.read_needle(n, version, rs=rs)
+
+
+def delete_ec_needle(store: Store, vid: int, n: Needle) -> None:
+    """Tombstone in .ecx + journal to .ecj (store_ec_delete.go)."""
+    ecv = store.find_ec_volume(vid)
+    if ecv is None:
+        raise EcShardNotFound(f"ec volume {vid} not mounted")
+    ecv.delete_needle(n.id)
+
+
+def ec_shards_to_volume(store: Store, vid: int, collection: str = "",
+                        backend: str = "cuda",
+                        large_block: int = encoder.LARGE_BLOCK_SIZE,
+                        small_block: int = encoder.SMALL_BLOCK_SIZE) -> Volume:
+    """VolumeEcShardsToVolume: decode .ec00-09 (+.ecx/.ecj) back into a
+    loadable .dat/.idx volume (reference
+    volume_grpc_erasure_coding.go:360-400 + ec_decoder.go). Missing data
+    shards are rebuilt first; missing parity is left alone."""
+    if store.find_ec_volume(vid) is not None:
+        raise EcShardNotFound(
+            f"volume {vid}: unmount ec shards before decoding back "
+            "(a mounted EcVolume would serve stale reads)")
+    base = _find_ec_base(store, vid, collection or None)
+    if base is None:
+        raise EcShardNotFound(f"volume {vid}: no .ecx to decode from")
+    loc = _location_of_base(store, base)
+    stem = os.path.basename(base)
+    collection = stem.rsplit("_", 1)[0] if "_" in stem else ""
+    encoder.rebuild_ec_files(base, backend=backend,
+                             wanted=list(range(encoder.DATA_SHARDS)))
+    encoder.write_dat_file(base, encoder.find_dat_file_size(base),
+                           backend=backend, large_block=large_block,
+                           small_block=small_block)
+    encoder.write_idx_file_from_ec_index(base)
+    with loc._lock:
+        v = Volume(loc.directory, collection, vid, create_if_missing=False)
+        loc.volumes[vid] = v
+    return v

@@ -1,0 +1,217 @@
+"""Needle: one stored blob in a volume file.
+
+On-disk layout (version 2/3; reference weed/storage/needle/
+needle_read_write.go:33-157, all integers big-endian):
+
+  header:  cookie(4) id(8) size(4)
+  body:    dataSize(4) data flags(1)
+           [nameSize(1) name]         if FLAG_HAS_NAME
+           [mimeSize(1) mime]         if FLAG_HAS_MIME
+           [lastModified(5)]          if FLAG_HAS_LAST_MODIFIED
+           [ttl(2)]                   if FLAG_HAS_TTL
+           [pairsSize(2) pairs]       if FLAG_HAS_PAIRS
+  tail:    checksum(4) [appendAtNs(8) v3 only] padding(1..8)
+
+`size` covers the body only; the record is padded so its total length is a
+multiple of 8 (the reference's formula yields 8 pad bytes, not 0, when
+already aligned — reproduced for byte compatibility). The checksum is
+CRC32-Castagnoli over `data` with the snappy-style mask
+(reference weed/storage/needle/crc.go:24-26).
+"""
+
+from __future__ import annotations
+
+import struct
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from seaweedfs_tpu_torch.native import crc
+from seaweedfs_tpu_torch.storage import types as t
+from seaweedfs_tpu_torch.storage.superblock import TTL
+
+FLAG_IS_COMPRESSED = 0x01
+FLAG_HAS_NAME = 0x02
+FLAG_HAS_MIME = 0x04
+FLAG_HAS_LAST_MODIFIED = 0x08
+FLAG_HAS_TTL = 0x10
+FLAG_HAS_PAIRS = 0x20
+FLAG_IS_CHUNK_MANIFEST = 0x80
+
+LAST_MODIFIED_BYTES = 5
+TTL_BYTES = 2
+
+VERSION2 = 2
+VERSION3 = 3
+
+
+def masked_crc(data: bytes) -> int:
+    """CRC32C with the snappy rotation mask — the needle checksum."""
+    c = crc.crc32c(data)
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def padding_length(size: int, version: int = VERSION3) -> int:
+    base = t.NEEDLE_HEADER_SIZE + size + t.NEEDLE_CHECKSUM_SIZE
+    if version == VERSION3:
+        base += t.TIMESTAMP_SIZE
+    return t.NEEDLE_PADDING - (base % t.NEEDLE_PADDING)
+
+
+def body_length(size: int, version: int = VERSION3) -> int:
+    base = size + t.NEEDLE_CHECKSUM_SIZE + padding_length(size, version)
+    if version == VERSION3:
+        base += t.TIMESTAMP_SIZE
+    return base
+
+
+def actual_size(size: int, version: int = VERSION3) -> int:
+    return t.NEEDLE_HEADER_SIZE + body_length(size, version)
+
+
+class NeedleError(Exception):
+    pass
+
+
+class CookieMismatch(NeedleError):
+    pass
+
+
+class DataCorruptionError(NeedleError):
+    """Stored bytes fail their checksum: silent corruption, not a
+    protocol error."""
+
+
+def verify_needle_integrity(n: "Needle") -> None:
+    """Raise DataCorruptionError unless n.data matches the stored
+    masked CRC."""
+    if n.size > 0 and n.checksum != masked_crc(n.data):
+        raise DataCorruptionError(
+            f"needle {n.id:x} crc mismatch: stored {n.checksum:08x} "
+            f"!= computed {masked_crc(n.data):08x}")
+
+
+@dataclass
+class Needle:
+    id: int = 0
+    cookie: int = 0
+    data: bytes = b""
+    flags: int = 0
+    name: bytes = b""
+    mime: bytes = b""
+    pairs: bytes = b""
+    last_modified: int = 0  # unix seconds
+    ttl: Optional[TTL] = None
+    checksum: int = 0  # masked crc, filled on serialize/parse
+    append_at_ns: int = 0
+    size: int = field(default=0)  # body size as stored in the header
+
+    def _sync_flags(self) -> None:
+        if self.name:
+            self.flags |= FLAG_HAS_NAME
+        if self.mime:
+            self.flags |= FLAG_HAS_MIME
+        if self.last_modified:
+            self.flags |= FLAG_HAS_LAST_MODIFIED
+        if self.ttl is not None and not self.ttl.is_empty:
+            self.flags |= FLAG_HAS_TTL
+        if self.pairs:
+            self.flags |= FLAG_HAS_PAIRS
+
+    # -- serialization -------------------------------------------------------
+
+    def to_bytes(self, version: int = VERSION3) -> bytes:
+        """Serialize, updating self.size/checksum/append_at_ns."""
+        self._sync_flags()
+        name = self.name[:255]
+        mime = self.mime[:255]
+        body = bytearray()
+        if len(self.data) > 0:
+            body += struct.pack(">I", len(self.data))
+            body += self.data
+            body.append(self.flags)
+            if self.flags & FLAG_HAS_NAME:
+                body.append(len(name))
+                body += name
+            if self.flags & FLAG_HAS_MIME:
+                body.append(len(mime))
+                body += mime
+            if self.flags & FLAG_HAS_LAST_MODIFIED:
+                body += struct.pack(">Q", self.last_modified)[8 - LAST_MODIFIED_BYTES:]
+            if self.flags & FLAG_HAS_TTL:
+                body += (self.ttl or TTL.empty()).to_bytes()
+            if self.flags & FLAG_HAS_PAIRS:
+                body += struct.pack(">H", len(self.pairs))
+                body += self.pairs
+        self.size = len(body)
+        self.checksum = masked_crc(self.data)
+        if version == VERSION3 and self.append_at_ns == 0:
+            self.append_at_ns = time.time_ns()
+        out = bytearray()
+        out += struct.pack(">IQI", self.cookie, self.id, self.size)
+        out += body
+        out += struct.pack(">I", self.checksum)
+        if version == VERSION3:
+            out += struct.pack(">Q", self.append_at_ns)
+        out += b"\x00" * padding_length(self.size, version)
+        return bytes(out)
+
+    @classmethod
+    def from_bytes(cls, blob: bytes, version: int = VERSION3,
+                   check_crc: bool = True) -> "Needle":
+        """Parse a full needle record (header+body+tail) as written."""
+        if len(blob) < t.NEEDLE_HEADER_SIZE:
+            raise NeedleError("needle blob too short")
+        cookie, nid, size_u = struct.unpack_from(">IQI", blob, 0)
+        size = t.size_to_int32(size_u)
+        if t.size_is_deleted(size):
+            raise NeedleError(f"needle size {size} marks a tombstone")
+        n = cls(id=nid, cookie=cookie, size=size)
+        n._parse_body(blob[t.NEEDLE_HEADER_SIZE:t.NEEDLE_HEADER_SIZE + size])
+        tail_off = t.NEEDLE_HEADER_SIZE + size
+        (n.checksum,) = struct.unpack_from(">I", blob, tail_off)
+        if version == VERSION3:
+            (n.append_at_ns,) = struct.unpack_from(">Q", blob, tail_off + 4)
+        if check_crc:
+            verify_needle_integrity(n)
+        return n
+
+    def _parse_body(self, body: bytes) -> None:
+        if not body:
+            return
+        (data_size,) = struct.unpack_from(">I", body, 0)
+        off = 4
+        self.data = body[off:off + data_size]
+        off += data_size
+        self.flags = body[off]
+        off += 1
+        if self.flags & FLAG_HAS_NAME:
+            ln = body[off]
+            off += 1
+            self.name = body[off:off + ln]
+            off += ln
+        if self.flags & FLAG_HAS_MIME:
+            lm = body[off]
+            off += 1
+            self.mime = body[off:off + lm]
+            off += lm
+        if self.flags & FLAG_HAS_LAST_MODIFIED:
+            self.last_modified = int.from_bytes(
+                body[off:off + LAST_MODIFIED_BYTES], "big")
+            off += LAST_MODIFIED_BYTES
+        if self.flags & FLAG_HAS_TTL:
+            self.ttl = TTL.from_bytes(body[off:off + TTL_BYTES])
+            off += TTL_BYTES
+        if self.flags & FLAG_HAS_PAIRS:
+            (ps,) = struct.unpack_from(">H", body, off)
+            off += 2
+            self.pairs = body[off:off + ps]
+            off += ps
+
+    # -- TTL -----------------------------------------------------------------
+
+    def has_expired(self, now: Optional[float] = None) -> bool:
+        if self.ttl is None or self.ttl.is_empty or not self.last_modified:
+            return False
+        now = time.time() if now is None else now
+        return now >= self.last_modified + self.ttl.minutes * 60

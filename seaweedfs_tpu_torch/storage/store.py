@@ -1,0 +1,88 @@
+"""Store: all DiskLocations of one volume server; routes ops by volume id.
+
+Reference: weed/storage/store.go (struct :32-48, read/write/delete
+:302-330).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Optional
+
+from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+from seaweedfs_tpu_torch.storage.needle import Needle, NeedleError
+from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement, TTL
+from seaweedfs_tpu_torch.storage.volume import Volume
+
+
+class Store:
+    def __init__(self, directories: List[str],
+                 max_volume_counts: Optional[List[int]] = None):
+        if max_volume_counts is None:
+            max_volume_counts = [8] * len(directories)
+        self.locations = [DiskLocation(d, c)
+                          for d, c in zip(directories, max_volume_counts)]
+        self._lock = threading.RLock()
+        for loc in self.locations:
+            loc.load_existing_volumes()
+
+    # -- volume routing ------------------------------------------------------
+
+    def find_volume(self, vid: int) -> Optional[Volume]:
+        for loc in self.locations:
+            v = loc.get_volume(vid)
+            if v is not None:
+                return v
+        return None
+
+    def find_ec_volume(self, vid: int):
+        for loc in self.locations:
+            ecv = loc.ec_volumes.get(vid)
+            if ecv is not None:
+                return ecv
+        return None
+
+    def location_of(self, vid: int) -> Optional[DiskLocation]:
+        for loc in self.locations:
+            if loc.get_volume(vid) is not None or vid in loc.ec_volumes:
+                return loc
+        return None
+
+    def add_volume(self, vid: int, collection: str = "",
+                   replica_placement: str = "000", ttl: str = "") -> Volume:
+        with self._lock:
+            existing = self.find_volume(vid)
+            if existing is not None:
+                return existing
+            for loc in self.locations:
+                if loc.has_free_slot():
+                    return loc.add_volume(
+                        vid, collection,
+                        replica_placement=ReplicaPlacement.parse(
+                            replica_placement),
+                        ttl=TTL.parse(ttl))
+            raise RuntimeError("no free volume slot on any disk location")
+
+    # -- data ops ------------------------------------------------------------
+
+    def write_needle(self, vid: int, n: Needle, fsync: bool = False):
+        v = self.find_volume(vid)
+        if v is None:
+            raise NeedleError(f"volume {vid} not found")
+        return v.write_needle(n, fsync=fsync)
+
+    def read_needle(self, vid: int, n: Needle) -> Needle:
+        v = self.find_volume(vid)
+        if v is None:
+            raise NeedleError(f"volume {vid} not found")
+        return v.read_needle(n)
+
+    def delete_needle(self, vid: int, n: Needle) -> int:
+        v = self.find_volume(vid)
+        if v is None:
+            raise NeedleError(f"volume {vid} not found")
+        return v.delete_needle(n)
+
+    def close(self) -> None:
+        for loc in self.locations:
+            loc.close()

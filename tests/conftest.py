@@ -20,6 +20,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running case excluded from tier-1 "
         "(-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where "
+        "torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(items):
