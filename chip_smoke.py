@@ -12,9 +12,18 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    its plain PyTorch version (``gf_linear_plain``, also on the card) for
    the encode matrix and the decode matrices of four loss sets, at lane
    counts 0, 1, 127, 128, 32768+257 and 64 Mi, and at the main path's
-   encode slab [6, 10, 1 MiB]. At that slab and at 64 Mi lanes: the
-   kernel's median time over 20 launches (CUDA events), its memory bound,
-   GB/s, and the plain version's time. The JSON line carries the slab's.
+   encode slab [6, 10, 1 MiB]; and for a map with O = 14 at 32768+257
+   lanes. Then every kind of launch on the main path, each checked the
+   same way and timed with CUDA events: the encode at the slab and at a
+   64 Mi-lane large row, the rebuild's O=4 decode at the slab (``ms``:
+   median of 20 single launches), and the degraded read's O=1 decode at
+   [10, 1 KiB] and at one needle's interval (median of 200 single
+   launches). A single launch's time includes the host's cost of the
+   call; ``ms_pipelined``, the median of 20 samples of 10 back-to-back
+   launches, hides most of it, and ``ms_device``, the median of the
+   kernel's own durations in a torch.profiler trace, all of it. Each time
+   is printed beside its memory bound, its share of it, and the plain
+   version's time. The JSON line carries the slab's.
 3. Main path, through the store-level entry points the volume server
    calls, on a volume of ``--needles`` x 1,024 B needles (default
    1,048,576: upstream ``weed benchmark -n 1048576 -size 1024``):
@@ -92,38 +101,72 @@ def build_all() -> float:
             fut.result()
     secs = time.perf_counter() - t0
     for line in gf_kernel.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or \
+                "spill" in line:
             log(f"  ptxas: {line.strip()}")
     return secs
 
 
 # --- phase 2 ------------------------------------------------------------------
 
-def kernel_matrices():
+def kernel_matrices() -> dict:
+    """The encode matrix and the decode maps of LOSS_SETS (checked at every
+    shape), then the main path's other maps: the rebuild of LOST, a
+    degraded read of shard 5 with LOST missing, and one map with O > 4
+    (every shard from the data shards)."""
     from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon, coding_matrix
     rs = ReedSolomon(backend="cpu")
-    mats = [("encode", coding_matrix()[10:])]
+
+    def decode(lost, wanted):
+        return rs.decode_matrix([i for i in range(14) if i not in lost],
+                                list(wanted))
+
+    mats = {"encode": coding_matrix()[10:]}
     for lost in LOSS_SETS:
-        present = [i for i in range(14) if i not in lost]
-        mats.append((f"decode{lost}", rs.decode_matrix(present, list(lost))))
+        mats[f"decode{lost}"] = decode(lost, lost)
+    mats["rebuild"] = decode(LOST, LOST)
+    mats["read"] = decode(LOST, [5])
+    mats["all_shards"] = coding_matrix()
     return mats
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` single-call times from CUDA events."""
+def time_ms(fn, samples: int, launches: int = 1) -> float:
+    """Median over ``samples`` of the time per call of ``launches``
+    back-to-back calls, from CUDA events around each sample. With one
+    launch a sample includes the host's cost of the call, since the card
+    waits for it."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(samples):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return float(np.median(times))
+
+
+def device_ms(fn, launches: int):
+    """Median duration on the card of the gf_linear kernel over
+    ``launches`` calls, from torch.profiler's device events: no host
+    cost. None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if str(e.device_type).endswith("CUDA") and "gf_linear" in e.name]
+    return float(np.median(times)) if times else None
 
 
 def main_path_encode_shape() -> tuple:
@@ -135,54 +178,90 @@ def main_path_encode_shape() -> tuple:
     return (rows, 10, SMALL_BLOCK_SIZE)
 
 
-def time_kernel(gm, data, label: str) -> dict:
-    """Kernel (20 launches) and plain version (3 calls) on one input; the
-    bound is the bytes moved, each input read and each output written once,
-    over the card's memory rate."""
+def needle_interval() -> int:
+    """Bytes a degraded read of one NEEDLE_SIZE needle reconstructs: the
+    needle as stored (header, body, checksum, timestamp, padding)."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    return len(Needle(id=1, cookie=0, data=bytes(NEEDLE_SIZE)).to_bytes())
+
+
+def time_kernel(gm, data, label: str, reps: int) -> dict:
+    """Kernel (median of ``reps`` single launches, of 20 samples of 10
+    back-to-back launches, and of its device durations over ``reps``
+    launches) and plain version (3 calls) on one input; the bound is the
+    bytes moved, each input read and each output written once, over the
+    card's memory rate."""
     from seaweedfs_tpu_torch.ops import gf_kernel
-    ms = time_ms(lambda: gf_kernel.gf_linear(gm, data), 20)
+
+    def kernel():
+        gf_kernel.gf_linear(gm, data)
+
+    ms = time_ms(kernel, reps)
+    ms_pipelined = time_ms(kernel, 20, 10)
+    ms_device = device_ms(kernel, reps)
     plain_ms = time_ms(lambda: gf_kernel.gf_linear_plain(gm.m2, data), 3)
     nbytes = data.numel() // gm.cols * (gm.rows + gm.cols)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"  gf_linear {label} {tuple(data.shape)}: {ms:.4f} ms median of 20,"
-        f" {nbytes / ms / 1e6:.1f} GB/s, bound {bound_ms:.4f} ms "
-        f"({bound_ms / ms:.1%} of bound), plain {plain_ms:.2f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    log(f"  gf_linear {label} {tuple(data.shape)} O={gm.rows}: "
+        f"{ms:.4f} ms single (median of {reps}, {bound_ms / ms:.2%} of "
+        f"bound), {ms_pipelined:.4f} ms pipelined (median of 20 x 10, "
+        f"{bound_ms / ms_pipelined:.2%}), " + (
+            f"{ms_device:.4f} ms on the card (median of {reps}, "
+            f"{bound_ms / ms_device:.2%})" if ms_device else
+            "time on the card not measured") +
+        f", bound {bound_ms:.4g} ms, plain {plain_ms:.3f} ms")
+    return dict(ms=ms, ms_pipelined=ms_pipelined, ms_device=ms_device,
+                plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 def phase_kernel(seed: int) -> dict:
     """Byte equality with the plain version over every matrix and shape;
-    times at the main path's encode slab and at a 64 Mi-lane large row."""
+    times of every kind of launch on the main path."""
     import torch
     from seaweedfs_tpu_torch.ops import gf_kernel
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    mats = kernel_matrices()
     max_err = 0
-    timing = {}
-    shapes = [(10, n) for n in (0, 1, 127, 128, 32768 + 257, BIG_LANES)]
-    shapes.append(main_path_encode_shape())
-    for shape in shapes:
+
+    def check(name: str, shape: tuple):
+        nonlocal max_err
         data = torch.randint(0, 256, shape, generator=gen,
                              device=dev, dtype=torch.uint8)
-        for name, m in kernel_matrices():
-            gm = gf_kernel.prepare_matrix(m, dev)
-            got = gf_kernel.gf_linear(gm, data)
-            want = gf_kernel.gf_linear_plain(gm.m2, data)
-            torch.cuda.synchronize()
-            if got.shape != want.shape:
-                raise AssertionError(f"{name} {shape}: shape {got.shape}")
-            err = int((got.int() - want.int()).abs().max()) \
-                if got.numel() else 0
-            max_err = max(max_err, err)
-            if err:
-                raise AssertionError(f"gf_linear {name} {shape}: kernel "
-                                     f"differs from plain (max err {err})")
-            if name == "encode" and shape == shapes[-1]:
-                timing["main"] = time_kernel(gm, data, "encode, main path")
-            elif name == "encode" and shape[-1] == BIG_LANES:
-                timing["large_row"] = time_kernel(gm, data,
-                                                  "encode, 64 MiB large row")
-        log(f"  {shape}: kernel == plain for {len(LOSS_SETS) + 1} matrices")
+        gm = gf_kernel.prepare_matrix(mats[name], dev)
+        got = gf_kernel.gf_linear(gm, data)
+        want = gf_kernel.gf_linear_plain(gm.m2, data)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"{name} {shape}: shape {got.shape}")
+        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"gf_linear {name} {shape}: kernel "
+                                 f"differs from plain (max err {err})")
+        return gm, data
+
+    slab = main_path_encode_shape()
+    shapes = [(10, n) for n in (0, 1, 127, 128, 32768 + 257, BIG_LANES)]
+    for shape in shapes + [slab]:
+        names = ["encode"] + [f"decode{lost}" for lost in LOSS_SETS]
+        for name in names:
+            check(name, shape)
+        log(f"  {shape}: kernel == plain for {len(names)} matrices")
+    check("all_shards", (10, 32768 + 257))
+    log(f"  (10, {32768 + 257}): kernel == plain for O=14")
+
+    timing = {}
+    for key, label, name, shape, reps in (
+            ("main", "encode, main path", "encode", slab, 20),
+            ("large_row", "encode, 64 MiB large row", "encode",
+             (10, BIG_LANES), 20),
+            ("rebuild", f"rebuild decode of {LOST}", "rebuild", slab, 20),
+            ("read", "degraded read, 1 KiB", "read", (10, 1024), 200),
+            ("read_needle", "degraded read, one needle's interval", "read",
+             (10, needle_interval()), 200)):
+        gm, data = check(name, shape)
+        timing[key] = time_kernel(gm, data, label, reps)
     return dict(max_abs_err=max_err, **timing)
 
 

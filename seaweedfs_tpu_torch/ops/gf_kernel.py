@@ -66,7 +66,7 @@ def load() -> ctypes.CDLL:
                 lib = ctypes.CDLL(path)
                 lib.gf_linear_launch.restype = ctypes.c_int
                 lib.gf_linear_launch.argtypes = [
-                    ctypes.c_void_p,     # tables [O, S, 256]
+                    ctypes.c_void_p,     # tables [G, S, 2, 16] words
                     ctypes.c_int,        # O
                     ctypes.c_int,        # S
                     ctypes.c_void_p,     # data [B, S, N]
@@ -83,7 +83,10 @@ def load() -> ctypes.CDLL:
 class GfMatrix:
     """A GF(2^8) matrix prepared for one device."""
     matrix: np.ndarray    # [O, S] uint8 (read-only host copy)
-    tables: torch.Tensor  # [O, S, 256] uint8: tables[o, s, x] = m[o,s] * x
+    # [G, S, 2, 16] int32, G = ceil(O / 4): the kernel's packed nibble
+    # tables (nibble_tables); byte o of word [g, s, h, v] is
+    # m[4g + o, s] * (v << 4h)
+    tables: torch.Tensor
     m2: torch.Tensor      # [O*8, S*8] float32 GF(2) bit-matrix, shard-major
 
     @property
@@ -112,9 +115,25 @@ def prepare_matrix(matrix, device) -> GfMatrix:
 @functools.lru_cache(maxsize=128)
 def _prepare(matrix_bytes: bytes, shape: tuple, device: str) -> GfMatrix:
     m = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(shape)
-    tables = torch.from_numpy(np.ascontiguousarray(gf256.GF_MUL_TABLE[m]))
+    tables = torch.from_numpy(nibble_tables(m).view(np.int32))
     m2 = torch.from_numpy(gf256.gf256_matrix_to_gf2(m).astype(np.float32))
     return GfMatrix(matrix=m, tables=tables.to(device), m2=m2.to(device))
+
+
+def nibble_tables(m: np.ndarray) -> np.ndarray:
+    """The kernel's tables of an ``[O, S]`` matrix: ``[G, S, 2, 16]``
+    uint32, G = ceil(O / 4). Since ``c * x = c * (x & 0x0F) ^ c * (x &
+    0xF0)``, byte o (little-endian) of word ``[g, s, h, v]`` is
+    ``m[4g + o, s] * (v << 4h)``, and 0 for rows past O."""
+    o, s = m.shape
+    groups = (o + 3) // 4
+    padded = np.zeros((groups * 4, s), dtype=np.uint8)
+    padded[:o] = m
+    v = np.arange(16, dtype=np.uint8)
+    x = np.stack([v, v << 4])                                   # [2, 16]
+    prod = gf256.GF_MUL_TABLE[padded[:, :, None, None], x]     # [4G, S, 2, 16]
+    prod = prod.reshape(groups, 4, s, 2, 16).transpose(0, 2, 3, 4, 1)
+    return np.ascontiguousarray(prod).view("<u4")[..., 0]
 
 
 def gf_linear(matrix, data: torch.Tensor) -> torch.Tensor:

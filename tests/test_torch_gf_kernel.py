@@ -4,7 +4,9 @@
 runs, and what the CUDA kernel is compared with on the card) must equal,
 byte for byte, the TPU kernel K1 (``rs_pallas.apply_matrix``, interpret
 mode off-TPU), the XLA map X1 (``rs_kernel.apply_matrix``) and the numpy
-ground truth. GF arithmetic has no rounding: the tolerance is exact bytes.
+ground truth. The CUDA kernel's table layout is held the same way through
+a numpy model of its lookups. GF arithmetic has no rounding: the tolerance
+is exact bytes.
 """
 
 import ast
@@ -25,6 +27,26 @@ from seaweedfs_tpu_torch.ops import gf256, gf_kernel
 
 LANES = (0, 1, 127, 128, 32768 + 257)
 SHAPES = ((4, 10), (1, 10), (3, 7), (14, 14))
+KERNEL_LANES = (0, 1, 15, 16, 17, 127, 128, 32768 + 257)
+LOSS_SETS = ((0,), (13,), (2, 5, 9, 12), (10, 11, 12, 13))
+
+
+def _kernel_matrices():
+    """The maps the main path gives the kernel: the encode matrix, the
+    decode maps of LOSS_SETS, a degraded read's one-row map
+    (shard 5 from the first ten others with {0, 5, 11, 13} lost), and one
+    map with O > 4 (every shard from the data shards, O = 14)."""
+    jrs = jax_rs_code.ReedSolomon(backend="jax")
+    coding = jax_rs_code.coding_matrix()
+    mats = {"encode": coding[10:], "all_shards": coding}
+    for lost in LOSS_SETS:
+        present = [i for i in range(14) if i not in lost]
+        mats[f"decode{lost}"] = jrs.decode_matrix(present, list(lost))
+    mats["read"] = jrs.decode_matrix([1, 2, 3, 4, 6, 7, 8, 9, 10, 12], [5])
+    return mats
+
+
+KERNEL_MATRICES = _kernel_matrices()
 
 
 def _rand(rng, shape):
@@ -122,8 +144,7 @@ def test_prepare_matrix_takes_jax_package_matrices():
     for m, src, want in cases:
         gm = gf_kernel.prepare_matrix(m, "cpu")
         np.testing.assert_array_equal(gm.matrix, m)
-        np.testing.assert_array_equal(gm.tables.numpy(),
-                                      jax_gf256.GF_MUL_TABLE[m])
+        _check_tables(gm, jax_gf256.GF_MUL_TABLE)
         np.testing.assert_array_equal(gm.m2.numpy().astype(np.uint8),
                                       jax_gf256.gf256_matrix_to_gf2(m))
         np.testing.assert_array_equal(
@@ -187,15 +208,158 @@ def test_port_imports_neither_jax_nor_jax_package():
                     f"{path.relative_to(root)} imports {name}"
 
 
+def _check_tables(gm, mul_table):
+    """Byte o of word [g, s, h, v] is m[4g + o, s] * (v << 4h), 0 past O."""
+    m = gm.matrix
+    words = gm.tables.numpy().view(np.uint32)
+    groups = -(-m.shape[0] // 4)
+    assert words.shape == (groups, m.shape[1], 2, 16)
+    v = np.arange(16)
+    for g in range(groups):
+        for o in range(4):
+            got = (words[g] >> np.uint32(8 * o)) & 0xFF     # [S, 2, 16]
+            if 4 * g + o >= m.shape[0]:
+                assert not got.any()
+                continue
+            c = m[4 * g + o][:, None, None]
+            np.testing.assert_array_equal(
+                got, mul_table[c, np.stack([v, v << 4])[None]])
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
+    (sel >> 4n) & 7 of the pair (x, y)."""
+    src = [(a >> np.uint32(8 * i)) & np.uint32(0xFF)
+           for a in (x, y) for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> (4 * n)) & 7] << np.uint32(8 * n)
+    return out
+
+
+def _one_wavefront(words):
+    """True when every warp (32 consecutive units) reads at most one
+    distinct word from each of the 32 banks: a single wavefront."""
+    pad = -len(words) % 32
+    w = np.sort(np.concatenate([words, np.repeat(words[-1:], pad)])
+                .reshape(-1, 32), axis=1)
+    new = np.ones(w.shape, dtype=bool)
+    new[:, 1:] = w[:, 1:] != w[:, :-1]
+    key = np.nonzero(new)[0] * 32 + w[new] % 32   # (warp, bank) per word
+    return len(np.unique(key)) == len(key)
+
+
+def _kernel_model(gm, data):
+    """numpy model of csrc/gf_linear.cu on ``[B, S, N]`` uint8 data. It
+    reads ``gm.tables`` as the kernel does: the ``[G][S][2][16]`` words as
+    they lie in shared memory, two lookups per input byte at byte address
+    ``((g*S + s)*2 + h)*64`` plus the nibble pre-scaled by 4, XOR into one
+    packed word per lane, and the 4x4 byte transpose of ``transpose4``
+    back to output rows. It also holds every warp's lookup to one
+    shared-memory wavefront."""
+    smem = gm.tables.numpy().view(np.uint32).reshape(-1)
+    o_rows, s_rows = gm.rows, gm.cols
+    b, _, n = data.shape
+    nvec = -(-n // 16)
+    out = np.zeros((b, o_rows, n), dtype=np.uint8)
+    if n == 0:
+        return out
+    padded = np.zeros((b, s_rows, nvec * 16), dtype=np.uint8)
+    padded[..., :n] = data
+    x = padded.view("<u4").reshape(b, s_rows, nvec, 4)
+    mask = np.uint32(0x3C3C3C3C)
+
+    def lookup(table_byte, v4):
+        word = (table_byte + v4) // 4
+        assert _one_wavefront(word.reshape(-1))
+        return smem[word]
+
+    for g in range(-(-o_rows // 4)):
+        acc = np.zeros((b, nvec, 16), dtype=np.uint32)
+        for s in range(s_rows):
+            lo_tab = (g * s_rows + s) * 2 * 64
+            for q in range(4):
+                lo4 = (x[:, s, :, q] << np.uint32(2)) & mask
+                hi4 = (x[:, s, :, q] >> np.uint32(2)) & mask
+                for j in range(4):
+                    shift = np.uint32(8 * j)
+                    acc[:, :, q * 4 + j] ^= (
+                        lookup(lo_tab, (lo4 >> shift) & np.uint32(0xFF))
+                        ^ lookup(lo_tab + 64, (hi4 >> shift) & np.uint32(0xFF)))
+        rows = np.empty((4, b, nvec, 4), dtype=np.uint32)  # [o, b, unit, j]
+        for j in range(4):
+            a = [acc[:, :, j * 4 + k] for k in range(4)]
+            t0 = _byte_perm(a[0], a[1], 0x5140)
+            t1 = _byte_perm(a[0], a[1], 0x7362)
+            t2 = _byte_perm(a[2], a[3], 0x5140)
+            t3 = _byte_perm(a[2], a[3], 0x7362)
+            rows[0, ..., j] = _byte_perm(t0, t2, 0x5410)
+            rows[1, ..., j] = _byte_perm(t0, t2, 0x7632)
+            rows[2, ..., j] = _byte_perm(t1, t3, 0x5410)
+            rows[3, ..., j] = _byte_perm(t1, t3, 0x7632)
+        for o in range(min(4, o_rows - 4 * g)):
+            row = np.ascontiguousarray(rows[o]).view(np.uint8)
+            out[:, 4 * g + o] = row.reshape(b, nvec * 16)[:, :n]
+    return out
+
+
+@pytest.mark.parametrize("lanes", KERNEL_LANES)
+@pytest.mark.parametrize("name", sorted(KERNEL_MATRICES))
+def test_kernel_table_layout_matches_pallas_and_numpy(name, lanes):
+    m = KERNEL_MATRICES[name]
+    rng = np.random.default_rng(300 + lanes)
+    data = _rand(rng, (2, m.shape[1], lanes))
+    gm = gf_kernel.prepare_matrix(m, "cpu")
+    _check_tables(gm, jax_gf256.GF_MUL_TABLE)
+    got = _kernel_model(gm, data)
+    np.testing.assert_array_equal(got, jax_gf256.gf_linear_numpy(m, data))
+    np.testing.assert_array_equal(
+        got, np.stack([rs_pallas.apply_matrix(m, row) for row in data]))
+
+
+@pytest.mark.parametrize("rows,nvec,grid", [
+    (1, 67, 1), (6, 65536, 396), (3, 5, 2), (7, 300, 11), (2, 1, 3),
+    (5, 256, 7), (4, 255, 9)])
+def test_kernel_work_split_visits_each_unit_once(rows, nvec, grid):
+    """The kernel's even split of B * ceil(N/16) units over the grid and
+    its (row, unit) stepping, replayed in Python: every unit once, at the
+    row and column a division would give."""
+    threads = 256
+    total = rows * nvec
+    seen = np.zeros(total, dtype=np.int64)
+    sizes = []
+    for block in range(grid):
+        first = total * block // grid
+        last = total * (block + 1) // grid
+        sizes.append(last - first)
+        for t in range(threads):
+            u = first + t
+            b, c = divmod(u, nvec)
+            while u < last:
+                assert (b, c) == divmod(u, nvec)
+                seen[u] += 1
+                c += threads
+                if c >= nvec:
+                    if nvec >= threads:
+                        c -= nvec
+                        b += 1
+                    else:
+                        b += c // nvec
+                        c %= nvec
+                u += threads
+    assert (seen == 1).all()
+    assert max(sizes) - min(sizes) <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", LANES + (1 << 20,))
 def test_cuda_kernel_matches_plain(lanes):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     rng = np.random.default_rng(9 + lanes)
-    for shape in SHAPES:
-        m = _rand(rng, shape)
-        data = torch.from_numpy(_rand(rng, (2, shape[1], lanes))).cuda()
+    mats = [_rand(rng, shape) for shape in SHAPES]
+    for m in mats + list(KERNEL_MATRICES.values()):
+        data = torch.from_numpy(_rand(rng, (2, m.shape[1], lanes))).cuda()
         gm = gf_kernel.prepare_matrix(m, data.device)
         before = gf_kernel.LAUNCHES
         got = gf_kernel.gf_linear(gm, data)
