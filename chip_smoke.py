@@ -39,7 +39,23 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 4. Chunk sweep: write_ec_files at 16, 64 and 256 MiB codec slabs.
 5. Trace: one write_ec_files under torch.profiler; the card's busy time
    (kernel, H2D, D2H) against the wall time.
-6. One JSON line with the kernel's numbers, the card's nvidia-smi line,
+6. Fleet: 12 volumes of 1,024 B needles, about 1.8 GB of .dat in all
+   (``FLEET_NEEDLES``), written through the port's Store.
+   generate_ec_shards_batch, then fleet_write_ec_files + .ecx, twice
+   per-volume write_ec_files + .ecx over hard-linked twins, and the bare
+   fleet pass again (fleet, per-volume, per-volume, fleet; shard and .ecx
+   hashes must match, sampled parity spans == gf_linear_plain);
+   gf_linear == plain at the fleet's own launch shapes; shards {3, 12}
+   of every volume lost and fleet_rebuild_ec_files (hashes identical);
+   fleet_verify_ec_files clean, then with one .ec11 and one .ec04 byte
+   flipped in two volumes (only those reported, exact counts and
+   offsets); every volume mounted with {0,5,11,13} missing and 4,096
+   sampled needles read from 16 threads through a DegradedReadFleet and
+   again in place (bytes checked, p50/p99, dispatches, mean batch); one
+   fleet encode under torch.profiler. The port's per-stage
+   FleetStageSecondsHistogram sums and the data bytes per fused dispatch
+   are printed for each pass. Each pass's launch count must be > 0.
+7. One JSON line with the kernel's numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -511,17 +527,15 @@ def phase_chunk_sweep(base: str, dat_size: int, want_hashes: list,
     return out
 
 
-def phase_trace(base: str, backend: str) -> dict:
-    """One write_ec_files under torch.profiler: the card's time in the
-    kernel and in each copy direction, against the wall time. Sums of
-    event durations (the side stream runs one thing at a time)."""
+def device_busy(fn) -> tuple:
+    """Wall ms of ``fn()`` under torch.profiler and the card's busy ms by
+    kind (kernel, HtoD, DtoH, other): sums of event durations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from seaweedfs_tpu_torch.ec import encoder
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        encoder.write_ec_files(base, backend=backend)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     busy = {"kernel": 0.0, "HtoD": 0.0, "DtoH": 0.0, "other": 0.0}
@@ -533,13 +547,363 @@ def phase_trace(base: str, backend: str) -> dict:
             "HtoD" if "HtoD" in e.name else \
             "DtoH" if "DtoH" in e.name else "other"
         busy[kind] += ms
+    return wall_ms, busy
+
+
+def log_busy(label: str, wall_ms: float, busy: dict) -> None:
     total = sum(busy.values())
-    log(f"  write_ec_files traced: wall {wall_ms:.1f} ms; card busy "
+    log(f"  {label} traced: wall {wall_ms:.1f} ms; card busy "
         f"{total:.1f} ms ({total / wall_ms:.1%}), idle {1 - total / wall_ms:.1%}"
         f"; " + ", ".join(f"{k} {v:.1f} ms" for k, v in busy.items()))
     if total == 0:
         log("  the profiler saw no device time: idle share not measured")
+
+
+def phase_trace(base: str, backend: str) -> dict:
+    """One write_ec_files under torch.profiler: the card's time in the
+    kernel and in each copy direction, against the wall time. Sums of
+    event durations (the side stream runs one thing at a time)."""
+    from seaweedfs_tpu_torch.ec import encoder
+    wall_ms, busy = device_busy(
+        lambda: encoder.write_ec_files(base, backend=backend))
+    log_busy("write_ec_files", wall_ms, busy)
     return dict(wall_ms=wall_ms, **{f"{k}_ms": v for k, v in busy.items()})
+
+
+# --- phase 6 ------------------------------------------------------------------
+
+# Needles per volume of the fleet: 12 volumes of 1,024 B needles (upstream
+# `weed benchmark -size 1024`) of mixed sizes, about 1.8 GB of .dat.
+FLEET_NEEDLES = (524288, 262144, 262144) + (131072,) * 4 + (32768,) * 4 + \
+    (1000,)
+FLEET_REBUILD_LOST = (3, 12)
+FLEET_SAMPLE = 4096
+FLEET_THREADS = 16
+STAGES = ("read", "dispatch", "rs", "retire", "write", "verify")
+
+
+def write_fleet(store, counts, seed: int, sample_size: int) -> dict:
+    """Volumes 1..len(counts) of NEEDLE_SIZE needles, random bytes and
+    cookies from ``seed``; returns {(vid, needle id): (cookie, bytes)} of
+    ``sample_size`` needles drawn uniformly over all of them."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    rng = np.random.default_rng(seed)
+    total = sum(counts)
+    picks = set(rng.choice(total, size=min(sample_size, total),
+                           replace=False).tolist())
+    sample, first = {}, 0
+    for vid, n in enumerate(counts, start=1):
+        payload = rng.integers(0, 256, (n, NEEDLE_SIZE), dtype=np.uint8)
+        cookies = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+        v = store.add_volume(vid)
+        for i in range(n):
+            data = payload[i].tobytes()
+            v.write_needle(Needle(id=i + 1, cookie=int(cookies[i]),
+                                  data=data))
+            if first + i in picks:
+                sample[(vid, i + 1)] = (int(cookies[i]), data)
+        first += n
+    return sample
+
+
+def fleet_counters() -> dict:
+    """The port's fleet metrics, read before and after a pass: seconds
+    per stage, fused dispatches and the data bytes they carried."""
+    from seaweedfs_tpu_torch.stats import metrics
+    out = {s: metrics.FleetStageSecondsHistogram.labels(s).total
+           for s in STAGES}
+    out["dispatches"] = metrics.FleetDispatchBatchHistogram.labels().count
+    out["bytes"] = metrics.FleetDispatchedBytesCounter.labels().value
+    return out
+
+
+def log_counters(label: str, before: dict) -> dict:
+    after = fleet_counters()
+    d = {k: after[k] - before[k] for k in after}
+    per = d["bytes"] / d["dispatches"] if d["dispatches"] else 0.0
+    log(f"  {label} stage sums: " + ", ".join(
+        f"{s} {d[s]:.3f} s" for s in STAGES if d[s]) +
+        f"; {d['dispatches']} fused dispatches, {per:.0f} B of data per "
+        "dispatch (the pinned input buffer)")
+    d["bytes_per_dispatch"] = per
+    return d
+
+
+def flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def read_fleet_sample(store, sample: dict, lost, decoder, rs) -> tuple:
+    """read_ec_needle of every sampled needle from FLEET_THREADS threads;
+    returns the latencies (s) of the reads that crossed a lost shard and
+    of all reads. Any wrong byte fails the run."""
+    from seaweedfs_tpu_torch.ec import store_ec
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    items = sorted(sample.items())
+
+    def worker(part):
+        degraded, every = [], []
+        for (vid, nid), (cookie, data) in part:
+            ecv = store.find_ec_volume(vid)
+            crosses = any(
+                iv.to_shard_and_offset(ecv.large_block,
+                                       ecv.small_block)[0] in lost
+                for iv in ecv.locate_needle(nid)[2])
+            t0 = time.perf_counter()
+            got = store_ec.read_ec_needle(
+                store, vid, Needle(id=nid, cookie=cookie), rs=rs,
+                decoder=decoder)
+            dt = time.perf_counter() - t0
+            if got.data != data:
+                raise AssertionError(f"volume {vid} needle {nid}: wrong bytes")
+            every.append(dt)
+            if crosses:
+                degraded.append(dt)
+        return degraded, every
+
+    with concurrent.futures.ThreadPoolExecutor(FLEET_THREADS) as pool:
+        parts = list(pool.map(worker, [items[i::FLEET_THREADS]
+                                       for i in range(FLEET_THREADS)]))
+    return ([t for d, _ in parts for t in d], [t for _, e in parts for t in e])
+
+
+def check_fleet_shapes(n_vols: int, span: int, seed: int) -> int:
+    """gf_linear on the card against its plain version at the fleet's own
+    launch shapes: the rebuild's O=2 map at [B, 10, span], the verify's
+    encode at [B, 10, span] and the decode fleet's O=1 map at one
+    needle's interval for batches of 1, 7 and 16."""
+    import torch
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon, coding_matrix
+    rs = ReedSolomon(backend="cpu")
+    rebuild = rs.decode_matrix([i for i in range(14)
+                                if i not in FLEET_REBUILD_LOST],
+                               list(FLEET_REBUILD_LOST))
+    read = rs.decode_matrix([i for i in range(14) if i not in LOST], [5])
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = [(rebuild, (n_vols, 10, span)), (coding_matrix()[10:],
+                                             (n_vols, 10, span))]
+    cases += [(read, (b, 10, needle_interval())) for b in (1, 7, 16)]
+    for matrix, shape in cases:
+        data = torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+        gm = gf_kernel.prepare_matrix(matrix, dev)
+        got = gf_kernel.gf_linear(gm, data)
+        want = gf_kernel.gf_linear_plain(gm.m2, data)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        if err:
+            raise AssertionError(f"gf_linear {shape} O={gm.rows}: kernel "
+                                 f"differs from plain (max err {err})")
+        log(f"  {shape} O={gm.rows}: kernel == plain")
+        del data, got, want
+    return 0
+
+
+def phase_fleet(workdir: str, seed: int, backend: str,
+                counts=FLEET_NEEDLES, sample_size: int = FLEET_SAMPLE) -> dict:
+    """The fused-batch paths across many volumes: generate_ec_shards_batch,
+    then bare fleet passes against per-volume encodes over hard-linked
+    twins (fleet, per-volume, per-volume, fleet),
+    fleet rebuild, fleet verify (clean, then two flipped bytes), and
+    degraded reads through the decode fleet and the in-place path."""
+    from seaweedfs_tpu_torch.ec import encoder, fleet, store_ec
+    from seaweedfs_tpu_torch.ec.encoder import (
+        default_chunk_for, shard_file_name)
+    from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon
+    from seaweedfs_tpu_torch.reads import DegradedReadFleet
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    device = "cuda" if backend == "cuda" else "cpu"
+    codec = None if backend == "cuda" else ReedSolomon(backend="cpu")
+    rng = np.random.default_rng(seed + 1)
+    vol_dir = os.path.join(workdir, "vol")
+    twin_dir = os.path.join(workdir, "twin")
+    os.makedirs(twin_dir)
+    store = Store([vol_dir], [len(counts) + 4])
+    launches = Launches(backend)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        sample = write_fleet(store, counts, seed, sample_size)
+        vids = list(range(1, len(counts) + 1))
+        bases = [store.find_volume(vid).file_name() for vid in vids]
+        twins = []
+        for vid, base in zip(vids, bases):
+            store.find_volume(vid).sync()
+            twin = os.path.join(twin_dir, str(vid))
+            for ext in (".dat", ".idx"):
+                os.link(base + ext, twin + ext)
+            twins.append(twin)
+        dat_bytes = sum(os.path.getsize(b + ".dat") for b in bases)
+        log(f"  wrote {len(counts)} volumes, {sum(counts)} needles of "
+            f"{NEEDLE_SIZE} B (seed {seed}): {dat_bytes} B of .dat in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def per_volume():
+            for twin in twins:
+                encoder.write_ec_files(twin, backend=backend)
+                encoder.write_sorted_file_from_idx(twin)
+
+        def fleet_pass():
+            fleet.fleet_write_ec_files(bases, backend=backend)
+            for base in bases:
+                encoder.write_sorted_file_from_idx(base)
+
+        before = fleet_counters()
+        _, secs = launches.run("fleet_generate",
+                               store_ec.generate_ec_shards_batch, store,
+                               vids, backend=backend)
+        out["generate_stages"] = log_counters("generate_ec_shards_batch",
+                                              before)
+        out["generate_GBps"] = dat_bytes / secs / 1e9
+        log(f"  generate_ec_shards_batch of {len(bases)} volumes: "
+            f"{secs:.3f} s, {out['generate_GBps']:.3f} GB/s of .dat, "
+            f"{launches.per_phase['fleet_generate']} launches")
+        # the same work both ways, in a balanced order: a bare fleet pass
+        # (no freeze or sync, unlike generate_ec_shards_batch) on either
+        # side of the two per-volume passes
+        runs = []
+        for i, (name, fn) in enumerate((("fleet", fleet_pass),
+                                        ("per_volume", per_volume),
+                                        ("per_volume", per_volume),
+                                        ("fleet", fleet_pass))):
+            _, secs = launches.run(f"encode_{i}_{name}", fn)
+            runs.append((name, secs, launches.per_phase[f"encode_{i}_{name}"]))
+            log(f"  {name} encode of {len(bases)} volumes: {secs:.3f} s, "
+                f"{dat_bytes / secs / 1e9:.3f} GB/s of .dat, "
+                f"{runs[-1][2]} launches")
+        out["encode_GBps"] = {
+            name: [dat_bytes / secs / 1e9 for n_, secs, _ in runs
+                   if n_ == name] for name in ("fleet", "per_volume")}
+        hashes = [shard_hashes(b) for b in bases]
+        for base, twin, want in zip(bases, twins, hashes):
+            if shard_hashes(twin) != want or \
+                    sha256_file(base + ".ecx") != sha256_file(twin + ".ecx"):
+                raise AssertionError(f"{base}: fleet shards differ from the "
+                                     "per-volume encode")
+        shard_sizes = [os.path.getsize(shard_file_name(b, 0)) for b in bases]
+        for base, size in zip(bases, shard_sizes):
+            check_parity_spans(base, size, rng, 4, 64 << 10, device)
+        log(f"  {len(bases)} x 14 shard hashes and .ecx identical to the "
+            "per-volume encode; parity of 4 sampled 64 KiB spans per "
+            "volume == gf_linear_plain")
+        for twin in twins:
+            for path in [shard_file_name(twin, i) for i in range(14)] + \
+                    [twin + ".ecx"]:
+                os.remove(path)
+
+        chunk = default_chunk_for(backend)
+        if backend == "cuda":
+            check_fleet_shapes(len(bases), chunk // len(bases), seed)
+
+        for base in bases:
+            for sid in FLEET_REBUILD_LOST:
+                os.remove(shard_file_name(base, sid))
+        before = fleet_counters()
+        rebuilt, secs = launches.run("fleet_rebuild",
+                                     fleet.fleet_rebuild_ec_files, bases,
+                                     backend=backend)
+        out["rebuild_stages"] = log_counters("fleet_rebuild_ec_files", before)
+        if any(rebuilt[b] != list(FLEET_REBUILD_LOST) for b in bases) or \
+                [shard_hashes(b) for b in bases] != hashes:
+            raise AssertionError("fleet rebuild: shard hashes differ")
+        out["rebuild_GBps"] = 10 * sum(shard_sizes) / secs / 1e9
+        log(f"  fleet_rebuild_ec_files {FLEET_REBUILD_LOST} of every volume: "
+            f"{secs:.3f} s, {out['rebuild_GBps']:.3f} GB/s of shards read, "
+            f"{launches.per_phase['fleet_rebuild']} launches, hashes "
+            f"identical; pinned per fused batch: {10 * chunk} B in (chunk "
+            f"{chunk} B per shard row x 10), "
+            f"{len(FLEET_REBUILD_LOST) * chunk} B out")
+
+        before = fleet_counters()
+        res, secs = launches.run("fleet_verify", fleet.fleet_verify_ec_files,
+                                 bases, backend=backend)
+        out["verify_stages"] = log_counters("fleet_verify_ec_files", before)
+        if not all(r.clean for r in res.values()):
+            raise AssertionError("fleet verify: clean volumes reported")
+        verified = sum(r.bytes_verified for r in res.values())
+        out["verify_GBps"] = verified / secs / 1e9
+        log(f"  fleet_verify_ec_files: {secs:.3f} s, "
+            f"{out['verify_GBps']:.3f} GB/s of data shards, "
+            f"{launches.per_phase['fleet_verify']} launches, all clean")
+        bad_parity, bad_data = bases[0], bases[len(bases) // 2]
+        off_p = int(rng.integers(0, shard_sizes[0]))
+        off_d = int(rng.integers(0, shard_sizes[len(bases) // 2]))
+        flip_byte(bad_parity + ".ec11", off_p)
+        flip_byte(bad_data + ".ec04", off_d)
+        res, secs = launches.run("fleet_verify_damaged",
+                                 fleet.fleet_verify_ec_files, bases,
+                                 backend=backend)
+        for base, r in res.items():
+            want = ({11: 1}, {11: off_p}) if base == bad_parity else \
+                (dict.fromkeys((10, 11, 12, 13), 1),
+                 dict.fromkeys((10, 11, 12, 13), off_d)) \
+                if base == bad_data else ({}, {})
+            if (r.parity_mismatch, r.first_mismatch) != want or \
+                    not r.verified or r.missing:
+                raise AssertionError(f"fleet verify {base}: {r}")
+        log(f"  flipped .ec11 byte {off_p} of volume 1 and .ec04 byte "
+            f"{off_d} of volume {len(bases) // 2 + 1}: only those two "
+            f"reported, counts and offsets exact ({secs:.3f} s)")
+        flip_byte(bad_parity + ".ec11", off_p)
+        flip_byte(bad_data + ".ec04", off_d)
+
+        for vid in vids:
+            store.location_of(vid).unload_volume(vid)
+            store_ec.mount_ec_shards(store, vid, "", [
+                i for i in range(14) if i not in LOST])
+        decoder = DegradedReadFleet(backend=backend)
+        try:
+            (lat, every), secs = launches.run(
+                "fleet_reads", read_fleet_sample, store, sample, LOST,
+                decoder, codec)
+        finally:
+            decoder.stop()
+        (lat_ip, every_ip), secs_ip = launches.run(
+            "in_place_reads", read_fleet_sample, store, sample, LOST, None,
+            codec)
+        for key, phase, d, e, t in (
+                ("decode_fleet", "fleet_reads", lat, every, secs),
+                ("in_place", "in_place_reads", lat_ip, every_ip, secs_ip)):
+            ms = np.array(d) * 1e3
+            out[f"{key}_p50_ms"] = float(np.percentile(ms, 50))
+            out[f"{key}_p99_ms"] = float(np.percentile(ms, 99))
+            log(f"  {phase}: {len(e)} reads from {FLEET_THREADS} threads "
+                f"with shards {LOST} missing, {len(d)} degraded, in "
+                f"{t:.2f} s; degraded p50 {out[f'{key}_p50_ms']:.3f} ms, "
+                f"p99 {out[f'{key}_p99_ms']:.3f} ms; "
+                f"{launches.per_phase[phase]} launches; all bytes match")
+        mean_batch = decoder.spans_decoded / max(decoder.dispatches, 1)
+        out["decode_fleet_dispatches"] = decoder.dispatches
+        out["decode_fleet_spans"] = decoder.spans_decoded
+        out["decode_fleet_mean_batch"] = mean_batch
+        log(f"  decode fleet: {decoder.dispatches} dispatches for "
+            f"{decoder.spans_decoded} spans, mean batch {mean_batch:.2f}")
+        for vid in vids:
+            store_ec.unmount_ec_shards(store, vid, range(14))
+
+        before = fleet_counters()
+        if backend == "cuda":
+            wall_ms, busy = device_busy(fleet_pass)
+            log_busy("fleet_write_ec_files", wall_ms, busy)
+            out["trace"] = dict(wall_ms=wall_ms,
+                                **{f"{k}_ms": v for k, v in busy.items()})
+        else:
+            fleet_pass()
+        out["trace_stages"] = log_counters("traced fleet encode", before)
+        if [shard_hashes(b) for b in bases] != hashes:
+            raise AssertionError("traced fleet encode: shards differ")
+        out["dat_bytes"] = dat_bytes
+    finally:
+        store.close()
+    out["launches"] = launches.per_phase
+    return out
 
 
 def main() -> int:
@@ -576,6 +940,14 @@ def main() -> int:
         trace = phase_trace(m["large_base"], "cuda")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log("phase 6: fleet")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        log(f"  workdir {workdir}, "
+            f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB free")
+        fleet = phase_fleet(workdir, args.seed, "cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     main_launches = sum(m["launches"][p] for p in
                         ("generate", "rebuild", "degraded_read", "decode"))
     summary = {k: v for k, v in m.items()
@@ -583,6 +955,7 @@ def main() -> int:
     summary["chunk_sweep_GBps"] = sweep
     summary["kernel"] = kstats
     summary["trace"] = trace
+    summary["fleet"] = fleet
     log("metrics: " + json.dumps(summary))
     log('kernels: ["gf_linear"]')
     print(json.dumps({"kernels": [{

@@ -2,9 +2,10 @@
 
 Holds the mounted local shard files, the key-sorted .ecx index and the
 .ecj delete journal. Needle reads resolve by binary search plus interval
-math; an interval whose shard is not mounted (or reads short) is
+math; an interval whose shard is not mounted is fetched from a remote
+reader when one is given, and an interval no one serves whole is
 reconstructed from ten other shards through the RS codec, on the card by
-default.
+default: in place, or fused with concurrent reads by a decode fleet.
 
 Reference: weed/storage/erasure_coding/ec_volume.go, ec_shard.go,
 ec_volume_delete.go; counterpart of ``seaweedfs_tpu.ec.ec_volume``.
@@ -12,10 +13,12 @@ ec_volume_delete.go; counterpart of ``seaweedfs_tpu.ec.ec_volume``.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import threading
-from typing import Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -25,6 +28,8 @@ from seaweedfs_tpu_torch.ec.encoder import (
 from seaweedfs_tpu_torch.ec.shard_bits import (
     DATA_SHARDS, TOTAL_SHARDS, ShardBits)
 from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon
+from seaweedfs_tpu_torch.stats.metrics import (
+    ReadsDecodedBytesCounter, ReadsDegradedCounter, ReadsShortShardCounter)
 from seaweedfs_tpu_torch.storage import idx as idx_codec
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.needle import (
@@ -51,6 +56,23 @@ def _card_codec() -> ReedSolomon:
             if _default_rs is None:
                 _default_rs = ReedSolomon()
     return _default_rs
+
+
+# Shared fetch pool of the in-place (fleet-less) recovery: made at the
+# first degraded read, so a healthy server never spawns these threads.
+_recover_pool: Optional[ThreadPoolExecutor] = None
+_recover_pool_lock = threading.Lock()
+
+
+def _get_recover_pool() -> ThreadPoolExecutor:
+    global _recover_pool
+    if _recover_pool is None:
+        with _recover_pool_lock:
+            if _recover_pool is None:
+                # lint: thread-ok(shared recover pool takes explicit work items; the read seam enforces deadlines)
+                _recover_pool = ThreadPoolExecutor(
+                    max_workers=8, thread_name_prefix="ec-recover")
+    return _recover_pool
 
 
 class EcVolumeShard:
@@ -106,7 +128,10 @@ class EcVolume:
         arr = idx_codec.parse_index_bytes(self._ecx.read())
         self._keys = arr["key"].copy()
         self._offsets = arr["offset"].copy()
-        self._sizes = arr["size"].copy()
+        # find_needle/file_count read lock-free (single-element numpy
+        # stores are atomic under the GIL); mutation takes the lock
+        # lint: guard-ok(_load_ecx runs from __init__ only, before the volume is published)
+        self._sizes = arr["size"].copy()  # guarded_by(self._lock, writes)
 
     def find_needle(self, needle_id: int) -> Tuple[int, int]:
         """Return (dat_offset, size); raises NeedleError if absent/deleted."""
@@ -177,25 +202,37 @@ class EcVolume:
         return offset, size, intervals
 
     def read_needle(self, n: Needle, version: int = 3,
-                    rs: Optional[ReedSolomon] = None) -> Needle:
-        """Read and CRC-check a needle from the local shards, rebuilding
-        the intervals of missing shards through ``rs`` (the card's codec
-        when None)."""
-        got = Needle.from_bytes(self.read_needle_blob(n.id, version, rs),
-                                version)
+                    remote_reader: Optional[Callable] = None,
+                    rs: Optional[ReedSolomon] = None,
+                    decoder=None) -> Needle:
+        """Read and CRC-check a needle from the local shards, remote
+        shards, or by live RS reconstruction of missing intervals.
+
+        ``remote_reader(shard_id, shard_offset, length) -> bytes | None``
+        serves shards that are not local. ``decoder``
+        (``reads.DegradedReadFleet``) routes reconstructions to the fused
+        batch path; without one they are solved in place through ``rs``
+        (the card's codec when None)."""
+        got = Needle.from_bytes(
+            self.read_needle_blob(n.id, version, remote_reader, rs, decoder),
+            version)
         if n.cookie and got.cookie != n.cookie:
             raise CookieMismatch(
                 f"needle {n.id:x}: cookie {n.cookie:08x} != {got.cookie:08x}")
         return got
 
     def read_needle_blob(self, needle_id: int, version: int = 3,
-                         rs: Optional[ReedSolomon] = None) -> bytes:
+                         remote_reader: Optional[Callable] = None,
+                         rs: Optional[ReedSolomon] = None,
+                         decoder=None) -> bytes:
         """The raw stored record bytes of one needle."""
         _, _, intervals = self.locate_needle(needle_id, version)
-        return b"".join(self._read_interval(iv, rs) for iv in intervals)
+        return b"".join(self._read_interval(iv, remote_reader, rs, decoder)
+                        for iv in intervals)
 
     def _read_interval(self, iv: ec_locate.Interval,
-                       rs: Optional[ReedSolomon]) -> bytes:
+                       remote_reader: Optional[Callable],
+                       rs: Optional[ReedSolomon], decoder=None) -> bytes:
         shard_id, off = iv.to_shard_and_offset(self.large_block,
                                                self.small_block)
         s = self.shards.get(shard_id)
@@ -209,6 +246,11 @@ class EcVolume:
                 err, data = e, b""
             if len(data) == iv.size:
                 return data
+            # short read (a shard truncated by a crashed rebuild) or read
+            # error: reconstruct from the others, but count it and log
+            # once per shard, so recovery traffic is told from decay
+            ReadsShortShardCounter.labels(
+                str(self.volume_id), str(shard_id)).inc()
             if shard_id not in self._short_logged:
                 self._short_logged.add(shard_id)
                 log.warning(
@@ -216,37 +258,97 @@ class EcVolume:
                     "reconstruction until repaired", self.volume_id,
                     shard_id, f"read error ({err})" if err is not None else
                     f"short read ({len(data)} < {iv.size})", off)
-        return self._recover_interval(shard_id, off, iv.size, rs)
+        elif remote_reader is not None:
+            try:
+                data = remote_reader(shard_id, off, iv.size)
+            # lint: swallow-ok(failure demotes to RS reconstruction, counted by SeaweedFS_reads_degraded_total)
+            except Exception:
+                data = None
+            if data is not None and len(data) == iv.size:
+                return data
+        return self._recover_interval(shard_id, off, iv.size, remote_reader,
+                                      rs, decoder)
 
     def _recover_interval(self, missing_shard: int, off: int, length: int,
-                          rs: Optional[ReedSolomon]) -> bytes:
+                          remote_reader: Optional[Callable],
+                          rs: Optional[ReedSolomon], decoder=None) -> bytes:
         """On-the-fly RS reconstruction of one interval (reference
-        store_ec.go:322-376; the JAX package's in-place fallback, without
-        its span cache and decode fleet): read the interval from the
-        first ten other local shards that return it whole, in shard-id
-        order, and solve the one-row reconstruction. Any ten valid rows
-        give the same bytes."""
+        store_ec.go:322-376): through the fused ``decoder`` fleet when
+        one is given, else the in-place parallel fetch and one-row
+        solve."""
+        if decoder is not None:
+            return decoder.decode(self, missing_shard, off, length,
+                                  remote_reader)
+        return self._recover_in_place(missing_shard, off, length,
+                                      remote_reader, rs)
+
+    def _recover_in_place(self, missing_shard: int, off: int, length: int,
+                          remote_reader: Optional[Callable],
+                          rs: Optional[ReedSolomon]) -> bytes:
+        """The fleet-less path: fetch 10 source rows and solve the one-row
+        reconstruction. Any 10 valid rows give the same bytes. With a
+        ``remote_reader`` the fetches run on the shared reader pool (all
+        local reads in parallel, then the remote deficit in parallel).
+        Without one there is no remote wait to overlap, and a pool handoff
+        costs more than a page-cached pread: the local rows are read
+        inline, in shard-id order, stopping at the tenth."""
         rs = rs or _card_codec()
-        shards = dict(self.shards)  # snapshot against concurrent unmounts
+        rows: List[np.ndarray] = []
         ids: List[int] = []
-        src = np.empty((DATA_SHARDS, length), dtype=np.uint8)
-        for sid in range(TOTAL_SHARDS):
-            if len(ids) == DATA_SHARDS:
-                break
-            if sid == missing_shard or sid not in shards:
-                continue
+        # snapshot: a concurrent unmount between the membership test and
+        # the element access must degrade the row, not raise KeyError
+        shards = dict(self.shards)
+        local = [sid for sid in range(TOTAL_SHARDS)
+                 if sid != missing_shard and sid in shards]
+
+        def row(fetch) -> bytes:
             try:
-                b = shards[sid].read_at(off, length)
-            except (OSError, ValueError):
-                continue
+                return fetch()
+            except (OSError, ValueError):  # failing disk / closed by
+                return b""                 # a concurrent unmount
+
+        if remote_reader is None:
+            fetched = ((sid, row(functools.partial(
+                shards[sid].read_at, off, length))) for sid in local)
+        else:
+            pool = _get_recover_pool()
+            futs = [(sid, pool.submit(shards[sid].read_at, off, length))
+                    for sid in local]
+            fetched = ((sid, row(fut.result)) for sid, fut in futs)
+        for sid, b in fetched:  # lazy: the inline reads stop at ten rows
             if len(b) == length:
-                src[len(ids)] = np.frombuffer(b, dtype=np.uint8)
                 ids.append(sid)
+                rows.append(np.frombuffer(b, dtype=np.uint8))
+                if len(ids) == DATA_SHARDS:
+                    break
+        if len(ids) < DATA_SHARDS and remote_reader is not None:
+            remote_futs = [(sid, pool.submit(remote_reader, sid, off, length))
+                           for sid in range(TOTAL_SHARDS)
+                           if sid != missing_shard and sid not in ids]
+            for sid, fut in remote_futs:
+                if len(ids) >= DATA_SHARDS:
+                    break
+                try:
+                    b = fut.result()
+                # lint: swallow-ok(a dead peer fails rows, not reads; deficit rows top up below)
+                except Exception:
+                    b = None
+                if b is not None and len(b) == length:
+                    ids.append(sid)
+                    rows.append(np.frombuffer(b, dtype=np.uint8))
         if len(ids) < DATA_SHARDS:
             raise EcShardNotFound(
                 f"vid {self.volume_id} shard {missing_shard}: only "
                 f"{len(ids)} shards reachable, need {DATA_SHARDS}")
-        return rs.reconstruct_some(ids, [missing_shard], src)[0].tobytes()
+        # rows were appended local first: restore canonical sid order so
+        # the decode matrix (and its cache key) is deterministic
+        order = np.argsort(ids)
+        src = np.stack([rows[i] for i in order], axis=0)
+        ids = [ids[i] for i in order]
+        out = rs.reconstruct_some(ids, [missing_shard], src)
+        ReadsDegradedCounter.inc()
+        ReadsDecodedBytesCounter.inc(float(length))
+        return out[0].tobytes()
 
     # -- lifecycle -----------------------------------------------------------
 

@@ -1,0 +1,857 @@
+"""Cross-volume batched EC scheduler: the fleet encoder, rebuild and verify.
+
+The counterpart of ``seaweedfs_tpu.ec.fleet``, byte for byte the same
+shard files. ``ec/encoder.py`` encodes ONE volume at a time: every chunk
+is its own RS dispatch and one thread reads for the codec, so a fleet of
+volumes serializes on dispatch latency and on that thread's disk reads.
+This module lifts the batch dimension from rows-within-a-volume to
+chunks-ACROSS-volumes:
+
+  pack      same-sized row-spans from many volumes fuse into one
+            [B, 10, small] dispatch, packed straight into one pinned
+            host buffer (``ReedSolomon.pack``).
+  feed      a bounded reader pool prefetches spans ahead of the card.
+            Spans are consumed in submission order (round-robin rounds
+            over the volumes), so per-volume row order is preserved by
+            construction while reads overlap compute.
+  dispatch  on "cuda" one fused batch is one async H2D + kernel + D2H on
+            the codec's side stream; the "cpu" backend is lifted to the
+            same handle contract by a small encode pool.
+  retire    a tagged completion queue: a single retire thread awaits
+            dispatches strictly in submission order and hands every
+            volume's writes to that volume's writer LANE (per-volume
+            FIFO, parallel across volumes).
+
+Volumes that need large-row striping (> 10 * large_block bytes) fall
+back to the per-volume ``write_ec_files`` path.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from seaweedfs_tpu_torch.ec import encoder as _encoder
+from seaweedfs_tpu_torch.ec.encoder import (
+    LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, default_chunk_for, shard_file_name)
+from seaweedfs_tpu_torch.ops.rs_code import (
+    DATA_SHARDS, TOTAL_SHARDS, ReedSolomon)
+from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
+from seaweedfs_tpu_torch.stats import trace
+from seaweedfs_tpu_torch.stats.metrics import (
+    FleetDispatchBatchHistogram, FleetDispatchedBytesCounter,
+    FleetReaderQueueGauge, FleetStageSecondsHistogram,
+    FleetWriterBacklogGauge)
+
+# Reader-pool width: enough to keep several volumes' sequential reads
+# in flight without degrading each stream to fully random IO.
+FLEET_READERS = 4
+
+# Fused dispatches in flight at once — the writer-queue bound, same
+# double-buffering role as encoder.PIPELINE_DEPTH. Peak host memory is
+# ~(depth + 2) fused batches (queued + packing + retiring).
+FLEET_DEPTH = 2
+
+# Encode pool of the "cpu" backend: torch releases the GIL, so two
+# in-flight fused encodes use two cores, the host-side analogue of the
+# card's async dispatch queue.
+FLEET_ENCODERS = max(2, min(4, os.cpu_count() or 2))
+
+# Writer lanes: each volume's writes stay FIFO on one lane, but lanes
+# run in parallel, so the fleet's file writes (the larger half of the
+# IO: 14 bytes out per 10 in) spread across cores instead of
+# serializing behind a single writer thread.
+FLEET_WRITERS = max(2, min(4, os.cpu_count() or 2))
+
+# Bound on queued writes per lane: with ~chunk-sized spans this caps
+# writer-side buffering at a few spans per lane.
+_LANE_QUEUE = 4
+
+
+# Stage-latency children resolved once at import: labels() takes a
+# lock per call, and a stage interval closes for every chunk-sized
+# unit of work.
+_STAGE_HIST = {s: FleetStageSecondsHistogram.labels(s)
+               for s in ("read", "dispatch", "rs", "retire", "write",
+                         "verify")}
+
+
+class _StageTimer:
+    """One pipeline-stage interval: always observed into the per-stage
+    latency histogram, and additionally recorded as a trace span when
+    tracing is enabled (parented across threads via a handoff token).
+    Span allocation is gated on the trace flag so the disabled path
+    costs one histogram observe per chunk-sized unit of work."""
+
+    __slots__ = ("_hist", "_span", "_t0")
+
+    def __init__(self, stage: str, parent: Optional[int] = None, **tags):
+        self._hist = _STAGE_HIST[stage]
+        self._span = trace.span("fleet." + stage, parent=parent, **tags) \
+            if trace.is_enabled() else trace.NOOP
+
+    def __enter__(self) -> "_StageTimer":
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._hist.observe(time.perf_counter() - self._t0)
+        return self._span.__exit__(*exc)
+
+    def token(self) -> Optional[int]:
+        """Handoff token of the underlying span (None when disabled)."""
+        return self._span.token()
+
+
+class TaggedPipeline:
+    """Tagged completion queue: fused dispatches retire FIFO, writes
+    fan out to per-volume writer lanes.
+
+    One retire thread awaits dispatch handles strictly in submission
+    order — the deque discipline of `encoder._EncodePipeline` — and
+    routes each tagged span's parity write to `tag % lanes`. All of a
+    volume's writes carry the volume's tag, so they land on ONE lane in
+    enqueue order (per-volume FIFO by construction) while different
+    volumes' writes proceed in parallel. Data-shard writes (`write`)
+    need no handle and go straight to the lane from the packing thread;
+    they interleave with parity writes on the lane but touch disjoint
+    files (.ec00-09 vs .ec10-13), so only the per-file order matters —
+    and each file's writes come from a single ordered source.
+    """
+
+    def __init__(self, depth: int = FLEET_DEPTH,
+                 writers: int = FLEET_WRITERS):
+        self._lanes: List["queue.Queue[Optional[Tuple]]"] = [
+            queue.Queue(maxsize=_LANE_QUEUE)
+            for _ in range(max(1, writers))]
+        self._retireq: "queue.Queue[Optional[Tuple]]" = \
+            queue.Queue(maxsize=max(1, depth))
+        self._exc: Optional[BaseException] = None
+        # per-lane backlog gauges resolved once: labels() locks per call
+        self._lane_gauges = [FleetWriterBacklogGauge.labels(str(i))
+                             for i in range(len(self._lanes))]
+        self._writers = [
+            # lint: gate-ok(TaggedPipeline is built per fleet pass: construction is first use) # lint: thread-ok(fleet writers carry explicit volume tags, not request context)
+            threading.Thread(target=self._drain_lane, args=(q, i),
+                             name=f"fleet-write-{i}", daemon=True)
+            for i, q in enumerate(self._lanes)]
+        # lint: gate-ok(TaggedPipeline is built per fleet pass: construction is first use) # lint: thread-ok(retire thread carries explicit tags, not request context)
+        self._retirer = threading.Thread(
+            target=self._retire_loop, name="fleet-retire", daemon=True)
+        for t in self._writers:
+            t.start()
+        self._retirer.start()
+
+    def _put_lane(self, tag: int, fn: Callable[[], None],
+                  token: Optional[int],
+                  timeout_s: Optional[float] = None) -> None:
+        lane = tag % len(self._lanes)
+        # inc/dec deltas, not set(qsize): several schedulers may run
+        # concurrently and share these children, so the gauge must SUM
+        # their backlogs rather than keep the last scheduler's view
+        self._lane_gauges[lane].inc()
+        try:
+            self._lanes[lane].put((fn, token), timeout=timeout_s)
+        except queue.Full:
+            self._lane_gauges[lane].dec()  # never entered the lane
+            raise
+
+    def write(self, tag: int, fn: Callable[[], None],
+              timeout_s: Optional[float] = None) -> None:
+        """Enqueue one ordered write on `tag`'s lane (no handle).
+        With timeout_s, a lane that stays full that long raises
+        queue.Full instead of blocking the caller behind a wedged
+        writer — same stall contract as submit()."""
+        self._raise_pending()
+        self._put_lane(tag, fn, trace.handoff(), timeout_s)
+
+    def submit(self, handle,
+               tagged: Sequence[Tuple[int, Callable]],
+               timeout_s: Optional[float] = None) -> None:
+        """Queue a dispatch: when `handle` resolves (FIFO), span i's
+        output goes to `tagged[i] = (tag, fn)` as `fn(outs[i])` on
+        tag's lane. With timeout_s, waiting `timeout_s` for a free
+        in-flight slot raises queue.Full instead of blocking forever
+        behind a wedged retire."""
+        self._raise_pending()
+        self._retireq.put((handle, list(tagged), trace.handoff()),
+                          timeout=timeout_s)
+
+    def _retire_loop(self) -> None:
+        while True:
+            item = self._retireq.get()
+            if item is None:
+                return
+            if self._exc is not None:
+                continue  # failed: keep draining, write nothing more
+            handle, tagged, token = item
+            try:
+                # the retire stage is where async dispatches resolve:
+                # on "cuda" this wait IS the card's time (the event after
+                # the D2H), on "cpu" the encode pool's compute; the lane
+                # puts after it are writer-side backpressure
+                with _StageTimer("retire", parent=token,
+                                 spans=len(tagged)) as st:
+                    outs = handle.result()
+                    for (tag, fn), out in zip(tagged, outs):
+                        self._put_lane(tag, functools.partial(fn, out),
+                                       st.token())
+            except BaseException as e:  # surfaced on submit/drain
+                if self._exc is None:
+                    self._exc = e
+
+    def _drain_lane(self, q: "queue.Queue[Optional[Tuple]]",
+                    lane: int) -> None:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            self._lane_gauges[lane].dec()
+            if self._exc is not None:
+                continue
+            fn, token = item
+            try:
+                with _StageTimer("write", parent=token, lane=lane):
+                    fn()
+            except BaseException as e:
+                if self._exc is None:
+                    self._exc = e
+
+    def _raise_pending(self) -> None:
+        # _exc stays latched once set: clearing it here would re-enable
+        # the retire/writer threads after they skipped a failed span,
+        # letting later spans land past a hole in the shard files
+        if self._exc is not None:
+            raise self._exc
+
+    def drain(self) -> None:
+        """Flush every queued write, stop all threads, re-raise the
+        first error (if any). The pipeline is spent afterwards."""
+        self._retireq.put(None)
+        self._retirer.join()
+        for q in self._lanes:
+            q.put(None)
+        for t in self._writers:
+            t.join()
+        self._raise_pending()
+
+
+class _Gathered:
+    """Handle over several in-flight per-span encodes: .result() is the
+    list of per-span outputs, ordered like the spans were packed."""
+
+    def __init__(self, handles):
+        self._handles = handles
+
+    def result(self) -> List[np.ndarray]:
+        return [h.result() for h in self._handles]
+
+
+def _rs_staged(fn, arr: np.ndarray, parent: Optional[int]) -> np.ndarray:
+    """One "cpu"-backend RS compute task, attributed to the 'rs' stage
+    (on "cuda" the card's time shows in 'retire' instead, where
+    handle.result() waits)."""
+    with _StageTimer("rs", parent=parent):
+        return fn(arr)
+
+
+class _Dispatcher:
+    """Uniform async-handle dispatch over the codec's backends.
+
+    On "cuda" a fused batch is packed once, straight into a pinned host
+    buffer, and issued as ONE async dispatch on the codec's side stream
+    (H2D, kernel, D2H): the card computes while the host does IO, and
+    handles retire in submission order. There is no host encode pool
+    on this path. On "cpu" each span goes to a small encode pool as
+    its own task (no concatenation copy) and the handles are gathered.
+    Either way .result() yields per-span outputs.
+    """
+
+    def __init__(self, rs: ReedSolomon):
+        self._rs = rs
+        self._pool = None
+        if rs.backend == "cpu":
+            # lint: thread-ok(fleet dispatch pool; work items are explicit, no ambient request state)
+            self._pool = ThreadPoolExecutor(
+                max_workers=FLEET_ENCODERS,
+                thread_name_prefix="fleet-encode")
+
+    def encode(self, arrays: List[np.ndarray]):
+        if _failpoint._armed:
+            _failpoint.hit("fleet.dispatch", op="encode")
+        if self._pool is None:
+            handle = self._rs.encode_async(self._rs.pack(arrays))
+            return _SplitHandle(handle, [a.shape[0] for a in arrays])
+        token = trace.handoff()
+        return _Gathered([self._pool.submit(_rs_staged, self._rs.encode,
+                                            a, token)
+                          for a in arrays])
+
+    def reconstruct(self, present, missing, arrays: List[np.ndarray]):
+        if _failpoint._armed:
+            _failpoint.hit("fleet.dispatch", op="reconstruct")
+        if self._pool is None:
+            src = self._rs.pack(arrays, stack=True)  # [B, 10, span]
+            return _UnstackHandle(self._rs.reconstruct_some_async(
+                present, missing, src))
+        token = trace.handoff()
+        return _Gathered([self._pool.submit(
+            _rs_staged,
+            functools.partial(self._rs.reconstruct_some, present, missing),
+            a, token)
+            for a in arrays])
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+
+
+class _SplitHandle:
+    """Adapt one fused async encode handle back to per-span outputs.
+    The outputs are numpy views of the handle's pinned output tensor;
+    each view's ``.base`` chain holds that tensor, so the pinned block
+    stays allocated until the last writer lane drops its view."""
+
+    def __init__(self, handle, rows: List[int]):
+        self._handle = handle
+        self._rows = rows
+
+    def result(self) -> List[np.ndarray]:
+        out = self._handle.result()
+        if len(self._rows) == 1:
+            return [out]
+        parts, row = [], 0
+        for r in self._rows:
+            parts.append(out[row:row + r])
+            row += r
+        return parts
+
+
+class _UnstackHandle:
+    """Adapt one fused [B, ...] reconstruct handle to per-item outputs."""
+
+    def __init__(self, handle):
+        self._handle = handle
+
+    def result(self) -> List[np.ndarray]:
+        out = self._handle.result()
+        return [out[i] for i in range(out.shape[0])]
+
+
+class _VolState:
+    __slots__ = ("base", "dat_size", "n_rows", "tag")
+
+    def __init__(self, base: str, dat_size: int, n_rows: int, tag: int = 0):
+        self.base = base
+        self.dat_size = dat_size
+        self.n_rows = n_rows
+        self.tag = tag  # writer-lane key: all this volume's writes
+        #                 share it, so they stay FIFO on one lane
+
+
+def _append_rows(base: str, shard_id: int,
+                 rows: Sequence[np.ndarray]) -> None:
+    """Append C-contiguous row slices to one shard file: the slices go
+    straight to the (buffered) file object — no ascontiguousarray /
+    tobytes staging copies on the write path."""
+    with open(shard_file_name(base, shard_id), "ab") as f:
+        for r in rows:
+            f.write(r)
+
+
+def _round_robin_spans(vols: List[_VolState], span_rows: int):
+    """Yield (vol, row0, rows) in rounds over the volumes: round r
+    hands out rows [r*span, (r+1)*span) of every volume still alive.
+    Submission order == pack order == per-volume row order."""
+    pending = [(v, 0) for v in vols if v.n_rows > 0]
+    while pending:
+        nxt = []
+        for v, row0 in pending:
+            rows = min(span_rows, v.n_rows - row0)
+            yield v, row0, rows
+            if row0 + rows < v.n_rows:
+                nxt.append((v, row0 + rows))
+        pending = nxt
+
+
+def _read_span(base: str, row0: int, rows: int,
+               row_bytes: int, small_block: int) -> np.ndarray:
+    """Rows [row0, row0+rows) of one volume as [rows, 10, small],
+    zero-padded past EOF: one sequential read per span into a fresh
+    buffer (``encoder._read_padded`` zeroes the tail)."""
+    buf = np.empty(rows * row_bytes, dtype=np.uint8)
+    with open(base + ".dat", "rb") as f:
+        _encoder._read_padded(f, row0 * row_bytes, buf)
+    return buf.reshape(rows, DATA_SHARDS, small_block)
+
+
+def _read_span_staged(base: str, row0: int, rows: int, row_bytes: int,
+                      small_block: int, parent: Optional[int]) -> np.ndarray:
+    """_read_span on a reader-pool thread, attributed to the 'read'
+    stage and parented to the scheduler's root span."""
+    with _StageTimer("read", parent=parent, vol=os.path.basename(base)):
+        return _read_span(base, row0, rows, row_bytes, small_block)
+
+
+def _write_data_shards(base: str, arr: np.ndarray) -> None:
+    for i in range(DATA_SHARDS):
+        _append_rows(base, i, [arr[r, i] for r in range(arr.shape[0])])
+
+
+def _write_parity_span(base: str, seg: np.ndarray) -> None:
+    """One span's parity [rows, 4, small] -> append to .ec10-.ec13."""
+    for p in range(seg.shape[1]):
+        _append_rows(base, DATA_SHARDS + p,
+                     [seg[r, p] for r in range(seg.shape[0])])
+
+
+def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
+                         large_block: int = LARGE_BLOCK_SIZE,
+                         small_block: int = SMALL_BLOCK_SIZE,
+                         chunk: Optional[int] = None) -> None:
+    """Generate .ec00-.ec13 for MANY volumes, fusing chunks across
+    volumes into shared RS dispatches.
+
+    Byte-identical to running `write_ec_files` per volume: small-row
+    volumes ride the fused scheduler; oversized ones (large-row
+    striping) fall back to the per-volume path. One fused dispatch is
+    about `chunk` bytes of data rows (64 MiB on "cuda").
+    """
+    if chunk is None:
+        chunk = default_chunk_for(backend)
+    fleet: List[str] = []
+    for base in base_names:
+        if os.path.getsize(base + ".dat") > DATA_SHARDS * large_block:
+            _encoder.write_ec_files(base, backend=backend,
+                                    large_block=large_block,
+                                    small_block=small_block, chunk=chunk)
+        else:
+            fleet.append(base)
+    if not fleet:
+        return
+    row_bytes = DATA_SHARDS * small_block
+    vols = []
+    # creating/truncating 14 output files per volume is write-side IO,
+    # so it carries the write stage's span/metric attribution
+    with _StageTimer("write", setup=len(fleet)):
+        for tag, base in enumerate(fleet):
+            size = os.path.getsize(base + ".dat")
+            vols.append(_VolState(base, size, -(-size // row_bytes), tag))
+            for i in range(TOTAL_SHARDS):  # create/truncate all 14 outputs
+                open(shard_file_name(base, i), "wb").close()
+    alive = [v for v in vols if v.n_rows > 0]
+    if not alive:
+        return  # all empty: 14 empty shard files each, same as serial
+    # One fused dispatch ≈ `chunk` bytes of data rows; span size is the
+    # per-volume slice of it, so a full round across the fleet packs
+    # into one dispatch (a single volume degrades to the serial shape).
+    batch_rows = max(1, chunk // row_bytes)
+    span_rows = max(1, batch_rows // len(alive))
+    spans_per_batch = -(-batch_rows // span_rows)
+    prefetch = max(FLEET_READERS, 2 * spans_per_batch)
+
+    dispatcher = _Dispatcher(ReedSolomon(backend=backend))
+    # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
+    pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
+                              thread_name_prefix="fleet-read")
+    pipe = TaggedPipeline()
+    gen = _round_robin_spans(alive, span_rows)
+    inflight: deque = deque()
+    root = trace.span("fleet.encode", volumes=len(alive), backend=backend)
+    root.__enter__()
+    token = root.token()
+
+    def fill() -> None:
+        while len(inflight) < prefetch:
+            nxt = next(gen, None)
+            if nxt is None:
+                break
+            v, row0, rows = nxt
+            inflight.append((v, rows, pool.submit(
+                _read_span_staged, v.base, row0, rows, row_bytes,
+                small_block, token)))
+            # inc/dec deltas so concurrent schedulers SUM on the
+            # shared gauge instead of overwriting each other's depth
+            FleetReaderQueueGauge.inc()
+
+    def flush(pack: List[Tuple[_VolState, int, np.ndarray]]) -> None:
+        with _StageTimer("dispatch", batch=len(pack)):
+            handle = dispatcher.encode([a for _, _, a in pack])
+        FleetDispatchBatchHistogram.observe(len(pack))
+        FleetDispatchedBytesCounter.inc(
+            float(sum(a.nbytes for _, _, a in pack)))
+        # data shards need no parity: straight to each volume's lane
+        # (enqueued here, in pack order, so per-volume FIFO holds)
+        for v, _, arr in pack:
+            pipe.write(v.tag, functools.partial(
+                _write_data_shards, v.base, arr))
+        pipe.submit(handle, [
+            (v.tag, functools.partial(_write_parity_span, v.base))
+            for v, _, _ in pack])
+
+    try:
+        fill()
+        pack: List[Tuple[_VolState, int, np.ndarray]] = []
+        acc = 0
+        while inflight:
+            v, rows, fut = inflight.popleft()
+            FleetReaderQueueGauge.dec()
+            pack.append((v, rows, fut.result()))
+            acc += rows
+            fill()
+            if acc >= batch_rows or not inflight:
+                flush(pack)
+                pack, acc = [], 0
+    finally:
+        FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
+        pool.shutdown(wait=True)
+        try:
+            pipe.drain()  # may re-raise the latched pipeline error
+        finally:
+            dispatcher.close()
+            root.__exit__(None, None, None)
+
+
+# --- fleet rebuild -----------------------------------------------------------
+
+def fleet_rebuild_ec_files(base_names: Sequence[str], backend: str = "cuda",
+                           chunk: Optional[int] = None,
+                           wanted: Optional[List[int]] = None
+                           ) -> Dict[str, List[int]]:
+    """Cross-volume batched `rebuild_ec_files`.
+
+    Volumes sharing a (present, missing) signature share one decode
+    matrix, so their shard chunks fuse into single [B, 10, span]
+    reconstruct dispatches — the rebuild-side twin of
+    `fleet_write_ec_files`. Tail spans are zero-padded to the bucket
+    width (GF maps send 0 to 0) and trimmed on writeback. Returns
+    {base_name: rebuilt shard ids} (empty list where nothing was
+    missing).
+
+    `chunk` is per shard ROW here: one fused batch is [B, 10, span]
+    with B * span ~= chunk, so 10 * chunk bytes of sources (640 MiB of
+    pinned staging at the card's 64 MiB default).
+    """
+    if chunk is None:
+        chunk = default_chunk_for(backend)
+    rebuilt: Dict[str, List[int]] = {}
+    groups: Dict[Tuple[Tuple[int, ...], Tuple[int, ...]],
+                 List[Tuple[str, int]]] = {}
+    for base in base_names:
+        present = [i for i in range(TOTAL_SHARDS)
+                   if os.path.exists(shard_file_name(base, i))]
+        missing = [i for i in
+                   (range(TOTAL_SHARDS) if wanted is None else wanted)
+                   if i not in present]
+        rebuilt[base] = missing
+        if not missing:
+            continue
+        if len(present) < DATA_SHARDS:
+            raise ValueError(
+                f"cannot rebuild {base}: only {len(present)} shards present")
+        shard_size = os.path.getsize(shard_file_name(base, present[0]))
+        groups.setdefault((tuple(present), tuple(missing)),
+                          []).append((base, shard_size))
+    for (present, missing), members in groups.items():
+        _fleet_rebuild_group(list(present), list(missing), members, backend,
+                             chunk)
+    return rebuilt
+
+
+def _write_rebuilt_span(base: str, missing: List[int], valid: int,
+                        out: np.ndarray) -> None:
+    """One span's rebuilt shards [len(missing), span] -> append the
+    valid prefix of each row to its .ecNN file."""
+    for row, sid in enumerate(missing):
+        _append_rows(base, sid, [out[row, :valid]])
+
+
+def _read_present_span(base: str, present: List[int], shard_size: int,
+                       offset: int, span: int,
+                       parent: Optional[int] = None) -> np.ndarray:
+    """[10, span] slice at `offset` of the first 10 present shards,
+    zero-padded past shard end."""
+    with _StageTimer("read", parent=parent, vol=os.path.basename(base)):
+        src = np.zeros((DATA_SHARDS, span), dtype=np.uint8)
+        want = min(span, max(shard_size - offset, 0))
+        if want > 0:
+            for row, sid in enumerate(present[:DATA_SHARDS]):
+                with open(shard_file_name(base, sid), "rb") as f:
+                    f.seek(offset)
+                    f.readinto(memoryview(src[row])[:want])
+        return src
+
+
+def _fleet_rebuild_group(present: List[int], missing: List[int],
+                         members: List[Tuple[str, int]], backend: str,
+                         chunk: int) -> None:
+    for base, _ in members:
+        for sid in missing:
+            open(shard_file_name(base, sid), "wb").close()
+    # Uniform span width so spans from different volumes stack into one
+    # [B, 10, span] dispatch of ~chunk bytes per shard row.
+    span = max(1, chunk // len(members))
+    vols = [(_VolState(base, size, -(-size // span), tag), size)
+            for tag, (base, size) in enumerate(members)]
+
+    def gen_spans():
+        for v, row0, rows in _round_robin_spans([v for v, _ in vols], 1):
+            yield v, row0 * span
+
+    dispatcher = _Dispatcher(ReedSolomon(backend=backend))
+    # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
+    pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
+                              thread_name_prefix="fleet-read")
+    pipe = TaggedPipeline()
+    gen = gen_spans()
+    inflight: deque = deque()
+    per_batch = len(members)
+    prefetch = max(FLEET_READERS, 2 * per_batch)
+    root = trace.span("fleet.rebuild", volumes=len(members),
+                      backend=backend)
+    root.__enter__()
+    token = root.token()
+
+    def fill() -> None:
+        while len(inflight) < prefetch:
+            nxt = next(gen, None)
+            if nxt is None:
+                break
+            v, offset = nxt
+            inflight.append((v, offset, pool.submit(
+                _read_present_span, v.base, present, v.dat_size,
+                offset, span, token)))
+            FleetReaderQueueGauge.inc()  # delta: concurrent-safe sum
+
+    def flush(pack) -> None:
+        with _StageTimer("dispatch", batch=len(pack)):
+            handle = dispatcher.reconstruct(present, missing,
+                                            [a for _, _, a in pack])
+        FleetDispatchBatchHistogram.observe(len(pack))
+        FleetDispatchedBytesCounter.inc(
+            float(sum(a.nbytes for _, _, a in pack)))
+        pipe.submit(handle, [
+            (v.tag, functools.partial(_write_rebuilt_span, v.base,
+                                      missing,
+                                      min(span, v.dat_size - offset)))
+            for v, offset, _ in pack])
+
+    try:
+        fill()
+        pack = []
+        while inflight:
+            item = inflight.popleft()
+            FleetReaderQueueGauge.dec()
+            pack.append((item[0], item[1], item[2].result()))
+            fill()
+            if len(pack) >= per_batch or not inflight:
+                flush(pack)
+                pack = []
+    finally:
+        FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
+        pool.shutdown(wait=True)
+        try:
+            pipe.drain()  # may re-raise the latched pipeline error
+        finally:
+            dispatcher.close()
+            root.__exit__(None, None, None)
+
+
+# --- fleet verify ------------------------------------------------------------
+
+@dataclass
+class VerifyResult:
+    """Outcome of verifying one volume's EC files.
+
+    parity_mismatch maps a parity shard id (10..13) to its count of
+    bytes that differ from the re-encoded parity; first_mismatch holds
+    the first differing shard offset per shard. `missing` lists shard
+    files absent on disk — those are known damage (the rebuild path's
+    job), not verification subjects. A volume with any data shard
+    missing cannot be re-encoded and is reported with verified=False.
+    """
+
+    parity_mismatch: Dict[int, int] = field(default_factory=dict)
+    first_mismatch: Dict[int, int] = field(default_factory=dict)
+    missing: List[int] = field(default_factory=list)
+    parity_checked: List[int] = field(default_factory=list)
+    bytes_verified: int = 0
+    spans: int = 0
+    verified: bool = True
+
+    @property
+    def clean(self) -> bool:
+        return self.verified and not self.parity_mismatch \
+            and not self.missing
+
+
+def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
+                          chunk: Optional[int] = None,
+                          throttler=None) -> Dict[str, "VerifyResult"]:
+    """Verify EC stripe consistency for MANY volumes in one fused pass.
+
+    Data shards are re-encoded through the same fleet dispatcher as
+    `fleet_write_ec_files` (spans from all volumes fuse into shared
+    [B, 10, span] RS dispatches) and the recomputed parity is compared
+    byte for byte against the stored .ec10-13 on the host, on each
+    volume's writer lane. Nothing on disk is touched; mismatches are
+    reported per parity shard (a corrupt DATA shard surfaces as all
+    four parity shards disagreeing at the same offsets).
+
+    `throttler` (util.throttler.Throttler) paces the read side so a
+    background scrub stays inside its IO budget.
+    """
+    if chunk is None:
+        chunk = default_chunk_for(backend)
+    results: Dict[str, VerifyResult] = {}
+    fleet: List[Tuple[str, int, List[int]]] = []  # (base, size, parity ids)
+    for base in base_names:
+        r = VerifyResult()
+        results[base] = r
+        present = [i for i in range(TOTAL_SHARDS)
+                   if os.path.exists(shard_file_name(base, i))]
+        r.missing = [i for i in range(TOTAL_SHARDS) if i not in present]
+        data_present = [i for i in present if i < DATA_SHARDS]
+        parity_present = [i for i in present if i >= DATA_SHARDS]
+        if len(data_present) < DATA_SHARDS or not parity_present:
+            # can't re-encode without every data shard (or compare
+            # without any parity): known damage, rebuild's job
+            r.verified = False
+            continue
+        r.parity_checked = parity_present
+        shard_size = os.path.getsize(shard_file_name(base, 0))
+        fleet.append((base, shard_size, parity_present))
+    if not fleet:
+        return results
+    # span: the per-volume slice of one ~chunk-sized fused dispatch,
+    # capped at the largest shard so small fleets don't read (and
+    # RS-encode) chunk-sized slabs of zero padding per 100KB shard
+    span = max(1, min(chunk // max(1, len(fleet)),
+                      max(size for _, size, _ in fleet)))
+    vols = [(_VolState(base, size, -(-size // span) if size else 0, tag),
+             parity)
+            for tag, (base, size, parity) in enumerate(fleet)]
+
+    def gen_spans():
+        for v, row0, _rows in _round_robin_spans([v for v, _ in vols], 1):
+            yield v, row0 * span
+
+    parity_by_tag = {v.tag: parity for v, parity in vols}
+    dispatcher = _Dispatcher(ReedSolomon(backend=backend))
+    # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
+    pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
+                              thread_name_prefix="fleet-read")
+    pipe = TaggedPipeline()
+    gen = gen_spans()
+    inflight: deque = deque()
+    per_batch = len(fleet)
+    prefetch = max(FLEET_READERS, 2 * per_batch)
+    root = trace.span("fleet.verify", volumes=len(fleet), backend=backend)
+    root.__enter__()
+    token = root.token()
+    data_present = list(range(DATA_SHARDS))
+
+    def fill() -> None:
+        while len(inflight) < prefetch:
+            nxt = next(gen, None)
+            if nxt is None:
+                break
+            v, offset = nxt
+            if throttler is not None:
+                # pace on the read side: one span costs 10 data reads
+                # plus the parity reads the compare will issue
+                throttler.maybe_slowdown(
+                    (DATA_SHARDS + len(parity_by_tag[v.tag])) * span)
+            inflight.append((v, offset, pool.submit(
+                _read_present_span, v.base, data_present, v.dat_size,
+                offset, span, token)))
+            FleetReaderQueueGauge.inc()  # delta: concurrent-safe sum
+
+    # parity fds cached per volume for the whole pass: each volume's
+    # compares run FIFO on ITS writer lane (single reader per fd), and
+    # per-span open/close would cost thousands of syscalls per volume
+    # once large fleets shrink the span. Populated INSIDE the
+    # try/finally below: an open() racing a concurrent shard delete
+    # must still tear down the pools/span and close earlier fds.
+    parity_fds: Dict[str, Dict[int, object]] = {}
+
+    def compare(v: _VolState, offset: int, out: np.ndarray) -> None:
+        """Runs on v's writer lane: recomputed parity [1, 4, span] (or
+        [4, span] from the host pool) vs the stored parity slices."""
+        with _StageTimer("verify", vol=os.path.basename(v.base)):
+            parity = out[0] if out.ndim == 3 else out
+            valid = min(span, v.dat_size - offset)
+            r = results[v.base]
+            for sid in parity_by_tag[v.tag]:
+                f = parity_fds[v.base][sid]
+                f.seek(offset)
+                stored = f.read(valid)
+                stored_arr = np.frombuffer(stored, dtype=np.uint8)
+                row = parity[sid - DATA_SHARDS][:len(stored_arr)]
+                diff = np.nonzero(row != stored_arr)[0]
+                if len(diff):
+                    r.parity_mismatch[sid] = \
+                        r.parity_mismatch.get(sid, 0) + len(diff)
+                    # spans retire in offset order on this volume's
+                    # lane, so the first recorded hit is the lowest
+                    r.first_mismatch.setdefault(sid, offset + int(diff[0]))
+                if len(stored_arr) < valid:
+                    # a truncated parity shard is missing bytes the
+                    # data shards say should exist: every absent byte
+                    # is a mismatch, not a free pass
+                    r.parity_mismatch[sid] = \
+                        r.parity_mismatch.get(sid, 0) + \
+                        (valid - len(stored_arr))
+                    r.first_mismatch.setdefault(
+                        sid, offset + len(stored_arr))
+            r.bytes_verified += DATA_SHARDS * valid
+            r.spans += 1
+
+    def flush(pack) -> None:
+        with _StageTimer("dispatch", batch=len(pack)):
+            handle = dispatcher.encode(
+                [a[np.newaxis] for _, _, a in pack])
+        FleetDispatchBatchHistogram.observe(len(pack))
+        FleetDispatchedBytesCounter.inc(
+            float(sum(a.nbytes for _, _, a in pack)))
+        pipe.submit(handle, [
+            (v.tag, functools.partial(compare, v, offset))
+            for v, offset, _ in pack])
+
+    try:
+        for v, parity in vols:
+            fds = parity_fds[v.base] = {}
+            for sid in parity:  # incremental: no fd lost to a partial
+                fds[sid] = open(shard_file_name(v.base, sid), "rb")
+        fill()
+        pack = []
+        while inflight:
+            item = inflight.popleft()
+            FleetReaderQueueGauge.dec()
+            pack.append((item[0], item[1], item[2].result()))
+            fill()
+            if len(pack) >= per_batch or not inflight:
+                flush(pack)
+                pack = []
+    finally:
+        FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
+        pool.shutdown(wait=True)
+        try:
+            pipe.drain()  # may re-raise the latched pipeline error
+        finally:
+            dispatcher.close()
+            for fds in parity_fds.values():
+                for f in fds.values():
+                    f.close()
+            root.__exit__(None, None, None)
+    return results

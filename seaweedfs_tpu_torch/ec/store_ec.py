@@ -4,19 +4,21 @@ Counterparts of ``seaweedfs_tpu.ec.store_ec`` and the reference's
 store_ec.go / store_ec_delete.go and
 server/volume_grpc_erasure_coding.go:38-400: generate, rebuild,
 mount/unmount, EC needle reads with live recovery, delete, decode back to
-a normal volume. All take the Store as first argument. The codec runs on
-the card unless the caller passes ``backend="cpu"`` (or, for reads, a
-``rs=ReedSolomon(backend="cpu")``).
+a normal volume, and the fused generate of many volumes at once. All take
+the Store as first argument. The codec runs on the card unless the caller
+passes ``backend="cpu"`` (or, for reads, a ``rs=ReedSolomon(backend="cpu")``
+or a ``decoder=DegradedReadFleet("cpu")``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
-from seaweedfs_tpu_torch.ec import encoder
+from seaweedfs_tpu_torch.ec import encoder, fleet
 from seaweedfs_tpu_torch.ec.ec_volume import EcShardNotFound, EcVolume
 from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon
+from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.storage.needle import Needle, NeedleError
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
@@ -65,9 +67,40 @@ def generate_ec_shards(store: Store, vid: int, backend: str = "cuda") -> str:
     v.read_only = True
     v.sync()
     base = v.file_name()
-    encoder.write_ec_files(base, backend=backend)
-    encoder.write_sorted_file_from_idx(base)
+    with trace.span("store_ec.generate", vid=vid):
+        encoder.write_ec_files(base, backend=backend)
+        encoder.write_sorted_file_from_idx(base)
     return base
+
+
+def generate_ec_shards_batch(store: Store, vids: Sequence[int],
+                             backend: str = "cuda") -> Dict[int, str]:
+    """VolumeEcShardsGenerate for MANY volumes in one fused pass.
+
+    Every vid is validated before any volume is frozen (a bad vid must
+    not strand earlier volumes read-only with no shards); then every
+    volume is frozen (read-only + sync) and ONE fleet scheduler
+    (``ec/fleet.py``) packs chunks from all of them into shared RS
+    dispatches. Shard bytes are identical to ``generate_ec_shards`` per
+    volume. Returns {vid: base_name}.
+    """
+    vols = []
+    for vid in vids:
+        v = store.find_volume(vid)
+        if v is None:
+            raise NeedleError(f"volume {vid} not found for ec encode")
+        vols.append((vid, v))
+    bases: Dict[int, str] = {}
+    for vid, v in vols:
+        v.read_only = True
+        v.sync()
+        bases[vid] = v.file_name()
+    with trace.span("store_ec.generate_batch", volumes=len(bases)):
+        fleet.fleet_write_ec_files(list(bases.values()), backend=backend)
+        with trace.span("store_ec.write_ecx"):
+            for base in bases.values():
+                encoder.write_sorted_file_from_idx(base)
+    return bases
 
 
 def rebuild_ec_shards(store: Store, vid: int,
@@ -78,7 +111,8 @@ def rebuild_ec_shards(store: Store, vid: int,
     base = _find_ec_base(store, vid, collection)
     if base is None:
         raise EcShardNotFound(f"no local ec files for volume {vid}")
-    return encoder.rebuild_ec_files(base, backend=backend)
+    with trace.span("store_ec.rebuild", vid=vid):
+        return encoder.rebuild_ec_files(base, backend=backend)
 
 
 def mount_ec_shards(store: Store, vid: int, collection: str,
@@ -113,14 +147,21 @@ def unmount_ec_shards(store: Store, vid: int,
 
 
 def read_ec_needle(store: Store, vid: int, n: Needle,
-                   rs: Optional[ReedSolomon] = None,
+                   remote_reader: Optional[Callable] = None,
+                   rs: Optional[ReedSolomon] = None, decoder=None,
                    version: int = 3) -> Needle:
-    """ReadEcShardNeedle: cookie-checked needle read over the local
-    shards with on-the-fly RS recovery (store_ec.go:122-262)."""
+    """ReadEcShardNeedle: cookie-checked needle read over shards, with
+    remote fan-out and on-the-fly RS recovery (store_ec.go:122-262).
+
+    ``remote_reader(shard_id, offset, length) -> bytes | None`` serves
+    shards that are not local; ``decoder`` (``reads.DegradedReadFleet``)
+    fuses any reconstruction the read needs into batched dispatches,
+    else it is solved in place through ``rs``."""
     ecv = store.find_ec_volume(vid)
     if ecv is None:
         raise EcShardNotFound(f"ec volume {vid} not mounted")
-    return ecv.read_needle(n, version, rs=rs)
+    return ecv.read_needle(n, version, remote_reader=remote_reader, rs=rs,
+                           decoder=decoder)
 
 
 def delete_ec_needle(store: Store, vid: int, n: Needle) -> None:

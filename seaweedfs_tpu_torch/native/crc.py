@@ -18,7 +18,7 @@ import threading
 from seaweedfs_tpu_torch.native.builder import build_shared
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "crc32c.cpp")
-_lib = None
+_lib = None  # guarded_by(_lib_lock, writes)
 _lib_lock = threading.Lock()
 
 

@@ -19,6 +19,7 @@ the rows wanted.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -92,8 +93,13 @@ class ReedSolomon:
         self.backend = backend
         self.device = torch.device("cuda", torch.cuda.current_device()) \
             if backend == "cuda" else torch.device("cpu")
-        self._stream: Optional[torch.cuda.Stream] = None
-        self._decode_cache: dict = {}
+        # One side stream per codec, made here (the codec itself is made
+        # at first use): every dispatch of this codec goes to it, so
+        # handles retire in submission order whichever thread submits.
+        self._stream: Optional[torch.cuda.Stream] = \
+            torch.cuda.Stream(self.device) if backend == "cuda" else None
+        self._decode_lock = threading.Lock()
+        self._decode_cache: dict = {}  # guarded_by(self._decode_lock)
 
     # -- host staging --------------------------------------------------------
 
@@ -104,6 +110,20 @@ class ReedSolomon:
         return torch.empty(tuple(shape), dtype=torch.uint8,
                            pin_memory=self.backend == "cuda")
 
+    def pack(self, arrays: Sequence[np.ndarray],
+             stack: bool = False) -> torch.Tensor:
+        """``arrays`` concatenated along axis 0 (or stacked along a new
+        axis 0) straight into one ``host_buffer``: a fused batch costs one
+        host copy, and on "cuda" the buffer is pinned, so ``_submit``
+        does not stage it again."""
+        parts = [np.asarray(a, dtype=np.uint8) for a in arrays]
+        if stack:
+            parts = [a[np.newaxis] for a in parts]
+        rows = sum(a.shape[0] for a in parts)
+        buf = self.host_buffer((rows,) + parts[0].shape[1:])
+        np.concatenate(parts, axis=0, out=buf.numpy())
+        return buf
+
     # -- matrix helpers ------------------------------------------------------
 
     def _decode_matrix(self, present: tuple, wanted: tuple) -> np.ndarray:
@@ -113,14 +133,16 @@ class ReedSolomon:
                 f"need >= {self.data_shards} shards, have {len(present)}")
         present = present[: self.data_shards]
         key = (present, wanted)
-        cached = self._decode_cache.get(key)
+        with self._decode_lock:
+            cached = self._decode_cache.get(key)
         if cached is not None:
             return cached
         inv = gf256.mat_inv(self.matrix[list(present)])
         m = gf256.mat_mul(self.matrix[list(wanted)], inv)
         m.setflags(write=False)
-        if len(self._decode_cache) < 512:
-            self._decode_cache[key] = m
+        with self._decode_lock:
+            if len(self._decode_cache) < 512:
+                m = self._decode_cache.setdefault(key, m)
         return m
 
     # -- linear-map dispatch -------------------------------------------------
@@ -140,8 +162,6 @@ class ReedSolomon:
             staged = self.host_buffer(host.shape)
             staged.copy_(host)
             host = staged
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
         out_host = torch.empty(host.shape[:-2] + (gm.rows, host.shape[-1]),
                                dtype=torch.uint8, pin_memory=True)
         with torch.cuda.stream(self._stream):

@@ -1,0 +1,226 @@
+"""Named fault-injection sites (failpoints).
+
+The counterpart of ``seaweedfs_tpu.resilience.failpoint``: named sites in
+the hot paths that cost one module-flag check when unarmed and can raise,
+delay, short-read or corrupt when armed.
+
+Sites in the port:
+
+  fleet.dispatch    ec/fleet._Dispatcher, before every fused RS
+                    dispatch (`op`)
+
+Arming: SEAWEED_FAILPOINTS="site=spec;site{label=val}=spec" at process
+start (parsed at import), or ``arm()`` at run time. Spec grammar:
+``action[(arg)][@probability][*count]``; actions: error | delay(seconds)
+| short[(bytes)] | corrupt | off. Label matching is by substring.
+
+Call sites guard with ``if failpoint._armed:`` (one module-attribute
+truth test), so the unarmed data plane pays nothing.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import threading
+import time
+from typing import Dict, List, Optional
+
+from seaweedfs_tpu_torch.stats.metrics import FailpointTriggersCounter
+
+# THE hot-path flag. Sites read it directly (`failpoint._armed`);
+# everything else in this module is off that path.
+_armed = False
+
+_lock = threading.Lock()
+_sites: Dict[str, List["_Spec"]] = {}  # guarded_by(_lock, writes)
+
+_ACTIONS = ("error", "delay", "short", "corrupt")
+
+
+class FailpointError(OSError):
+    """The injected failure. Subclasses OSError so every data-plane
+    caller treats it exactly like the real connection/IO error it
+    stands in for."""
+
+    def __init__(self, site: str):
+        super().__init__(f"failpoint {site}: injected error")
+        self.site = site
+
+
+class _Spec:
+    __slots__ = ("site", "action", "arg", "p", "count", "match")
+
+    def __init__(self, site: str, action: str, arg: float = 0.0,
+                 p: float = 1.0, count: Optional[int] = None,
+                 match: Optional[Dict[str, str]] = None):
+        if action not in _ACTIONS:
+            raise ValueError(f"unknown failpoint action {action!r} "
+                             f"(want one of {_ACTIONS})")
+        self.site = site
+        self.action = action
+        self.arg = float(arg)
+        self.p = float(p)
+        self.count = count if count is None else int(count)
+        self.match = {str(k): str(v) for k, v in (match or {}).items()}
+
+    def describe(self) -> dict:
+        return {"site": self.site, "action": self.action,
+                "arg": self.arg, "p": self.p, "count": self.count,
+                "match": self.match}
+
+
+# -- arming -------------------------------------------------------------------
+
+
+def arm(site: str, action: str, arg: float = 0.0, p: float = 1.0,
+        count: Optional[int] = None,
+        match: Optional[Dict[str, str]] = None) -> None:
+    """Install one spec at `site` (appends — several specs with
+    different matches can coexist on one site)."""
+    global _armed
+    spec = _Spec(site, action, arg=arg, p=p, count=count, match=match)
+    with _lock:
+        _sites.setdefault(site, []).append(spec)
+        _armed = True
+
+
+def disarm(site: Optional[str] = None) -> None:
+    """Remove one site's specs, or every spec when site is None."""
+    global _armed
+    with _lock:
+        if site is None:
+            _sites.clear()
+        else:
+            _sites.pop(site, None)
+        _armed = bool(_sites)
+
+
+def active() -> List[dict]:
+    """The current table (for tests)."""
+    with _lock:
+        return [s.describe() for specs in _sites.values() for s in specs]
+
+
+def arm_from_string(conf: str) -> None:
+    """Parse the SEAWEED_FAILPOINTS grammar and arm every entry."""
+    for entry in conf.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        # the site=spec split must skip any '=' INSIDE {match} braces
+        # (match values like peer=host:8080 contain one)
+        brace = entry.find("{")
+        eq = entry.find("=")
+        match: Dict[str, str] = {}
+        if 0 <= brace < eq:
+            close = entry.find("}", brace)
+            if close < 0 or not entry[close + 1:].lstrip().startswith("="):
+                raise ValueError(f"failpoint entry {entry!r}: bad match")
+            site_part = entry[:brace].strip()
+            for pair in entry[brace + 1:close].split(","):
+                k, peq, v = pair.partition("=")
+                if not peq:
+                    raise ValueError(
+                        f"failpoint entry {entry!r}: bad match pair "
+                        f"{pair!r}")
+                match[k.strip()] = v.strip()
+            spec_part = entry[close + 1:].lstrip()[1:]
+        else:
+            site_part, sep, spec_part = entry.partition("=")
+            if not sep:
+                raise ValueError(
+                    f"failpoint entry {entry!r}: missing '='")
+            site_part = site_part.strip()
+        spec = spec_part.strip()
+        count: Optional[int] = None
+        p = 1.0
+        if "*" in spec:
+            spec, _, count_s = spec.rpartition("*")
+            count = int(count_s)
+        if "@" in spec:
+            spec, _, p_s = spec.rpartition("@")
+            p = float(p_s)
+        arg = 0.0
+        action = spec.strip()
+        if action.endswith(")"):
+            action, paren, arg_s = action.partition("(")
+            if not paren:
+                raise ValueError(f"failpoint entry {entry!r}: bad arg")
+            arg = float(arg_s[:-1]) if arg_s[:-1] else 0.0
+        if action == "off":
+            disarm(site_part)
+            continue
+        arm(site_part, action, arg=arg, p=p, count=count, match=match)
+
+
+def _load_env() -> None:
+    conf = os.environ.get("SEAWEED_FAILPOINTS", "")
+    if conf.strip().lower() not in ("", "1", "on", "true", "yes"):
+        arm_from_string(conf)
+
+
+# -- firing -------------------------------------------------------------------
+
+
+def _fire(site: str, labels: Dict[str, str]) -> Optional["_Spec"]:
+    """The first armed spec at `site` whose match labels hit, with
+    probability rolled and the count consumed. None = nothing fires."""
+    with _lock:
+        specs = _sites.get(site)
+        if not specs:
+            return None
+        for spec in specs:
+            if spec.count is not None and spec.count <= 0:
+                continue
+            if spec.match and not all(
+                    v in str(labels.get(k, "")) for k, v in
+                    spec.match.items()):
+                continue
+            if spec.p < 1.0 and random.random() >= spec.p:
+                continue
+            if spec.count is not None:
+                spec.count -= 1
+            fired = spec
+            break
+        else:
+            return None
+    FailpointTriggersCounter.labels(site, fired.action).inc()
+    return fired
+
+
+def hit(site: str, **labels) -> None:
+    """Control-only site: may raise FailpointError or sleep. Data
+    actions (short/corrupt) are meaningless here and ignored."""
+    spec = _fire(site, labels)
+    if spec is None:
+        return
+    if spec.action == "error":
+        raise FailpointError(site)
+    if spec.action == "delay":
+        time.sleep(spec.arg)
+
+
+def mangle(site: str, data: bytes, **labels) -> bytes:
+    """Data site: error raises, delay sleeps, short truncates the
+    payload (arg bytes off the end, default half), corrupt flips one
+    byte in the middle. Returns the (possibly mutated) payload."""
+    spec = _fire(site, labels)
+    if spec is None:
+        return data
+    if spec.action == "error":
+        raise FailpointError(site)
+    if spec.action == "delay":
+        time.sleep(spec.arg)
+        return data
+    if spec.action == "short":
+        drop = int(spec.arg) if spec.arg else max(1, len(data) // 2)
+        return data[:max(0, len(data) - drop)]
+    # corrupt
+    if not data:
+        return data
+    i = len(data) // 2
+    return data[:i] + bytes([data[i] ^ 0xFF]) + data[i + 1:]
+
+
+_load_env()

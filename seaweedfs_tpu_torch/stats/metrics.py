@@ -1,0 +1,249 @@
+"""Minimal Prometheus-style counters, gauges and histograms with labels.
+
+The counterpart of ``seaweedfs_tpu.stats.metrics``: the same metric
+primitives and text rendering, and the families the port's fleets and
+degraded reads record into, under the same names. The HTTP exposition
+server is not part of the port.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Iterable, Tuple
+
+_DEFAULT_BUCKETS = (
+    0.0001, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+def _escape_label_value(v: str) -> str:
+    """Prometheus text-format label escaping: backslash, double-quote
+    and newline."""
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_labels(names: Tuple[str, ...], values: Tuple[str, ...],
+                extra: str = "") -> str:
+    parts = [f'{n}="{_escape_label_value(v)}"'
+             for n, v in zip(names, values)]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help_text: str,
+                 label_names: Iterable[str] = ()):
+        self.name = name
+        self.help = help_text
+        self.label_names = tuple(label_names)
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[str, ...], object] = {}  # guarded_by(self._lock)
+
+    def labels(self, *values: str):
+        values = tuple(str(v) for v in values)
+        if len(values) != len(self.label_names):
+            raise ValueError(f"{self.name}: want {self.label_names}")
+        with self._lock:
+            child = self._children.get(values)
+            if child is None:
+                child = self._new_child()
+                self._children[values] = child
+            return child
+
+    def remove(self, *values: str) -> bool:
+        """Drop one labeled child; True when a child was present."""
+        values = tuple(str(v) for v in values)
+        with self._lock:
+            return self._children.pop(values, None) is not None
+
+    def _new_child(self):
+        raise NotImplementedError
+
+    def collect(self) -> str:
+        raise NotImplementedError
+
+
+class _CounterChild:
+    __slots__ = ("value", "_lock")
+
+    def __init__(self):
+        self.value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self.value += amount
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def _new_child(self):
+        return _CounterChild()
+
+    def inc(self, amount: float = 1.0) -> None:
+        self.labels().inc(amount)
+
+    def collect(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} {self.kind}"]
+        with self._lock:
+            items = list(self._children.items())
+        for values, child in items:
+            lines.append(f"{self.name}"
+                         f"{_fmt_labels(self.label_names, values)}"
+                         f" {child.value}")
+        return "\n".join(lines)
+
+
+class _GaugeChild(_CounterChild):
+    def set(self, v: float) -> None:
+        with self._lock:
+            self.value = v
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+
+class Gauge(Counter):
+    kind = "gauge"
+
+    def _new_child(self):
+        return _GaugeChild()
+
+    def set(self, v: float) -> None:
+        self.labels().set(v)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.labels().dec(amount)
+
+
+class _HistogramChild:
+    __slots__ = ("buckets", "counts", "total", "count", "_lock")
+
+    def __init__(self, buckets):
+        self.buckets = buckets
+        self.counts = [0] * len(buckets)
+        self.total = 0.0
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self.total += v
+            self.count += 1
+            for i, b in enumerate(self.buckets):
+                if v <= b:
+                    self.counts[i] += 1
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help_text, label_names=(),
+                 buckets=_DEFAULT_BUCKETS):
+        super().__init__(name, help_text, label_names)
+        self.buckets = tuple(buckets)
+
+    def _new_child(self):
+        return _HistogramChild(self.buckets)
+
+    def observe(self, v: float) -> None:
+        self.labels().observe(v)
+
+    def collect(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} {self.kind}"]
+        with self._lock:
+            items = list(self._children.items())
+        for values, child in items:
+            for b, c in zip(child.buckets, child.counts):
+                le = 'le="%s"' % b
+                lines.append(f"{self.name}_bucket"
+                             f"{_fmt_labels(self.label_names, values, le)}"
+                             f" {c}")
+            le_inf = 'le="+Inf"'
+            lines.append(f"{self.name}_bucket"
+                         f"{_fmt_labels(self.label_names, values, le_inf)}"
+                         f" {child.count}")
+            lines.append(f"{self.name}_sum"
+                         f"{_fmt_labels(self.label_names, values)}"
+                         f" {child.total}")
+            lines.append(f"{self.name}_count"
+                         f"{_fmt_labels(self.label_names, values)}"
+                         f" {child.count}")
+        return "\n".join(lines)
+
+
+class Registry:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, _Metric] = {}  # guarded_by(self._lock)
+
+    def register(self, metric: _Metric) -> _Metric:
+        with self._lock:
+            return self._metrics.setdefault(metric.name, metric)
+
+    def counter(self, name, help_text="", label_names=()) -> Counter:
+        return self.register(Counter(name, help_text, label_names))
+
+    def gauge(self, name, help_text="", label_names=()) -> Gauge:
+        return self.register(Gauge(name, help_text, label_names))
+
+    def histogram(self, name, help_text="", label_names=(),
+                  buckets=_DEFAULT_BUCKETS) -> Histogram:
+        return self.register(Histogram(name, help_text, label_names, buckets))
+
+    def render(self) -> str:
+        """Prometheus text exposition of every registered family."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return "\n".join(m.collect() for m in metrics) + "\n"
+
+
+REGISTRY = Registry()
+
+# Fleet-pipeline families (ec/fleet.py): the EC scheduler's stages.
+FleetStageSecondsHistogram = REGISTRY.histogram(
+    "SeaweedFS_fleet_stage_seconds",
+    "fleet scheduler per-stage latency", ("stage",))
+FleetReaderQueueGauge = REGISTRY.gauge(
+    "SeaweedFS_fleet_reader_queue_depth",
+    "spans prefetched by the reader pool, not yet packed")
+FleetDispatchBatchHistogram = REGISTRY.histogram(
+    "SeaweedFS_fleet_dispatch_batch_spans",
+    "volume spans fused into one RS dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+FleetDispatchedBytesCounter = REGISTRY.counter(
+    "SeaweedFS_fleet_dispatched_bytes_total",
+    "data bytes through fused RS dispatches")
+FleetWriterBacklogGauge = REGISTRY.gauge(
+    "SeaweedFS_fleet_writer_lane_backlog",
+    "writes queued on one writer lane", ("lane",))
+
+# Read-serving families (reads/decode_fleet.py, ec/ec_volume.py): how
+# much traffic rides RS reconstruction, and how well the decode fleet
+# fuses it.
+ReadsDegradedCounter = REGISTRY.counter(
+    "SeaweedFS_reads_degraded_total",
+    "intervals served by on-the-fly RS reconstruction")
+ReadsDegradedBatchHistogram = REGISTRY.histogram(
+    "SeaweedFS_reads_degraded_batch_spans",
+    "reconstruction spans fused into one RS decode dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+ReadsDecodedBytesCounter = REGISTRY.counter(
+    "SeaweedFS_reads_decoded_bytes_total",
+    "bytes produced by read-path RS reconstruction")
+ReadsShortShardCounter = REGISTRY.counter(
+    "SeaweedFS_reads_short_shard_total",
+    "local shard reads that came back short (shard truncated on disk) "
+    "and fell into reconstruction", ("vid", "shard"))
+
+# Resilience family (resilience/failpoint.py).
+FailpointTriggersCounter = REGISTRY.counter(
+    "SeaweedFS_failpoint_triggers_total",
+    "armed failpoints fired", ("site", "action"))

@@ -46,7 +46,7 @@ class DiskFile(BackendStorageFile):
         self._path = path
         # size() reads lock-free (an int load); extensions and truncates
         # serialize on the lock
-        self._size = os.fstat(self._fd).st_size
+        self._size = os.fstat(self._fd).st_size  # guarded_by(self._size_lock, writes)
         self._size_lock = threading.Lock()
 
     def read_at(self, size: int, offset: int) -> bytes:

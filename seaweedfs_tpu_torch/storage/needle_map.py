@@ -43,7 +43,7 @@ class NeedleMap:
 
     def __init__(self, index_path: Optional[str] = None):
         # point reads are GIL-atomic and lock-free; put/delete take the lock
-        self._map: dict[int, Tuple[int, int]] = {}
+        self._map: dict[int, Tuple[int, int]] = {}  # guarded_by(self._lock, writes)
         self._lock = threading.Lock()
         self.index_path = index_path
         self._index_file = None
@@ -56,6 +56,7 @@ class NeedleMap:
         if arr is None or not len(arr):
             return
         live = idx_codec.final_live_entries(arr)
+        # lint: guard-ok(_load runs from __init__ only, before the map is published)
         self._map = dict(zip(live["key"].tolist(),
                              zip(live["offset"].tolist(),
                                  live["size"].tolist())))

@@ -366,3 +366,13 @@ def test_cuda_kernel_matches_plain(lanes):
         torch.cuda.synchronize()
         assert gf_kernel.LAUNCHES == before + (1 if lanes else 0)
         assert torch.equal(got, gf_kernel.gf_linear_plain(gm.m2, data))
+
+
+def test_port_passes_the_analysis_gate():
+    """The JAX package's house-rules analyzer (lock discipline, threads
+    before first use, swallowed errors, dead code) finds nothing in the
+    port package."""
+    from seaweedfs_tpu.analysis import engine
+    root = pathlib.Path(seaweedfs_tpu_torch.__file__).parent
+    findings = engine.run_checks(root=root)
+    assert not findings, "\n".join(str(f) for f in findings)

@@ -146,3 +146,102 @@ def test_unknown_backend_rejected():
     with pytest.raises(ValueError):
         ReedSolomon(backend="numpy")
     assert rs_code.BACKENDS == ("cuda", "cpu")
+
+
+@pytest.mark.parametrize("stack", [False, True])
+def test_pack_fills_one_host_buffer(rs, stack):
+    """pack() concatenates (or stacks) numpy spans into one host tensor,
+    the fused batch the fleets dispatch, and encodes like the parts."""
+    rng = np.random.default_rng(20)
+    if stack:
+        parts = [rand_shards(rng, (10, 33)) for _ in range(3)]
+        want = np.stack(parts)
+    else:
+        parts = [rand_shards(rng, (r, 10, 33)) for r in (2, 1, 4)]
+        want = np.concatenate(parts)
+    buf = rs.pack(parts, stack=stack)
+    assert isinstance(buf, torch.Tensor) and buf.dtype == torch.uint8
+    np.testing.assert_array_equal(buf.numpy(), want)
+    np.testing.assert_array_equal(rs.encode_async(buf).result(),
+                                  rs.encode(want))
+
+
+def test_concurrent_submits_from_many_threads(rs, jrs):
+    """More threads than cores hammer one codec with encodes and decodes
+    of distinct maps (the decode fleet's two batch workers share one
+    codec), with a shortened GIL switch interval: every output is right
+    and the decode cache holds one matrix per map."""
+    import os
+    import sys
+    import threading
+    rng = np.random.default_rng(21)
+    data = rand_shards(rng, (4, 10, 64))
+    full = np.concatenate([data, jrs.encode(data)], axis=1)
+    losses = [(0,), (13,), (2, 5), (1, 7, 11), (3, 4, 10, 12)]
+    errors = []
+
+    def hammer(seed):
+        try:
+            order = np.random.default_rng(seed)
+            for _ in range(10):
+                kill = losses[int(order.integers(len(losses)))]
+                present = [i for i in range(14) if i not in kill]
+                out = rs.reconstruct_some_async(
+                    present, list(kill), full[:, present]).result()
+                np.testing.assert_array_equal(out, full[:, list(kill)])
+                np.testing.assert_array_equal(
+                    rs.encode_async(rs.pack([data])).result(), full[:, 10:])
+        except Exception as e:  # noqa: BLE001 - surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=hammer, args=(s,))
+               for s in range(2 * (os.cpu_count() or 2))]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:1]
+    for kill in losses:
+        present = tuple(i for i in range(14) if i not in kill)[:10]
+        assert rs.decode_matrix(present, kill) is \
+            rs._decode_cache[(present, kill)]
+
+
+@pytest.mark.cuda
+def test_one_side_stream_per_codec_under_threads():
+    """On the card a codec makes its side stream once, in the
+    constructor; submits from two threads all queue on it and retire
+    with the right bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+    card = ReedSolomon()
+    stream = card._stream
+    assert stream is not None
+    rng = np.random.default_rng(22)
+    data = rand_shards(rng, (3, 10, 4096))
+    want = ReedSolomon(backend="cpu").encode(data)
+    errors = []
+
+    def hammer():
+        try:
+            for _ in range(50):
+                handle = card.encode_async(card.pack([data]))
+                np.testing.assert_array_equal(handle.result(), want)
+        except Exception as e:  # noqa: BLE001 - surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=hammer) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:1]
+    assert card._stream is stream
+    assert ReedSolomon()._stream is not stream
