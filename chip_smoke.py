@@ -5,9 +5,10 @@
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
 
-1. Device: print the card's name and power limit, build the CUDA kernel
-   (``seaweedfs_tpu_torch/csrc/gf_linear.cu``, nvcc) and the needle CRC
-   library (``native/crc32c.cpp``, g++) from the checkout, in parallel.
+1. Device: print the card's name and power limit, build the CUDA kernels
+   (``seaweedfs_tpu_torch/csrc/gf_linear.cu`` and ``gf_compare.cu``, nvcc)
+   and the needle CRC library (``native/crc32c.cpp``, g++) from the
+   checkout, one compiler per source, all in parallel.
 2. Kernel vs plain: ``gf_kernel.gf_linear`` on the card, byte-compared with
    its plain PyTorch version (``gf_linear_plain``, also on the card) for
    the encode matrix and the decode matrices of four loss sets, at lane
@@ -55,7 +56,29 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    fleet encode under torch.profiler. The port's per-stage
    FleetStageSecondsHistogram sums and the data bytes per fused dispatch
    are printed for each pass. Each pass's launch count must be > 0.
-7. One JSON line with the kernel's numbers, the card's nvidia-smi line,
+7. Scrub and mesh, on phase 6's volumes, with an explicit one-card mesh
+   (``parallel.make_mesh(devices=[cuda:0])``). (a) ``gf_compare`` on the
+   card against ``gf_compare_plain``: counts and first indices exact at
+   N = 0, 1, 127, 128, 33,025, 64 Mi, the mesh verify bucket [1, 4,
+   lanes] (its span padded to 16 lanes) and the unpadded span, for
+   matching rows and first-lane, last-lane, at-the-limit and random
+   mismatches under limits 0, partial and full, at lane offsets 0 and
+   2^20; timed at the bucket like phase 2, beside ``(a != b).sum(-1)``,
+   and on the card at the unpadded span.
+   (b) ``mesh_verify_ec_files`` against ``fleet_verify_ec_files`` in the
+   order fleet, mesh, mesh, fleet, then both with phase 6's two flipped
+   bytes (VerifyResult fields equal but spans), and one mesh verify under
+   torch.profiler. (c) ``mesh_rebuild_ec_files(check=True)`` of {3, 12}
+   (hashes identical), then a flipped survivor byte: MeshVerifyMismatch
+   and no rebuilt file left. (d) ``sharded_write_ec_files`` (shards equal
+   phase 6's), ``ec_pipeline_step`` (0 mismatches) and ``rotate_shards``.
+   (e) one ``ScrubDaemon(..., mesh_cfg={"mesh": mesh}).run_pass()`` over a
+   store of the last five volumes with planted damage: a live needle byte
+   in a data shard, a parity byte, a dead-space data byte, and a CRC-bad
+   needle of a normal volume with a copied replica; every fault repaired
+   byte-identical and the pass counts exact. Both kernels' launch counts
+   must rise where they run, and the mesh must never fall back.
+8. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -109,14 +132,17 @@ def sha256_file(path: str) -> str:
 # --- phase 1 ------------------------------------------------------------------
 
 def build_all() -> float:
+    """Every kernel of the path and the CRC library, one compiler process
+    per source, all started together."""
     from seaweedfs_tpu_torch.native import crc
-    from seaweedfs_tpu_torch.ops import gf_kernel
+    from seaweedfs_tpu_torch.ops import gf_compare, gf_kernel
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(gf_kernel.load), pool.submit(crc.load)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(gf_kernel.load), pool.submit(gf_compare.load),
+                    pool.submit(crc.load)]:
             fut.result()
     secs = time.perf_counter() - t0
-    for line in gf_kernel.BUILD_LOG.splitlines():
+    for line in (gf_kernel.BUILD_LOG + gf_compare.BUILD_LOG).splitlines():
         if "entry function" in line or "registers" in line or \
                 "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -167,10 +193,12 @@ def time_ms(fn, samples: int, launches: int = 1) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, launches: int):
-    """Median duration on the card of the gf_linear kernel over
-    ``launches`` calls, from torch.profiler's device events: no host
-    cost. None when the profiler saw no device time."""
+def device_ms(fn, launches: int, names=("gf_linear",)):
+    """Duration on the card of one call of ``fn`` over ``launches`` calls,
+    from torch.profiler's device events of the kernels ``names``: no host
+    cost. With one kernel per call the median of its durations, else the
+    mean of their sum per call. None when the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -181,8 +209,12 @@ def device_ms(fn, launches: int):
             fn()
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if str(e.device_type).endswith("CUDA") and "gf_linear" in e.name]
-    return float(np.median(times)) if times else None
+             if str(e.device_type).endswith("CUDA")
+             and any(n in e.name for n in names)]
+    if not times:
+        return None
+    return float(np.median(times)) if len(names) == 1 else \
+        float(np.sum(times)) / launches
 
 
 def main_path_encode_shape() -> tuple:
@@ -284,22 +316,28 @@ def phase_kernel(seed: int) -> dict:
 # --- phase 3 ------------------------------------------------------------------
 
 class Launches:
-    """Counts the kernel's launches over one phase."""
+    """Counts the kernels' launches over one phase: both counts are set to
+    0 just before it and read just after. gf_linear must launch in every
+    phase, gf_compare in those run with ``compare=True``."""
 
     def __init__(self, backend: str):
         self.backend = backend
-        self.per_phase = {}
+        self.per_phase = {}          # gf_linear launches
+        self.compare_per_phase = {}  # gf_compare launches
 
-    def run(self, phase: str, fn, *args, **kwargs):
-        from seaweedfs_tpu_torch.ops import gf_kernel
-        gf_kernel.LAUNCHES = 0
+    def run(self, phase: str, fn, *args, compare: bool = False, **kwargs):
+        from seaweedfs_tpu_torch.ops import gf_compare, gf_kernel
+        gf_kernel.LAUNCHES = gf_compare.LAUNCHES = 0
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         secs = time.perf_counter() - t0
-        n = gf_kernel.LAUNCHES
+        n, c = gf_kernel.LAUNCHES, gf_compare.LAUNCHES
         self.per_phase[phase] = n
+        self.compare_per_phase[phase] = c
         if self.backend == "cuda" and n == 0:
-            raise AssertionError(f"{phase}: the kernel was never launched")
+            raise AssertionError(f"{phase}: gf_linear was never launched")
+        if self.backend == "cuda" and compare and c == 0:
+            raise AssertionError(f"{phase}: gf_compare was never launched")
         return out, secs
 
 
@@ -527,6 +565,9 @@ def phase_chunk_sweep(base: str, dat_size: int, want_hashes: list,
     return out
 
 
+KERNEL_NAMES = ("gf_linear", "compare_rows", "init_rows", "finish_rows")
+
+
 def device_busy(fn) -> tuple:
     """Wall ms of ``fn()`` under torch.profiler and the card's busy ms by
     kind (kernel, HtoD, DtoH, other): sums of event durations."""
@@ -543,7 +584,7 @@ def device_busy(fn) -> tuple:
         if not str(e.device_type).endswith("CUDA"):
             continue
         ms = e.time_range.elapsed_us() / 1e3
-        kind = "kernel" if "gf_linear" in e.name else \
+        kind = "kernel" if any(n in e.name for n in KERNEL_NAMES) else \
             "HtoD" if "HtoD" in e.name else \
             "DtoH" if "DtoH" in e.name else "other"
         busy[kind] += ms
@@ -579,7 +620,7 @@ FLEET_NEEDLES = (524288, 262144, 262144) + (131072,) * 4 + (32768,) * 4 + \
 FLEET_REBUILD_LOST = (3, 12)
 FLEET_SAMPLE = 4096
 FLEET_THREADS = 16
-STAGES = ("read", "dispatch", "rs", "retire", "write", "verify")
+STAGES = ("read", "upload", "dispatch", "rs", "retire", "write", "verify")
 
 
 def write_fleet(store, counts, seed: int, sample_size: int) -> dict:
@@ -622,9 +663,9 @@ def log_counters(label: str, before: dict) -> dict:
     d = {k: after[k] - before[k] for k in after}
     per = d["bytes"] / d["dispatches"] if d["dispatches"] else 0.0
     log(f"  {label} stage sums: " + ", ".join(
-        f"{s} {d[s]:.3f} s" for s in STAGES if d[s]) +
+        f"{s} {d[s]:.3f} s" for s in STAGES if d[s]) + (
         f"; {d['dispatches']} fused dispatches, {per:.0f} B of data per "
-        "dispatch (the pinned input buffer)")
+        "dispatch (the pinned input buffer)" if d["dispatches"] else ""))
     d["bytes_per_dispatch"] = per
     return d
 
@@ -706,12 +747,14 @@ def check_fleet_shapes(n_vols: int, span: int, seed: int) -> int:
 
 
 def phase_fleet(workdir: str, seed: int, backend: str,
-                counts=FLEET_NEEDLES, sample_size: int = FLEET_SAMPLE) -> dict:
+                counts=FLEET_NEEDLES, sample_size: int = FLEET_SAMPLE) -> tuple:
     """The fused-batch paths across many volumes: generate_ec_shards_batch,
     then bare fleet passes against per-volume encodes over hard-linked
     twins (fleet, per-volume, per-volume, fleet),
     fleet rebuild, fleet verify (clean, then two flipped bytes), and
-    degraded reads through the decode fleet and the in-place path."""
+    degraded reads through the decode fleet and the in-place path.
+    Returns (metrics, the volumes for phase 7: their base names, shard
+    hashes and sizes, and the two flipped bytes)."""
     from seaweedfs_tpu_torch.ec import encoder, fleet, store_ec
     from seaweedfs_tpu_torch.ec.encoder import (
         default_chunk_for, shard_file_name)
@@ -903,7 +946,439 @@ def phase_fleet(workdir: str, seed: int, backend: str,
     finally:
         store.close()
     out["launches"] = launches.per_phase
+    ctx = dict(vol_dir=vol_dir, bases=bases, hashes=hashes, counts=counts,
+               shard_sizes=shard_sizes,
+               flips=((bad_parity + ".ec11", off_p),
+                      (bad_data + ".ec04", off_d)))
+    return out, ctx
+
+
+# --- phase 7 ------------------------------------------------------------------
+
+COMPARE_LANES = (0, 1, 127, 128, 32768 + 257, BIG_LANES)
+COMPARE_OFFSETS = (0, 1 << 20)
+COMPARE_KERNELS = ("compare_rows", "init_rows", "finish_rows")
+# VerifyResult fields that the mesh verify must share with the fleet
+# verify (spans differ: the two cut their spans from different budgets)
+VERIFY_FIELDS = ("parity_mismatch", "first_mismatch", "missing",
+                 "parity_checked", "bytes_verified", "verified")
+
+
+def compare_cases(n: int, gen, device):
+    """(label, a, b, limits) at [2, 4, n]: rows that match, a first-lane,
+    a last-lane and an at-the-limit mismatch, and sparse random ones,
+    under limits of 0, partial and full. Yields one case at a time."""
+    import torch
+    a = torch.randint(0, 256, (2, 4, n), generator=gen, device=device,
+                      dtype=torch.uint8)
+    lim = torch.tensor([[n, n // 2, 0, max(n - 1, 0)], [n, n, n // 3, 1]],
+                       dtype=torch.int32, device=device)
+    for label in ("match", "first", "last", "at_limit", "random"):
+        b = a.clone()
+        if n and label == "first":
+            b[..., 0] ^= 1
+        elif n and label == "last":
+            b[..., n - 1] ^= 0x80
+        elif n and label == "at_limit":
+            for r, p in np.ndindex(2, 4):
+                k = int(lim[r, p])
+                if k < n:
+                    b[r, p, k] ^= 7        # at the limit: not counted
+                if k > 0:
+                    b[r, p, k - 1] ^= 7    # just below: counted
+        elif n and label == "random":
+            b[torch.rand(b.shape, generator=gen, device=device) < 1e-3] ^= 0x5A
+        yield label, a, b, lim
+
+
+def phase_compare_kernel(seed: int, span: int) -> dict:
+    """gf_compare on the card against gf_compare_plain (also on the card),
+    byte-exact counts and first indices, at every N of COMPARE_LANES, the
+    mesh verify bucket's [1, 4, lanes] (the span padded to a multiple of
+    16 lanes) and the unpadded span, at lane offsets 0 and 2^20; then its
+    times at the bucket against its bound, and on the card at the
+    unpadded span too (where the kernel takes its byte path)."""
+    import torch
+    from seaweedfs_tpu_torch.ops import gf_compare
+    from seaweedfs_tpu_torch.parallel import mesh_fleet
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lanes = mesh_fleet._lanes_for(span, 1)
+    max_err = 0
+    for n in COMPARE_LANES + (span, lanes):
+        for label, a, b, lim in compare_cases(n, gen, dev):
+            for off in COMPARE_OFFSETS:
+                got = gf_compare.gf_compare(a, b, lim + off, off)
+                want = gf_compare.gf_compare_plain(a, b, lim + off, off)
+                torch.cuda.synchronize()
+                err = max(int((g.long() - w.long()).abs().max())
+                          for g, w in zip(got, want))
+                max_err = max(max_err, err)
+                if err:
+                    raise AssertionError(
+                        f"gf_compare {label} N={n} offset {off}: kernel "
+                        f"{[t.tolist() for t in got]} != plain "
+                        f"{[t.tolist() for t in want]}")
+            del a, b
+        log(f"  N={n}: gf_compare == plain (match, first, last, at the "
+            f"limit, random; limits 0/partial/full; offsets "
+            f"{COMPARE_OFFSETS})")
+    a = torch.randint(0, 256, (1, 4, lanes), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    b = a.clone()
+    b[..., ::4099] ^= 1
+    lim = torch.full((1, 4), span, dtype=torch.int32, device=dev)
+
+    def kernel():
+        gf_compare.gf_compare(a, b, lim)
+
+    ms = time_ms(kernel, 50)
+    ms_pipelined = time_ms(kernel, 20, 10)
+    ms_device = device_ms(kernel, 50, COMPARE_KERNELS)
+    plain_ms = time_ms(lambda: gf_compare.gf_compare_plain(a, b, lim), 5)
+    count_floor_ms = time_ms(lambda: (a != b).sum(-1), 20)
+    bound_ms = 2 * a.numel() / HBM_BYTES_PER_S * 1e3
+    a_span, b_span = a[..., :span].contiguous(), b[..., :span].contiguous()
+    ms_device_span = device_ms(
+        lambda: gf_compare.gf_compare(a_span, b_span, lim), 50,
+        COMPARE_KERNELS)
+    del a_span, b_span
+    log(f"  gf_compare mesh verify bucket {tuple(a.shape)}: {ms:.4f} ms "
+        f"single (median of 50, {bound_ms / ms:.2%} of bound), "
+        f"{ms_pipelined:.4f} ms pipelined (median of 20 x 10, "
+        f"{bound_ms / ms_pipelined:.2%}), " + (
+            f"{ms_device:.4f} ms on the card (3 kernels, mean of 50, "
+            f"{bound_ms / ms_device:.2%})" if ms_device else
+            "time on the card not measured") +
+        f", bound {bound_ms:.4g} ms (2 x {a.numel()} B), plain "
+        f"{plain_ms:.3f} ms; (a != b).sum(-1) alone {count_floor_ms:.4f} ms")
+    log(f"  gf_compare at the unpadded span [1, 4, {span}] (byte path): "
+        + (f"{ms_device_span:.4f} ms on the card (mean of 50) against "
+           f"{ms_device:.4f} at [1, 4, {lanes}]" if ms_device_span else
+           "time on the card not measured"))
+    return dict(max_abs_err=max_err, shape=list(a.shape), ms=ms,
+                ms_pipelined=ms_pipelined, ms_device=ms_device,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                count_floor_ms=count_floor_ms,
+                ms_device_unpadded_span=ms_device_span)
+
+
+def mesh_fallbacks() -> float:
+    from seaweedfs_tpu_torch.stats import metrics
+    return sum(metrics.FleetMeshFallbacksCounter.labels(r).value
+               for r in ("unavailable", "timeout", "error"))
+
+
+def scrub_counters() -> dict:
+    from seaweedfs_tpu_torch.stats import metrics as m
+    out = {"scanned_bytes": m.ScrubScannedBytesCounter.labels().value,
+           "needles_verified": m.ScrubNeedlesVerifiedCounter.labels().value,
+           "stripes_verified": m.ScrubStripesVerifiedCounter.labels().value,
+           "unrecoverable": m.ScrubUnrecoverableCounter.labels().value,
+           "pass_seconds_sum": m.ScrubPassSecondsHistogram.labels().total}
+    for kind in ("needle", "ec_data", "ec_parity"):
+        out[f"found_{kind}"] = \
+            m.ScrubCorruptionsFoundCounter.labels(kind).value
+        out[f"repaired_{kind}"] = \
+            m.ScrubCorruptionsRepairedCounter.labels(kind).value
     return out
+
+
+def check_same_verify(got: dict, want: dict, label: str) -> None:
+    if set(got) != set(want) or any(
+            getattr(got[b], f) != getattr(want[b], f)
+            for b in want for f in VERIFY_FIELDS):
+        raise AssertionError(f"{label}: mesh verify != fleet verify")
+
+
+def dead_data_byte(base: str, shard_size: int, dat_size: int) -> tuple:
+    """(data shard, offset) of a shard byte past the end of the .dat:
+    padding that no needle CRC covers (small rows of 1 MiB blocks)."""
+    from seaweedfs_tpu_torch.ec.encoder import SMALL_BLOCK_SIZE
+    off = shard_size - 100
+    row, within = divmod(off, SMALL_BLOCK_SIZE)
+    for sid in range(9, 4, -1):
+        if (row * 10 + sid) * SMALL_BLOCK_SIZE + within >= dat_size:
+            return sid, off
+    raise AssertionError(f"{base}: no dead data-shard byte")
+
+
+def phase_scrub_mesh(workdir: str, ctx: dict, seed: int, backend: str,
+                     mesh_devices=None) -> dict:
+    """Phase 6's volumes through the mesh scheduler on an explicit mesh
+    (one card, or ``mesh_devices``) and through the scrub daemon: mesh
+    verify against fleet verify, checked rebuild, sharded encode and the
+    pipeline step, then one scrub pass over planted damage."""
+    import torch
+    from seaweedfs_tpu_torch import parallel
+    from seaweedfs_tpu_torch.ec import fleet
+    from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    from seaweedfs_tpu_torch.ops.rs_code import coding_matrix
+    from seaweedfs_tpu_torch.parallel import mesh_fleet
+
+    bases, hashes = ctx["bases"], ctx["hashes"]
+    mesh = parallel.make_mesh(
+        devices=mesh_devices or [torch.device("cuda", 0)])
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    launches = Launches(backend)
+    fallbacks = mesh_fallbacks()
+    rng = np.random.default_rng(seed + 7)
+    out = {"mesh": mesh.shape}
+    log(f"  mesh {mesh}")
+
+    # (b) mesh verify against fleet verify, fleet, mesh, mesh, fleet
+    runs = []
+    for i, name in enumerate(("fleet", "mesh", "mesh", "fleet")):
+        before = fleet_counters()
+        if name == "fleet":
+            res, secs = launches.run(f"verify_{i}_fleet",
+                                     fleet.fleet_verify_ec_files, bases,
+                                     backend=backend)
+        else:
+            res, secs = launches.run(f"verify_{i}_mesh",
+                                     mesh_fleet.mesh_verify_ec_files,
+                                     bases, mesh=mesh, compare=True)
+        stages = log_counters(f"{name} verify", before)
+        if not all(r.clean for r in res.values()):
+            raise AssertionError(f"{name} verify: clean volumes reported")
+        gbps = sum(r.bytes_verified for r in res.values()) / secs / 1e9
+        runs.append((name, gbps, stages))
+        log(f"  {name} verify of {len(bases)} volumes: {secs:.3f} s, "
+            f"{gbps:.3f} GB/s of data shards, "
+            f"{launches.per_phase[f'verify_{i}_{name}']} gf_linear and "
+            f"{launches.compare_per_phase[f'verify_{i}_{name}']} gf_compare "
+            "launches, all clean")
+    out["verify_GBps"] = {n: [g for n_, g, _ in runs if n_ == n]
+                          for n in ("fleet", "mesh")}
+    out["verify_stages"] = [dict(name=n, **st) for n, _, st in runs]
+    for path, off in ctx["flips"]:
+        flip_byte(path, off)
+    got, _ = launches.run("mesh_verify_damaged",
+                          mesh_fleet.mesh_verify_ec_files, bases, mesh=mesh,
+                          compare=True)
+    want, _ = launches.run("fleet_verify_damaged",
+                           fleet.fleet_verify_ec_files, bases,
+                           backend=backend)
+    check_same_verify(got, want, "two flipped bytes")
+    dirty = sorted(b for b, r in got.items() if not r.clean)
+    if dirty != sorted({os.path.splitext(p)[0] for p, _ in ctx["flips"]}):
+        raise AssertionError(f"mesh verify flagged {dirty}")
+    log(f"  two flipped bytes: mesh verify == fleet verify field for field "
+        f"({', '.join(VERIFY_FIELDS)}): "
+        + "; ".join(f"{os.path.basename(b)} {got[b].parity_mismatch} at "
+                    f"{got[b].first_mismatch}" for b in dirty))
+    for path, off in ctx["flips"]:
+        flip_byte(path, off)
+    if backend == "cuda":
+        wall_ms, busy = device_busy(
+            lambda: mesh_fleet.mesh_verify_ec_files(bases, mesh=mesh))
+        log_busy("mesh_verify_ec_files", wall_ms, busy)
+        out["verify_trace"] = dict(wall_ms=wall_ms, **{
+            f"{k}_ms": v for k, v in busy.items()})
+
+    # (c) checked rebuild: byte-identical, and it trips on a bad survivor
+    for base in bases:
+        for sid in FLEET_REBUILD_LOST:
+            os.remove(shard_file_name(base, sid))
+    rebuilt, secs = launches.run("mesh_rebuild_check",
+                                 mesh_fleet.mesh_rebuild_ec_files, bases,
+                                 mesh=mesh, check=True, compare=True)
+    if any(rebuilt[b] != list(FLEET_REBUILD_LOST) for b in bases) or \
+            [shard_hashes(b) for b in bases] != hashes:
+        raise AssertionError("checked mesh rebuild: shard hashes differ")
+    out["rebuild_check_GBps"] = \
+        12 * sum(ctx["shard_sizes"]) / secs / 1e9
+    log(f"  mesh_rebuild_ec_files {FLEET_REBUILD_LOST} check=True: "
+        f"{secs:.3f} s, {out['rebuild_check_GBps']:.3f} GB/s of the 12 "
+        f"surviving shards read, "
+        f"{launches.per_phase['mesh_rebuild_check']} gf_linear and "
+        f"{launches.compare_per_phase['mesh_rebuild_check']} gf_compare "
+        "launches, hashes identical")
+    victim = bases[-1]
+    survivor = shard_file_name(victim, 5)
+
+    def trip() -> None:
+        try:
+            mesh_fleet.mesh_rebuild_ec_files([victim], mesh=mesh,
+                                             check=True)
+        except mesh_fleet.MeshVerifyMismatch:
+            return
+        raise AssertionError("checked rebuild passed a corrupt survivor")
+
+    for sid in FLEET_REBUILD_LOST:
+        os.remove(shard_file_name(victim, sid))
+    flip_byte(survivor, 100)
+    launches.run("mesh_rebuild_trip", trip, compare=True)
+    if any(os.path.exists(shard_file_name(victim, sid))
+           for sid in FLEET_REBUILD_LOST):
+        raise AssertionError("a tripped rebuild left its files behind")
+    flip_byte(survivor, 100)
+    mesh_fleet.mesh_rebuild_ec_files([victim], mesh=mesh, check=True)
+    if shard_hashes(victim) != hashes[-1]:
+        raise AssertionError("rebuild after the trip: hashes differ")
+    log(f"  a flipped byte in {os.path.basename(survivor)}: "
+        "MeshVerifyMismatch, no rebuilt file left; rebuilt again after "
+        "the flip was undone, hashes identical")
+
+    # (d) sharded encode of every volume, the pipeline step, a rotation
+    _, secs = launches.run("sharded_write", parallel.sharded_write_ec_files,
+                           mesh, bases)
+    if [shard_hashes(b) for b in bases] != hashes:
+        raise AssertionError("sharded_write_ec_files: shards differ")
+    dat_bytes = sum(os.path.getsize(b + ".dat") for b in bases)
+    out["sharded_write_GBps"] = dat_bytes / secs / 1e9
+    log(f"  sharded_write_ec_files of {len(bases)} volumes: {secs:.3f} s, "
+        f"{out['sharded_write_GBps']:.3f} GB/s of .dat, "
+        f"{launches.per_phase['sharded_write']} launches, shards identical "
+        "to phase 6's")
+    lanes = (4 << 20) if backend == "cuda" else (64 << 10)
+    data = rng.integers(0, 256, (2 * dp, 10, sp * lanes), dtype=np.uint8)
+    (parity, step_rebuilt, mism), secs = launches.run(
+        "pipeline_step", parallel.ec_pipeline_step, mesh, data,
+        compare=True)
+    dev = mesh.flat[0]
+    gm = gf_kernel.prepare_matrix(coding_matrix()[10:], dev)
+    want_parity = gf_kernel.gf_linear_plain(
+        gm.m2, torch.from_numpy(data).to(dev)).cpu().numpy()
+    parity = np.asarray(parity)
+    if mism != 0 or not np.array_equal(parity, want_parity) or \
+            not np.array_equal(np.asarray(step_rebuilt)[:, 0], data[:, 3]):
+        raise AssertionError(f"ec_pipeline_step: {mism} mismatches")
+    rotated = np.asarray(parallel.rotate_shards(mesh, parity, shift=1))
+    if not np.array_equal(rotated, np.roll(parity, data.shape[0] // dp, 0)):
+        raise AssertionError("rotate_shards moved the wrong blocks")
+    log(f"  ec_pipeline_step {data.shape}: 0 mismatches, parity == "
+        f"gf_linear_plain, {launches.per_phase['pipeline_step']} gf_linear "
+        f"and {launches.compare_per_phase['pipeline_step']} gf_compare "
+        f"launches ({secs:.3f} s); rotate_shards with dp={dp} == its roll")
+
+    # (e) one scrub pass over planted damage
+    out["scrub"] = phase_scrub(workdir, ctx, mesh, backend, launches, rng)
+    if mesh_fallbacks() != fallbacks:
+        raise AssertionError("the mesh scheduler fell back")
+    out["launches"] = launches.per_phase
+    out["compare_launches"] = launches.compare_per_phase
+    return out
+
+
+def phase_scrub(workdir: str, ctx: dict, mesh, backend: str, launches,
+                rng) -> dict:
+    """One ScrubDaemon pass, its verify on the mesh, over a store of the
+    last volumes of phase 6: up to four EC volumes (a live needle byte
+    flipped in a data shard, a parity byte, a dead-space byte in a data
+    shard, one clean) and the last volume as a normal volume with one
+    CRC-bad needle and a replica copied aside. The rest stay out of the
+    store: the needle sweep is Python, about 20 us a needle."""
+    from seaweedfs_tpu_torch.ec.encoder import (
+        default_chunk_for, shard_file_name)
+    from seaweedfs_tpu_torch.parallel import mesh_fleet
+    from seaweedfs_tpu_torch.scrub import ScrubDaemon
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    vol_dir, counts, hashes = ctx["vol_dir"], ctx["counts"], ctx["hashes"]
+    normal = len(counts)
+    ec_vids = list(range(max(1, normal - 4), normal))
+    scrub_dir = os.path.join(workdir, "scrub")
+    replica_dir = os.path.join(workdir, "replica")
+    os.makedirs(scrub_dir)
+    os.makedirs(replica_dir)
+    for vid in ec_vids:
+        for ext in [f".ec{i:02d}" for i in range(14)] + [".ecx", ".ecj"]:
+            src = os.path.join(vol_dir, f"{vid}{ext}")
+            if os.path.exists(src):
+                os.replace(src, os.path.join(scrub_dir, f"{vid}{ext}"))
+    for ext in (".dat", ".idx"):
+        os.replace(os.path.join(vol_dir, f"{normal}{ext}"),
+                   os.path.join(scrub_dir, f"{normal}{ext}"))
+        shutil.copyfile(os.path.join(scrub_dir, f"{normal}{ext}"),
+                        os.path.join(replica_dir, f"{normal}{ext}"))
+    store = Store([scrub_dir], [8])
+    replica = Volume(replica_dir, "", normal, create_if_missing=False)
+    try:
+        planted = {}   # (vid, shard) -> what was flipped
+        ecv = store.find_ec_volume(ec_vids[0])
+        nid = next(i for i in range(100, counts[ec_vids[0] - 1])
+                   if ecv.locate_needle(i)[2][0].size >= 64)
+        sid, soff = ecv.locate_needle(nid)[2][0].to_shard_and_offset(
+            ecv.large_block, ecv.small_block)
+        flip_byte(shard_file_name(ecv.base_name, sid), soff + 30)
+        planted[(ec_vids[0], sid)] = f"needle {nid} data byte"
+        if len(ec_vids) > 1:
+            ecv = store.find_ec_volume(ec_vids[1])
+            flip_byte(shard_file_name(ecv.base_name, 11),
+                      int(rng.integers(0, ecv.shard_size)))
+            planted[(ec_vids[1], 11)] = "parity byte"
+        if len(ec_vids) > 2:
+            ecv = store.find_ec_volume(ec_vids[2])
+            sid, off = dead_data_byte(
+                ecv.base_name, ecv.shard_size,
+                os.path.getsize(os.path.join(vol_dir,
+                                             f"{ec_vids[2]}.dat")))
+            flip_byte(shard_file_name(ecv.base_name, sid), off)
+            planted[(ec_vids[2], sid)] = f"dead-space byte at {off}"
+        v = store.find_volume(normal)
+        bad_nid = 1 + counts[normal - 1] // 2
+        nv = v.nm.get(bad_nid)
+        flip_byte(v.dat_path, nv.offset + 16 + 4 + 3)
+
+        def replica_fetch(vid: int, n) -> bytes:
+            if vid != normal:
+                return None
+            return replica.read_needle(Needle(id=n.id, cookie=n.cookie)).data
+
+        d = ScrubDaemon(store, backend=backend, replica_fetch=replica_fetch,
+                        mesh_cfg={"mesh": mesh})
+        before = scrub_counters()
+        res, secs = launches.run("scrub_pass", d.run_pass, compare=True)
+        after = scrub_counters()
+        dp = mesh.shape["dp"]
+        sizes = {vid: store.find_ec_volume(vid).shard_size
+                 for vid in ec_vids}
+        span = max(1, min((mesh_fleet.DEFAULT_BUCKET_MB << 20) // (dp * 10),
+                          max(sizes.values())))
+        chunk = default_chunk_for(backend)
+        repaired = sorted({vid for vid, _ in planted})
+        want = dict(
+            needles_verified=sum(counts[vid - 1] for vid in ec_vids) +
+            counts[normal - 1],
+            stripes_verified=sum(-(-s // span) for s in sizes.values()) +
+            sum(-(-sizes[vid] // min(chunk, sizes[vid]))
+                for vid in repaired),
+            corruptions_found=len(planted) + 1,
+            corruptions_repaired=len(planted) + 1, unrecoverable=0,
+            volumes=1, ec_volumes=len(ec_vids))
+        got = {k: getattr(res, k) for k in want}
+        if got != want:
+            raise AssertionError(f"scrub pass: {got} != {want}\n"
+                                 + "\n".join(res.details))
+        for (vid, sid), what in planted.items():
+            path = shard_file_name(os.path.join(scrub_dir, str(vid)), sid)
+            if sha256_file(path) != hashes[vid - 1][sid] or \
+                    not os.path.exists(path + ".corrupt"):
+                raise AssertionError(f"{path} ({what}) not repaired")
+        if v.read_needle(Needle(id=bad_nid)).data != \
+                replica.read_needle(Needle(id=bad_nid)).data:
+            raise AssertionError("the CRC-bad needle was not rewritten")
+        delta = {k: after[k] - before[k] for k in after}
+        log(f"  scrub pass over {len(ec_vids)} EC volumes and 1 volume "
+            f"with {len(planted) + 1} planted faults ("
+            + ", ".join(f"volume {vid} .ec{sid:02d}: {what}"
+                        for (vid, sid), what in planted.items())
+            + f", volume {normal} needle {bad_nid}): {secs:.3f} s; "
+            f"{got}; every damaged shard byte-identical with its .corrupt "
+            "copy kept, the needle rewritten from the replica; "
+            f"{launches.per_phase['scrub_pass']} gf_linear and "
+            f"{launches.compare_per_phase['scrub_pass']} gf_compare "
+            "launches")
+        log("  Scrub* counters over the pass: " + json.dumps(delta))
+        return dict(seconds=secs, result=got, counters=delta,
+                    bytes_scanned=res.bytes_scanned)
+    finally:
+        store.close()
+        replica.close()
 
 
 def main() -> int:
@@ -923,8 +1398,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     log("phase 1: build")
-    log(f"  built gf_linear.cu (nvcc) and crc32c.cpp (g++) in "
-        f"{build_all():.1f} s")
+    log(f"  built gf_linear.cu and gf_compare.cu (nvcc) and crc32c.cpp "
+        f"(g++) in {build_all():.1f} s")
     log("phase 2: kernel vs plain on the card")
     kstats = phase_kernel(args.seed)
     log("phase 3: main path")
@@ -945,19 +1420,28 @@ def main() -> int:
     try:
         log(f"  workdir {workdir}, "
             f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB free")
-        fleet = phase_fleet(workdir, args.seed, "cuda")
+        fleet, ctx = phase_fleet(workdir, args.seed, "cuda")
+        log("phase 7: scrub and mesh")
+        from seaweedfs_tpu_torch.parallel import mesh_fleet
+        span = min((mesh_fleet.DEFAULT_BUCKET_MB << 20) // 10,
+                   max(ctx["shard_sizes"]))
+        cstats = phase_compare_kernel(args.seed, span)
+        scrub_mesh = phase_scrub_mesh(workdir, ctx, args.seed, "cuda")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     main_launches = sum(m["launches"][p] for p in
                         ("generate", "rebuild", "degraded_read", "decode"))
+    compare_launches = sum(scrub_mesh["compare_launches"].values())
     summary = {k: v for k, v in m.items()
                if k not in ("shard_hashes", "large_base")}
     summary["chunk_sweep_GBps"] = sweep
     summary["kernel"] = kstats
     summary["trace"] = trace
     summary["fleet"] = fleet
+    summary["compare_kernel"] = cstats
+    summary["scrub_mesh"] = scrub_mesh
     log("metrics: " + json.dumps(summary))
-    log('kernels: ["gf_linear"]')
+    log('kernels: ["gf_linear", "gf_compare"]')
     print(json.dumps({"kernels": [{
         "name": "gf_linear", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_linear.cu",
@@ -965,7 +1449,15 @@ def main() -> int:
         "launches": main_launches,
         "max_abs_err": kstats["max_abs_err"],
         **kstats["main"], "bound_by": "bytes",
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "gf_compare", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/gf_compare.cu",
+        "replaces": "seaweedfs_tpu/parallel/mesh_fleet.py:234",
+        "launches": compare_launches,
+        "max_abs_err": cstats["max_abs_err"],
+        **{k: cstats[k] for k in ("ms", "ms_pipelined", "ms_device",
+                                  "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": None}]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

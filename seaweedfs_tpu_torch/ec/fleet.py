@@ -49,8 +49,20 @@ from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
 from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.stats.metrics import (
     FleetDispatchBatchHistogram, FleetDispatchedBytesCounter,
-    FleetReaderQueueGauge, FleetStageSecondsHistogram,
-    FleetWriterBacklogGauge)
+    FleetMeshFallbacksCounter, FleetReaderQueueGauge,
+    FleetStageSecondsHistogram, FleetWriterBacklogGauge)
+
+
+def mesh_fleet_or_none():
+    """The unified mesh scheduler module (``parallel/mesh_fleet``), or
+    None when it cannot be imported. A None counts as a mesh fallback;
+    the caller then runs the fleet path."""
+    try:
+        from seaweedfs_tpu_torch.parallel import mesh_fleet
+        return mesh_fleet
+    except ImportError:
+        FleetMeshFallbacksCounter.labels("unavailable").inc()
+        return None
 
 # Reader-pool width: enough to keep several volumes' sequential reads
 # in flight without degrading each stream to fully random IO.
@@ -81,8 +93,8 @@ _LANE_QUEUE = 4
 # lock per call, and a stage interval closes for every chunk-sized
 # unit of work.
 _STAGE_HIST = {s: FleetStageSecondsHistogram.labels(s)
-               for s in ("read", "dispatch", "rs", "retire", "write",
-                         "verify")}
+               for s in ("read", "upload", "dispatch", "rs", "retire",
+                         "write", "verify")}
 
 
 class _StageTimer:
@@ -418,14 +430,16 @@ def _write_parity_span(base: str, seg: np.ndarray) -> None:
 def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
                          large_block: int = LARGE_BLOCK_SIZE,
                          small_block: int = SMALL_BLOCK_SIZE,
-                         chunk: Optional[int] = None) -> None:
+                         chunk: Optional[int] = None,
+                         device=None) -> None:
     """Generate .ec00-.ec13 for MANY volumes, fusing chunks across
     volumes into shared RS dispatches.
 
     Byte-identical to running `write_ec_files` per volume: small-row
     volumes ride the fused scheduler; oversized ones (large-row
     striping) fall back to the per-volume path. One fused dispatch is
-    about `chunk` bytes of data rows (64 MiB on "cuda").
+    about `chunk` bytes of data rows (64 MiB on "cuda"). `device` binds
+    the fused dispatches to one card (default: the current one).
     """
     if chunk is None:
         chunk = default_chunk_for(backend)
@@ -460,7 +474,7 @@ def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
     spans_per_batch = -(-batch_rows // span_rows)
     prefetch = max(FLEET_READERS, 2 * spans_per_batch)
 
-    dispatcher = _Dispatcher(ReedSolomon(backend=backend))
+    dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
     # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
     pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
                               thread_name_prefix="fleet-read")
@@ -526,8 +540,8 @@ def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
 
 def fleet_rebuild_ec_files(base_names: Sequence[str], backend: str = "cuda",
                            chunk: Optional[int] = None,
-                           wanted: Optional[List[int]] = None
-                           ) -> Dict[str, List[int]]:
+                           wanted: Optional[List[int]] = None,
+                           device=None) -> Dict[str, List[int]]:
     """Cross-volume batched `rebuild_ec_files`.
 
     Volumes sharing a (present, missing) signature share one decode
@@ -540,7 +554,8 @@ def fleet_rebuild_ec_files(base_names: Sequence[str], backend: str = "cuda",
 
     `chunk` is per shard ROW here: one fused batch is [B, 10, span]
     with B * span ~= chunk, so 10 * chunk bytes of sources (640 MiB of
-    pinned staging at the card's 64 MiB default).
+    pinned staging at the card's 64 MiB default). `device` binds the
+    dispatches to one card (default: the current one).
     """
     if chunk is None:
         chunk = default_chunk_for(backend)
@@ -564,7 +579,7 @@ def fleet_rebuild_ec_files(base_names: Sequence[str], backend: str = "cuda",
                           []).append((base, shard_size))
     for (present, missing), members in groups.items():
         _fleet_rebuild_group(list(present), list(missing), members, backend,
-                             chunk)
+                             chunk, device)
     return rebuilt
 
 
@@ -594,7 +609,7 @@ def _read_present_span(base: str, present: List[int], shard_size: int,
 
 def _fleet_rebuild_group(present: List[int], missing: List[int],
                          members: List[Tuple[str, int]], backend: str,
-                         chunk: int) -> None:
+                         chunk: int, device=None) -> None:
     for base, _ in members:
         for sid in missing:
             open(shard_file_name(base, sid), "wb").close()
@@ -608,7 +623,7 @@ def _fleet_rebuild_group(present: List[int], missing: List[int],
         for v, row0, rows in _round_robin_spans([v for v, _ in vols], 1):
             yield v, row0 * span
 
-    dispatcher = _Dispatcher(ReedSolomon(backend=backend))
+    dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
     # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
     pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
                               thread_name_prefix="fleet-read")
@@ -697,7 +712,8 @@ class VerifyResult:
 
 def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
                           chunk: Optional[int] = None,
-                          throttler=None) -> Dict[str, "VerifyResult"]:
+                          throttler=None,
+                          device=None) -> Dict[str, "VerifyResult"]:
     """Verify EC stripe consistency for MANY volumes in one fused pass.
 
     Data shards are re-encoded through the same fleet dispatcher as
@@ -709,7 +725,8 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
     four parity shards disagreeing at the same offsets).
 
     `throttler` (util.throttler.Throttler) paces the read side so a
-    background scrub stays inside its IO budget.
+    background scrub stays inside its IO budget; `device` binds the
+    dispatches to one card (default: the current one).
     """
     if chunk is None:
         chunk = default_chunk_for(backend)
@@ -747,7 +764,7 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
             yield v, row0 * span
 
     parity_by_tag = {v.tag: parity for v, parity in vols}
-    dispatcher = _Dispatcher(ReedSolomon(backend=backend))
+    dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
     # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
     pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
                               thread_name_prefix="fleet-read")

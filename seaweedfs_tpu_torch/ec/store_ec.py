@@ -74,15 +74,20 @@ def generate_ec_shards(store: Store, vid: int, backend: str = "cuda") -> str:
 
 
 def generate_ec_shards_batch(store: Store, vids: Sequence[int],
-                             backend: str = "cuda") -> Dict[int, str]:
+                             backend: str = "cuda",
+                             mesh_cfg: Optional[dict] = None
+                             ) -> Dict[int, str]:
     """VolumeEcShardsGenerate for MANY volumes in one fused pass.
 
     Every vid is validated before any volume is frozen (a bad vid must
     not strand earlier volumes read-only with no shards); then every
-    volume is frozen (read-only + sync) and ONE fleet scheduler
-    (``ec/fleet.py``) packs chunks from all of them into shared RS
-    dispatches. Shard bytes are identical to ``generate_ec_shards`` per
-    volume. Returns {vid: base_name}.
+    volume is frozen (read-only + sync) and ONE scheduler packs chunks
+    from all of them into shared RS dispatches: with `mesh_cfg` (keywords
+    of ``parallel/mesh_fleet.pod_write_ec_files``) the unified mesh
+    scheduler, which falls back to the per-card fleets on a scheduler
+    failure; without it the fleet scheduler (``ec/fleet.py``). Shard bytes
+    are identical to ``generate_ec_shards`` per volume either way.
+    Returns {vid: base_name}.
     """
     vols = []
     for vid in vids:
@@ -96,7 +101,14 @@ def generate_ec_shards_batch(store: Store, vids: Sequence[int],
         v.sync()
         bases[vid] = v.file_name()
     with trace.span("store_ec.generate_batch", volumes=len(bases)):
-        fleet.fleet_write_ec_files(list(bases.values()), backend=backend)
+        mesh_fleet = fleet.mesh_fleet_or_none() \
+            if mesh_cfg is not None else None
+        if mesh_fleet is not None:
+            mesh_fleet.pod_write_ec_files(list(bases.values()),
+                                          backend=backend, **mesh_cfg)
+        else:
+            fleet.fleet_write_ec_files(list(bases.values()),
+                                       backend=backend)
         with trace.span("store_ec.write_ecx"):
             for base in bases.values():
                 encoder.write_sorted_file_from_idx(base)

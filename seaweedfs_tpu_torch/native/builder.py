@@ -21,6 +21,11 @@ class BuildError(RuntimeError):
     pass
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel wrapper's launch was refused: the C entry point returned
+    a non-zero cudaError_t. Never demoted to another path."""
+
+
 def build_shared(source: str, name: str, command: List[str],
                  timeout: float = 600.0) -> Tuple[str, str]:
     """Build ``source`` with ``command + ["-o", out, source]``.

@@ -33,7 +33,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.native.builder import PACKAGE_DIR, build_shared
+from seaweedfs_tpu_torch.native.builder import (
+    PACKAGE_DIR, KernelLaunchError, build_shared)
 from seaweedfs_tpu_torch.ops import gf256
 
 MAX_ROWS = 14  # O and S limit of the kernel (shared-memory tables)
@@ -167,7 +168,8 @@ def gf_linear(matrix, data: torch.Tensor) -> torch.Tensor:
             out.data_ptr(), out.numel() // (gm.rows * n), n,
             torch.cuda.current_stream(data.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gf_linear kernel launch failed: cudaError {err}")
+        raise KernelLaunchError(
+            f"gf_linear kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
 

@@ -42,6 +42,19 @@ def coding_matrix(data_shards: int = DATA_SHARDS,
     return m
 
 
+def _codec_device(backend: str, device) -> torch.device:
+    """The device a codec computes on: on "cuda" the given card, else the
+    current one; on "cpu" the host."""
+    want = None if device is None else torch.device(device)
+    if want is not None and want.type != backend:
+        raise ValueError(f"backend {backend!r} cannot run on {want}")
+    if backend == "cpu":
+        return want or torch.device("cpu")
+    if want is None or want.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return want
+
+
 class _Resolved:
     """An already-computed result (the CPU backend)."""
 
@@ -73,7 +86,7 @@ class PendingApply:
 class ReedSolomon:
     def __init__(self, data_shards: int = DATA_SHARDS,
                  parity_shards: int = PARITY_SHARDS,
-                 backend: str = "cuda"):
+                 backend: str = "cuda", device=None):
         if data_shards <= 0 or parity_shards < 0:
             raise ValueError("bad shard counts")
         if data_shards > gf_kernel.MAX_ROWS or \
@@ -91,11 +104,11 @@ class ReedSolomon:
         self.total_shards = data_shards + parity_shards
         self.matrix = coding_matrix(data_shards, self.total_shards)
         self.backend = backend
-        self.device = torch.device("cuda", torch.cuda.current_device()) \
-            if backend == "cuda" else torch.device("cpu")
-        # One side stream per codec, made here (the codec itself is made
-        # at first use): every dispatch of this codec goes to it, so
-        # handles retire in submission order whichever thread submits.
+        self.device = _codec_device(backend, device)
+        # One side stream per codec, made here on the codec's card (the
+        # codec itself is made at first use): every dispatch of this codec
+        # goes to it, so handles retire in submission order whichever
+        # thread submits.
         self._stream: Optional[torch.cuda.Stream] = \
             torch.cuda.Stream(self.device) if backend == "cuda" else None
         self._decode_lock = threading.Lock()

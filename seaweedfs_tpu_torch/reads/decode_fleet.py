@@ -26,6 +26,12 @@ and rebuild:
             10 rows) fails only its own request's event; the rest of
             the batch decodes normally.
 
+  mesh      with ``use_mesh=True`` the fused decode of two or more
+            spans rides the mesh (``parallel/mesh_fleet.sharded_reconstruct``)
+            when a multi-card mesh exists at the first decode(); a
+            scheduler failure re-solves on the fleet's own codec, but a
+            kernel that does not build or launch fails the requests.
+
 Constructing the fleet spawns nothing (no thread, no pool, no CUDA
 context) until the first decode() call.
 """
@@ -41,14 +47,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from seaweedfs_tpu_torch.ec import fleet as _fleet
 from seaweedfs_tpu_torch.ec.ec_volume import EcShardNotFound
 from seaweedfs_tpu_torch.ops.rs_code import (
     DATA_SHARDS, TOTAL_SHARDS, ReedSolomon)
 from seaweedfs_tpu_torch.resilience import deadline as deadline_mod
 from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.stats.metrics import (
-    ReadsDecodedBytesCounter, ReadsDegradedBatchHistogram,
-    ReadsDegradedCounter)
+    FleetMeshFallbacksCounter, ReadsDecodedBytesCounter,
+    ReadsDegradedBatchHistogram, ReadsDegradedCounter)
 
 log = logging.getLogger(__name__)
 
@@ -122,13 +129,16 @@ class DegradedReadFleet:
     decode dispatches. Thread-safe; threads spawn lazily on first use."""
 
     def __init__(self, backend: str = "cuda",
-                 batch_window_s: float = BATCH_WINDOW_S):
+                 batch_window_s: float = BATCH_WINDOW_S,
+                 use_mesh: bool = False):
         self.backend = backend
         self.batch_window_s = batch_window_s
+        self.use_mesh = use_mesh
         # written once inside _ensure_started's locked section before
         # the dispatcher spawns (happens-before via Thread.start), so
         # worker-side reads are lock-free by design
         self._rs: Optional[ReedSolomon] = None  # guarded_by(self._start_lock, writes)
+        self._mesh = None  # guarded_by(self._start_lock, writes)
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._start_lock = threading.Lock()
         self._dispatcher: Optional[threading.Thread] = None  # guarded_by(self._start_lock, writes)
@@ -152,6 +162,15 @@ class DegradedReadFleet:
             # made here, at the first degraded read; both batch workers
             # share it, so every fused decode goes to one stream
             self._rs = ReedSolomon(backend=self.backend)
+            if self.use_mesh:
+                # resolved ONCE, at the first degraded read: a one-card
+                # host keeps the fleet's own codec, no per-batch probing
+                mesh_fleet = _fleet.mesh_fleet_or_none()
+                if mesh_fleet is not None:
+                    try:
+                        self._mesh = mesh_fleet._resolve_mesh(None)
+                    except mesh_fleet.MeshError:
+                        self._mesh = None
             # lint: thread-ok(decode fleet pool; decode enforces the deadline on the caller thread)
             self._pool = ThreadPoolExecutor(
                 max_workers=FLEET_READERS,
@@ -435,8 +454,12 @@ class DegradedReadFleet:
                             span=span) if trace.is_enabled() else trace.NOOP
             try:
                 with sp:
-                    out = self._rs.reconstruct_some(
-                        list(present), [missing], staged)  # [B, 1, span]
+                    out = self._mesh_solve(present, missing, src) \
+                        if self._mesh is not None and len(members) >= 2 \
+                        else None
+                    if out is None:
+                        out = self._rs.reconstruct_some(
+                            list(present), [missing], staged)  # [B,1,span]
             except BaseException as e:  # noqa: BLE001 - latch per group
                 for r in members:
                     r.error = e
@@ -448,3 +471,21 @@ class DegradedReadFleet:
             for i, r in enumerate(members):
                 r.result = out[i, 0, :r.length].tobytes()
                 ReadsDecodedBytesCounter.inc(float(r.length))
+
+    def _mesh_solve(self, present, missing: int,
+                    src: np.ndarray) -> Optional[np.ndarray]:
+        """The group's fused decode over the mesh, or None after a
+        scheduler failure (counted), which the caller re-solves on the
+        fleet's own codec. A fault of a kernel or of the card is no
+        scheduler failure: it propagates and fails the group."""
+        from seaweedfs_tpu_torch.parallel import mesh_fleet
+        try:
+            return mesh_fleet.sharded_reconstruct(
+                self._mesh, list(present), [missing], src)
+        except Exception as e:  # noqa: BLE001 - any scheduler failure demotes
+            if mesh_fleet.is_kernel_fault(e):
+                raise
+            FleetMeshFallbacksCounter.labels("error").inc()
+            log.warning("mesh decode fell back (%r); re-solving on the "
+                        "fleet's codec", e)
+            return None

@@ -94,9 +94,12 @@ class Counter(_Metric):
         with self._lock:
             items = list(self._children.items())
         for values, child in items:
+            value = child.value
+            if callable(value):   # a gauge evaluated at collection time
+                value = float(value())
             lines.append(f"{self.name}"
                          f"{_fmt_labels(self.label_names, values)}"
-                         f" {child.value}")
+                         f" {value}")
         return "\n".join(lines)
 
 
@@ -104,6 +107,12 @@ class _GaugeChild(_CounterChild):
     def set(self, v: float) -> None:
         with self._lock:
             self.value = v
+
+    def set_function(self, fn) -> None:
+        """Evaluate ``fn()`` at collection time instead of holding a
+        static value (a scan lag must keep moving between writes)."""
+        with self._lock:
+            self.value = fn
 
     def dec(self, amount: float = 1.0) -> None:
         self.inc(-amount)
@@ -117,6 +126,9 @@ class Gauge(Counter):
 
     def set(self, v: float) -> None:
         self.labels().set(v)
+
+    def set_function(self, fn) -> None:
+        self.labels().set_function(fn)
 
     def dec(self, amount: float = 1.0) -> None:
         self.labels().dec(amount)
@@ -224,6 +236,49 @@ FleetDispatchedBytesCounter = REGISTRY.counter(
 FleetWriterBacklogGauge = REGISTRY.gauge(
     "SeaweedFS_fleet_writer_lane_backlog",
     "writes queued on one writer lane", ("lane",))
+
+# Unified mesh scheduler families (parallel/mesh_fleet.py): the bucket
+# stream over the cards. `op` is the dispatch kind (encode | verify |
+# rebuild); a fallback's `reason` is unavailable | timeout | error.
+FleetMeshBucketsCounter = REGISTRY.counter(
+    "SeaweedFS_fleet_mesh_buckets_total",
+    "fixed-shape sharded buckets dispatched over the mesh", ("op",))
+FleetMeshInflightGauge = REGISTRY.gauge(
+    "SeaweedFS_fleet_mesh_inflight_buckets",
+    "mesh buckets uploaded/computing, not yet retired")
+FleetMeshFallbacksCounter = REGISTRY.counter(
+    "SeaweedFS_fleet_mesh_fallbacks_total",
+    "pod passes demoted to the per-device fleet schedulers",
+    ("reason",))
+
+# Scrub families (scrub/): the integrity scrubber's ledger. `kind` is what
+# was damaged: a needle of a normal volume ("needle"), an EC data shard
+# ("ec_data") or an EC parity shard ("ec_parity").
+ScrubScannedBytesCounter = REGISTRY.counter(
+    "SeaweedFS_scrub_scanned_bytes_total",
+    "bytes read and verified by the scrub scanner")
+ScrubNeedlesVerifiedCounter = REGISTRY.counter(
+    "SeaweedFS_scrub_needles_verified_total",
+    "needle CRCs recomputed by the scrub scanner")
+ScrubStripesVerifiedCounter = REGISTRY.counter(
+    "SeaweedFS_scrub_stripes_verified_total",
+    "EC stripe spans re-encoded and compared against stored parity")
+ScrubCorruptionsFoundCounter = REGISTRY.counter(
+    "SeaweedFS_scrub_corruptions_found_total",
+    "silent corruptions detected", ("kind",))
+ScrubCorruptionsRepairedCounter = REGISTRY.counter(
+    "SeaweedFS_scrub_corruptions_repaired_total",
+    "corruptions reconstructed back to byte-identical", ("kind",))
+ScrubUnrecoverableCounter = REGISTRY.counter(
+    "SeaweedFS_scrub_unrecoverable_total",
+    "corruptions beyond local repair (left quarantined)")
+ScrubPassSecondsHistogram = REGISTRY.histogram(
+    "SeaweedFS_scrub_pass_seconds",
+    "wall time of one full scrub pass",
+    buckets=(0.01, 0.1, 1, 10, 60, 600, 3600, 6 * 3600, 24 * 3600))
+ScrubScanLagGauge = REGISTRY.gauge(
+    "SeaweedFS_scrub_scan_lag_seconds",
+    "seconds since the last completed scrub pass")
 
 # Read-serving families (reads/decode_fleet.py, ec/ec_volume.py): how
 # much traffic rides RS reconstruction, and how well the decode fleet

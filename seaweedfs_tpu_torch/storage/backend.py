@@ -34,6 +34,11 @@ class BackendStorageFile:
     def close(self) -> None:
         raise NotImplementedError
 
+    @property
+    def is_remote(self) -> bool:
+        """True when the bytes live in a remote tier (none in the port)."""
+        return False
+
 
 class DiskFile(BackendStorageFile):
     """Local file via pread/pwrite — no shared seek pointer, so readers

@@ -63,6 +63,12 @@ class Store:
                         ttl=TTL.parse(ttl))
             raise RuntimeError("no free volume slot on any disk location")
 
+    def delete_volume(self, vid: int) -> bool:
+        """Close and remove a normal volume's files; False when no
+        location holds it."""
+        with self._lock:
+            return any(loc.delete_volume(vid) for loc in self.locations)
+
     # -- data ops ------------------------------------------------------------
 
     def write_needle(self, vid: int, n: Needle, fsync: bool = False):

@@ -12,6 +12,7 @@ record started, so no index entry points at torn bytes.
 from __future__ import annotations
 
 import os
+import struct
 import threading
 import time
 
@@ -23,11 +24,28 @@ from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.backend import BackendStorageFile, DiskFile
 from seaweedfs_tpu_torch.storage.needle import (
     Needle, NeedleError, CookieMismatch, actual_size, VERSION3,
+    verify_needle_integrity,
 )
 from seaweedfs_tpu_torch.storage.needle_map import NeedleMap
 from seaweedfs_tpu_torch.storage.superblock import (
     SuperBlock, ReplicaPlacement, TTL,
 )
+
+
+# SEAWEED_VERIFY_READS=1: read_needle re-verifies the masked CRC of every
+# needle it returns through the shared integrity predicate and raises the
+# typed DataCorruptionError on mismatch. Resolved once at import; tests
+# flip it with set_verify_reads().
+_VERIFY_READS = os.environ.get("SEAWEED_VERIFY_READS", "") not in ("", "0")
+
+
+def set_verify_reads(on: bool) -> None:
+    global _VERIFY_READS
+    _VERIFY_READS = bool(on)
+
+
+def verify_reads_enabled() -> bool:
+    return _VERIFY_READS
 
 
 class VolumeError(Exception):
@@ -185,6 +203,8 @@ class Volume:
                 f"needle {n.id:x}: cookie {n.cookie:08x} != {got.cookie:08x}")
         if got.has_expired():
             raise NeedleError(f"needle {n.id:x} expired")
+        if _VERIFY_READS:
+            verify_needle_integrity(got)
         return got
 
     def _read_needle_at(self, offset: int, size: int,
@@ -195,6 +215,47 @@ class Volume:
             raise NeedleError(
                 f"short read at {offset}: {len(blob)} < {length}")
         return Needle.from_bytes(blob, self.version, check_crc=check_crc)
+
+    # -- scanning ------------------------------------------------------------
+
+    def scan_needles(self, include_deleted: bool = False):
+        """Yield (offset, Needle) for every record in the .dat, in order,
+        parsed without the CRC check.
+
+        Opens its own read-only fd, so a long scan (scrub) never races
+        reads and writes on the shared handle. A garbled record is
+        skipped, never raised."""
+        size = os.path.getsize(self.dat_path)
+        offset = 8
+        with open(self.dat_path, "rb") as f:
+            while offset + t.NEEDLE_HEADER_SIZE <= size:
+                f.seek(offset)
+                header = f.read(t.NEEDLE_HEADER_SIZE)
+                if len(header) < t.NEEDLE_HEADER_SIZE:
+                    break
+                _, _, size_u = struct.unpack(">IQI", header)
+                body_size = t.size_to_int32(size_u)
+                if t.size_is_deleted(body_size):
+                    body_size = 0
+                length = actual_size(body_size, self.version)
+                f.seek(offset)
+                blob = f.read(length)
+                if len(blob) < length:
+                    break
+                try:
+                    n = Needle.from_bytes(blob, self.version,
+                                          check_crc=False)
+                    if include_deleted or len(n.data) > 0:
+                        yield offset, n
+                except (NeedleError, struct.error, IndexError, ValueError):
+                    # a torn size field dies in struct/_parse_body, not
+                    # only as a NeedleError: skip it like one
+                    pass
+                offset += length
+
+    @property
+    def is_remote(self) -> bool:
+        return self._dat.is_remote
 
     # -- lifecycle -----------------------------------------------------------
 

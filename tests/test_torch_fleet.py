@@ -119,7 +119,7 @@ class _CardShapedCodec:
     backend = "cuda"
     made = []
 
-    def __init__(self, backend="cuda"):
+    def __init__(self, backend="cuda", device=None):
         self._rs = ReedSolomon(backend="cpu")
         self.dispatches = []
         self.outputs = []
