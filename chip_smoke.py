@@ -78,7 +78,29 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    needle of a normal volume with a copied replica; every fault repaired
    byte-identical and the pass counts exact. Both kernels' launch counts
    must rise where they run, and the mesh must never fall back.
-8. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+8. The service path, in this process (so the kernels' launch counts see
+   the servers' launches): a port MasterServer (volumes of 1,024 MiB) and
+   four VolumeServers (``ec_encoder`` cuda, the decode fleet on), each
+   with its own directory. (a) 1 GiB of needles of 1 B-256 KiB
+   (uniform, seeded) into collection "smoke" through operations.assign +
+   upload_data over HTTP from 16 threads; the master grows 7 volumes; MB/s
+   and every .dat hashed. (b) ``Shell.run_command("ec.encode
+   -collection=smoke -volumeId=<every vid>")``, one fused generate RPC per
+   source server: wall seconds and .dat GB/s, with the fused generates,
+   the spread and its shard copies over the RPC transport timed apart;
+   data shards == the .dat stripes, sampled parity == gf_linear_plain,
+   shards on all four servers. (c) 4,096 sampled needles read over HTTP
+   from random servers (16 threads): bytes equal, p50/p99. (d) a server
+   holding at most four shards of every volume stopped; once the master
+   drops it, the sample again, p50/p99 of the reads across its shards;
+   decode fleet dispatches > 0. (e) ``ec.rebuild``: 14 shards per volume
+   on the live servers, the sample again. (f) ``ec.decode``: every .dat
+   hashes as in (a), the sample read from the normal volumes. (g) ``python
+   -m seaweedfs_tpu_torch master`` and ``volume`` as subprocesses, 64
+   blobs, ``shell ec.encode -volumeId=N`` as a third, the blobs read back,
+   both servers stopped by SIGTERM (exit 0, no Traceback). gf_linear's
+   launch count must rise in (b), (d), (e) and (f).
+9. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -1381,6 +1403,529 @@ def phase_scrub(workdir: str, ctx: dict, mesh, backend: str, launches,
         replica.close()
 
 
+# --- phase 8 ------------------------------------------------------------------
+
+# The cluster configuration: four volume servers, volumes of at most
+# 1,024 MiB, 1 GiB of needles of 1-256 KiB (uniform), written from 16
+# client threads into collection "smoke"; the master grows 7 volumes. (At
+# 2 GiB the whole run took past eight minutes.)
+SERVICE_SERVERS = 4
+SERVICE_BYTES = 1 << 30
+SERVICE_NEEDLE_MAX = 256 << 10
+SERVICE_THREADS = 16
+SERVICE_SAMPLE = 4096
+SERVICE_VOLUMES = 7
+CLI_BLOBS = 64
+
+
+def free_port_pair() -> int:
+    """A port p where both p and p + 10000 (its RPC sibling) are free."""
+    import socket
+    for _ in range(200):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            p = s.getsockname()[1]
+        if p + 10000 > 65535:
+            continue
+        try:
+            with socket.socket() as s2:
+                s2.bind(("127.0.0.1", p + 10000))
+            return p
+        except OSError:
+            continue
+    raise RuntimeError("no free port pair")
+
+
+def wait_until(predicate, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        v = predicate()
+        if v:
+            return v
+        time.sleep(0.02)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def http_get(url: str) -> bytes:
+    """GET "host:port/path", following one redirect (a volume server
+    sends a reader to the holder of a normal volume)."""
+    from seaweedfs_tpu_torch.operation import operations
+    r = operations.http_request("GET", url)
+    if r.status in (301, 302) and "location" in r.headers:
+        r = operations.http_request(
+            "GET", r.headers["location"].split("//", 1)[1])
+    if r.status != 200:
+        raise AssertionError(f"GET {url}: http {r.status} {r.body[:200]!r}")
+    return r.body
+
+
+def upload_needles(master_url: str, total: int, seed: int) -> tuple:
+    """About ``total`` bytes of needles, sizes uniform in 1 B-256 KiB, from
+    SERVICE_THREADS threads through operations.assign + upload_data. The
+    bytes are slices of one seeded random buffer. Returns ({fid: (offset,
+    size)}, the buffer, wall seconds)."""
+    from seaweedfs_tpu_torch.operation import operations
+    rng = np.random.default_rng(seed)
+    buf = rng.bytes(64 << 20)
+    sizes = []
+    while sum(sizes) < total:
+        sizes.append(int(rng.integers(1, SERVICE_NEEDLE_MAX + 1)))
+    offsets = rng.integers(0, len(buf) - SERVICE_NEEDLE_MAX, len(sizes))
+    jobs = list(zip(offsets.tolist(), sizes))
+
+    def worker(part):
+        out = {}
+        try:
+            for off, size in part:
+                a = operations.assign(master_url, collection="smoke")
+                operations.upload_data(f"{a.url}/{a.fid}",
+                                       buf[off:off + size])
+                out[a.fid] = (off, size)
+        finally:
+            operations.close_connections()
+        return out
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+        parts = list(pool.map(worker, [jobs[i::SERVICE_THREADS]
+                                       for i in range(SERVICE_THREADS)]))
+    secs = time.perf_counter() - t0
+    return {k: v for p in parts for k, v in p.items()}, buf, secs
+
+
+def read_sample(servers, sample, buf, lost=None) -> tuple:
+    """GET every sampled fid from a random server (seeded per fid), from
+    SERVICE_THREADS threads; returns (latencies of all reads, latencies
+    of the reads whose needle lies on a shard in ``lost`` {vid: set of
+    shard ids}). Any wrong byte fails the run."""
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.operation.file_id import parse_fid
+    items = sorted(sample.items())
+
+    def crosses(fid: str) -> bool:
+        if not lost:
+            return False
+        f = parse_fid(fid)
+        ecv = next(vs.store.find_ec_volume(f.volume_id) for vs in servers
+                   if vs.store.find_ec_volume(f.volume_id) is not None)
+        return any(iv.to_shard_and_offset(ecv.large_block,
+                                          ecv.small_block)[0]
+                   in lost.get(f.volume_id, ())
+                   for iv in ecv.locate_needle(f.key)[2])
+
+    def worker(part):
+        every, degraded = [], []
+        try:
+            for i, (fid, (off, size)) in part:
+                vs = servers[(i * 2654435761) % len(servers)]
+                t0 = time.perf_counter()
+                got = http_get(f"{vs.url}/{fid}")
+                dt = time.perf_counter() - t0
+                if got != buf[off:off + size]:
+                    raise AssertionError(f"{fid} from {vs.url}: wrong bytes")
+                every.append(dt)
+                if crosses(fid):
+                    degraded.append(dt)
+        finally:
+            operations.close_connections()
+        return every, degraded
+
+    indexed = list(enumerate(items))
+    with concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+        parts = list(pool.map(worker, [indexed[i::SERVICE_THREADS]
+                                       for i in range(SERVICE_THREADS)]))
+    return ([t for e, _ in parts for t in e],
+            [t for _, d in parts for t in d])
+
+
+def pcts(lat) -> str:
+    if not lat:
+        return "no reads"
+    a = np.asarray(lat) * 1e3
+    return (f"p50 {np.percentile(a, 50):.3f} ms, "
+            f"p99 {np.percentile(a, 99):.3f} ms over {len(a)} reads")
+
+
+def check_stripes(dat_path: str, shard_paths: list) -> None:
+    """Data shard i holds the .dat's small blocks i, i + 10, ... (1 MiB
+    rows of ten; the volumes are far below the 1 GiB large block)."""
+    from seaweedfs_tpu_torch.ec.encoder import (LARGE_BLOCK_SIZE,
+                                                SMALL_BLOCK_SIZE)
+    size = os.path.getsize(dat_path)
+    if size >= 10 * LARGE_BLOCK_SIZE:
+        raise AssertionError(f"{dat_path}: {size} B needs large rows")
+    files = [open(p, "rb") for p in shard_paths[:10]]
+    try:
+        with open(dat_path, "rb") as dat:
+            row = 0
+            while row * 10 * SMALL_BLOCK_SIZE < size:
+                stripe = dat.read(10 * SMALL_BLOCK_SIZE)
+                for i, f in enumerate(files):
+                    part = stripe[i * SMALL_BLOCK_SIZE:
+                                  (i + 1) * SMALL_BLOCK_SIZE]
+                    f.seek(row * SMALL_BLOCK_SIZE)
+                    got = f.read(SMALL_BLOCK_SIZE)
+                    if got[:len(part)] != part or any(got[len(part):]):
+                        raise AssertionError(
+                            f"{shard_paths[i]} row {row} differs from "
+                            f"{dat_path}")
+                row += 1
+    finally:
+        for f in files:
+            f.close()
+
+
+def shard_paths_of(servers, collection: str, vid: int) -> list:
+    """The one file of each of the 14 shards of ``vid``, wherever it is."""
+    from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+    out = [None] * 14
+    for vs in servers:
+        base = os.path.join(vs.store.locations[0].directory,
+                            f"{collection}_{vid}")
+        for sid in range(14):
+            if os.path.exists(shard_file_name(base, sid)):
+                if out[sid] is not None:
+                    raise AssertionError(f"volume {vid} shard {sid} twice")
+                out[sid] = shard_file_name(base, sid)
+    if None in out:
+        raise AssertionError(f"volume {vid}: shards missing: {out}")
+    return out
+
+
+def span_seconds(names) -> dict:
+    from seaweedfs_tpu_torch.stats import trace
+    out = {n: 0.0 for n in names}
+    for sp in trace.spans():
+        if sp.name in out:
+            out[sp.name] += sp.dur
+    return out
+
+
+def trace_span_cost(n: int = 20000) -> float:
+    """Seconds one recorded span costs (enter, exit, store), measured by
+    recording n empty spans; phase 8 (b) multiplies it by the spans its
+    traced encode recorded, so the encode time's tracing share is known."""
+    from seaweedfs_tpu_torch.stats import trace
+    trace.enable(capacity=n)
+    trace.clear()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with trace.span("cost"):
+                pass
+        return (time.perf_counter() - t0) / n
+    finally:
+        trace.disable()
+        trace.clear()
+
+
+def phase_service(workdir: str, seed: int, backend: str,
+                  total_bytes: int = SERVICE_BYTES,
+                  sample_size: int = SERVICE_SAMPLE, cli: bool = True,
+                  card: str = "") -> dict:
+    """The service path: a MasterServer and SERVICE_SERVERS VolumeServers
+    in this process, (a) uploads over HTTP, (b) shell ec.encode of every
+    volume, (c) healthy reads, (d) reads with one server stopped, (e)
+    ec.rebuild, (f) ec.decode, and (g) the CLI as subprocesses."""
+    from seaweedfs_tpu_torch.operation.file_id import parse_fid
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.shell import Shell
+    from seaweedfs_tpu_torch.stats import trace
+
+    card = card or backend
+    launches = Launches(backend)
+    out = {}
+    master = MasterServer(port=free_port_pair(),
+                          meta_dir=os.path.join(workdir, "master"),
+                          volume_size_limit_mb=1024, pulse_seconds=1.0)
+    master.start()
+    servers = []
+    try:
+        for i in range(SERVICE_SERVERS):
+            d = os.path.join(workdir, f"vol{i}")
+            os.makedirs(d)
+            vs = VolumeServer(master.url, [d], port=free_port_pair(),
+                              max_volume_counts=[16], pulse_seconds=1.0,
+                              ec_encoder=backend)
+            vs.start()
+            servers.append(vs)
+        wait_until(lambda: len(master.topo.nodes()) == SERVICE_SERVERS, 30,
+                   "the volume servers' heartbeats")
+
+        # (a) upload
+        blobs, buf, secs = upload_needles(master.url, total_bytes, seed)
+        nbytes = sum(s for _, s in blobs.values())
+        vids = sorted({parse_fid(f).volume_id for f in blobs})
+        if len(vids) != SERVICE_VOLUMES:
+            raise AssertionError(f"the master grew volumes {vids}, "
+                                 f"not {SERVICE_VOLUMES}")
+        snap = os.path.join(workdir, "snap")
+        os.makedirs(snap)
+        dats = {}
+        for vid in vids:
+            owner = next(vs for vs in servers if vs.store.has_volume(vid))
+            v = owner.store.find_volume(vid)
+            v.sync()
+            # a hard link keeps the .dat after ec.encode retires it
+            dats[vid] = os.path.join(snap, f"{vid}.dat")
+            os.link(v.file_name() + ".dat", dats[vid])
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            hashes = dict(zip(vids, pool.map(sha256_file,
+                                             [dats[v] for v in vids])))
+        dat_bytes = sum(os.path.getsize(p) for p in dats.values())
+        out["upload"] = dict(needles=len(blobs), bytes=nbytes,
+                             seconds=secs, MBps=nbytes / secs / 1e6,
+                             volumes=len(vids), dat_bytes=dat_bytes)
+        log(f"  (a) upload: {len(blobs)} needles, {nbytes} B in "
+            f"{secs:.3f} s from {SERVICE_THREADS} threads = "
+            f"{nbytes / secs / 1e6:.1f} MB/s; {len(vids)} volumes, "
+            f"{dat_bytes} B of .dat [{card}]")
+
+        # (b) encode through the shell
+        sh = Shell(master.url)
+        trace.enable(capacity=1 << 16)
+        trace.clear()
+        try:
+            text, secs = launches.run(
+                "service_encode", sh.run_command,
+                "ec.encode -collection=smoke "
+                f"-volumeId={','.join(map(str, vids))}")
+            spans = span_seconds(("shell.ec_encode.generate",
+                                  "shell.ec_encode.spread",
+                                  "shell.ec_encode.copy",
+                                  "store_ec.generate_batch"))
+            n_spans = len(trace.spans())
+        finally:
+            trace.disable()
+            trace.clear()
+        # the encode ran traced (its stage spans): what the spans cost
+        trace_cost = n_spans * trace_span_cost()
+        for vid in vids:
+            if f"volume {vid}: ec.encode done" not in text:
+                raise AssertionError(f"ec.encode:\n{text}")
+        wait_until(lambda: all(master.topo.lookup_ec(v) and
+                               not master.topo.lookup(v) for v in vids),
+                   30, "the EC shards in the topology")
+        rng = np.random.default_rng(seed + 8)
+        device = "cuda" if backend == "cuda" else "cpu"
+        moved = 0
+        for vid in vids:
+            paths = shard_paths_of(servers, "smoke", vid)
+            holders = {os.path.dirname(p) for p in paths}
+            if len(holders) != SERVICE_SERVERS:
+                raise AssertionError(f"volume {vid}: shards on "
+                                     f"{len(holders)} servers")
+            check_stripes(dats[vid], paths)
+            link = os.path.join(snap, f"linked_{vid}")
+            for sid, p in enumerate(paths):
+                os.symlink(p, f"{link}.ec{sid:02d}")
+            shard_size = os.path.getsize(paths[0])
+            check_parity_spans(link, shard_size, rng, 16, 1 << 20, device)
+            source = max(holders, key=lambda h: sum(
+                os.path.dirname(p) == h for p in paths))
+            moved += sum(os.path.getsize(p) for p in paths
+                         if os.path.dirname(p) != source)
+        gen = spans["shell.ec_encode.generate"]
+        copy = spans["shell.ec_encode.copy"]
+        out["encode"] = dict(
+            seconds=secs, GBps=dat_bytes / secs / 1e9,
+            launches=launches.per_phase["service_encode"],
+            generate_seconds=gen, spread_seconds=spans[
+                "shell.ec_encode.spread"], copy_seconds=copy,
+            copied_bytes=moved,
+            copy_GBps=moved / copy / 1e9 if copy else 0.0,
+            trace_spans=n_spans, trace_cost_seconds=trace_cost,
+            untraced_GBps=dat_bytes / (secs - trace_cost) / 1e9)
+        log(f"  (b) ec.encode of {len(vids)} volumes through the shell: "
+            f"{secs:.3f} s = {dat_bytes / secs / 1e9:.3f} GB/s of .dat "
+            f"traced ({n_spans} spans, {trace_cost * 1e3:.3f} ms of it; "
+            f"{out['encode']['untraced_GBps']:.3f} GB/s without); "
+            f"fused generate RPCs {gen:.3f} s, spread "
+            f"{out['encode']['spread_seconds']:.3f} s, of which shard "
+            f"copies {copy:.3f} s for {moved} B "
+            f"({out['encode']['copy_GBps']:.3f} GB/s over the RPC "
+            f"transport); {launches.per_phase['service_encode']} "
+            f"gf_linear launches; data shards == .dat stripes, sampled "
+            f"parity == gf_linear_plain, shards on all "
+            f"{SERVICE_SERVERS} servers [{card}]")
+
+        # (c) healthy reads
+        picks = rng.choice(len(blobs), size=min(sample_size, len(blobs)),
+                           replace=False)
+        fids = sorted(blobs)
+        sample = {fids[i]: blobs[fids[i]] for i in sorted(picks.tolist())}
+        t0 = time.perf_counter()
+        every, _ = read_sample(servers, sample, buf)
+        secs = time.perf_counter() - t0
+        out["healthy_reads"] = dict(
+            reads=len(every), seconds=secs,
+            p50_ms=float(np.percentile(every, 50) * 1e3),
+            p99_ms=float(np.percentile(every, 99) * 1e3))
+        log(f"  (c) healthy reads over HTTP from {SERVICE_THREADS} threads "
+            f"at random servers: {pcts(every)}, {secs:.3f} s [{card}]")
+
+        # (d) a server stopped: degraded reads through the decode fleet
+        victim = next(vs for vs in servers if all(
+            vs.store.find_ec_volume(v).shard_bits.count <= 4
+            for v in vids))
+        lost = {v: set(victim.store.find_ec_volume(v).shard_bits.shard_ids)
+                for v in vids}
+        victim.stop()
+        servers.remove(victim)
+        t0 = time.perf_counter()
+        wait_until(lambda: victim.url not in
+                   {n.url for n in master.topo.nodes()}, 30,
+                   "the master dropping the stopped server")
+        drop = time.perf_counter() - t0
+        d0 = sum(vs.degraded.dispatches for vs in servers)
+        t0 = time.perf_counter()
+        (every, degraded), _ = launches.run(
+            "service_degraded_read", read_sample, servers, sample, buf,
+            lost)
+        secs = time.perf_counter() - t0
+        dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+        if not dispatches or not degraded:
+            raise AssertionError(f"degraded reads: {dispatches} decode "
+                                 f"fleet dispatches, {len(degraded)} "
+                                 "degraded reads")
+        out["degraded_reads"] = dict(
+            reads=len(every), degraded=len(degraded), seconds=secs,
+            p50_ms=float(np.percentile(degraded, 50) * 1e3),
+            p99_ms=float(np.percentile(degraded, 99) * 1e3),
+            all_p50_ms=float(np.percentile(every, 50) * 1e3),
+            all_p99_ms=float(np.percentile(every, 99) * 1e3),
+            dispatches=dispatches, drop_seconds=drop,
+            launches=launches.per_phase["service_degraded_read"])
+        log(f"  (d) stopped {victim.url} (shards "
+            f"{sorted(lost[vids[0]])} of volume {vids[0]}, <= 4 of each); "
+            f"the master dropped it after {drop:.3f} s; reads across its "
+            f"shards: {pcts(degraded)}; all reads: {pcts(every)}; "
+            f"{dispatches} decode fleet dispatches, "
+            f"{launches.per_phase['service_degraded_read']} gf_linear "
+            f"launches [{card}]")
+
+        # (e) rebuild
+        text, secs = launches.run("service_rebuild", sh.run_command,
+                                  "ec.rebuild -collection=smoke")
+        if not all(f"volume {v}: rebuilt shards" in text for v in vids):
+            raise AssertionError(f"ec.rebuild:\n{text}")
+        wait_until(lambda: all(
+            sum(b.count for b in master.topo.lookup_ec(v).values()) == 14
+            for v in vids), 30, "14 shards per volume on the live servers")
+        every, _ = read_sample(servers, sample, buf)
+        out["rebuild"] = dict(seconds=secs,
+                              launches=launches.per_phase["service_rebuild"])
+        log(f"  (e) ec.rebuild: {secs:.3f} s, "
+            f"{launches.per_phase['service_rebuild']} gf_linear launches; "
+            f"14 shards of every volume on {len(servers)} servers; the "
+            f"sample reads back ({pcts(every)}) [{card}]")
+
+        # (f) decode
+        text, secs = launches.run("service_decode", sh.run_command,
+                                  "ec.decode -collection=smoke")
+        if not all(f"volume {v}: decoded back" in text for v in vids):
+            raise AssertionError(f"ec.decode:\n{text}")
+        wait_until(lambda: all(master.topo.lookup(v) and
+                               not master.topo.lookup_ec(v) for v in vids),
+                   30, "the decoded volumes in the topology")
+        for vid in vids:
+            owner = next(vs for vs in servers if vs.store.has_volume(vid))
+            got = sha256_file(owner.store.find_volume(vid).file_name()
+                              + ".dat")
+            if got != hashes[vid]:
+                raise AssertionError(f"volume {vid}: decoded .dat differs")
+        every, _ = read_sample(servers, sample, buf)
+        out["decode"] = dict(seconds=secs, GBps=dat_bytes / secs / 1e9,
+                             launches=launches.per_phase["service_decode"])
+        log(f"  (f) ec.decode: {secs:.3f} s = "
+            f"{dat_bytes / secs / 1e9:.3f} GB/s of .dat, "
+            f"{launches.per_phase['service_decode']} gf_linear launches; "
+            f"every .dat hashes as in (a); the sample reads back from the "
+            f"normal volumes ({pcts(every)}) [{card}]")
+    finally:
+        for vs in servers:
+            vs.stop()
+        master.stop()
+    if cli:
+        out["cli"] = phase_cli(workdir, backend, card)
+    out["launches"] = dict(launches.per_phase)
+    return out
+
+
+def phase_cli(workdir: str, backend: str, card: str) -> dict:
+    """(g) ``python -m seaweedfs_tpu_torch master`` and one ``volume`` as
+    subprocesses, CLI_BLOBS uploads, ``shell ec.encode -volumeId=N`` as a
+    third process, the blobs read back; both servers stopped with SIGTERM
+    must exit 0 with no Traceback in their stderr."""
+    import signal
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.operation.file_id import parse_fid
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    mport, vport = free_port_pair(), free_port_pair()
+    murl, vurl = f"127.0.0.1:{mport}", f"127.0.0.1:{vport}"
+    logs = {n: os.path.join(workdir, f"cli_{n}.log")
+            for n in ("master", "volume")}
+    cmds = {"master": ["master", "-port", str(mport), "-mdir",
+                       os.path.join(workdir, "cli_m"), "-pulseSeconds", "1"],
+            "volume": ["volume", "-port", str(vport), "-dir",
+                       os.path.join(workdir, "cli_v"), "-mserver", murl,
+                       "-max", "8", "-pulseSeconds", "1", "-ec.encoder",
+                       backend]}
+    t0 = time.perf_counter()
+    procs = {}
+    for name, args in cmds.items():
+        with open(logs[name], "wb") as err:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+                cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        def registered():
+            try:
+                topo = json.loads(operations.http_request(
+                    "GET", f"{murl}/dir/status").body)["Topology"]
+            except (OSError, ValueError, KeyError):
+                return False
+            return any(n["url"] == vurl for dc in topo["data_centers"]
+                       for r in dc["racks"] for n in r["nodes"])
+        wait_until(registered, 120, "the CLI volume server")
+        rng = np.random.default_rng(64)
+        blobs = {}
+        for i in range(CLI_BLOBS):
+            data = rng.bytes(int(rng.integers(1, 64 << 10)))
+            blobs[operations.upload(murl, data, collection="cli")] = data
+        vid = parse_fid(next(iter(blobs))).volume_id
+        shell = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
+             "-master", murl, f"ec.encode -volumeId={vid}"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        if shell.returncode != 0 or \
+                f"volume {vid}: ec.encode done" not in shell.stdout:
+            raise AssertionError(f"CLI shell exited {shell.returncode}:\n"
+                                 f"{shell.stdout}\n{shell.stderr}")
+        for fid, data in blobs.items():
+            if http_get(f"{vurl}/{fid}") != data:
+                raise AssertionError(f"CLI leg: {fid} reads back wrong")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        codes = {n: p.wait(timeout=60) for n, p in procs.items()}
+        operations.close_connections()
+    secs = time.perf_counter() - t0
+    for name, code in codes.items():
+        text = open(logs[name], errors="replace").read()
+        if code != 0 or "Traceback" in text:
+            raise AssertionError(f"CLI {name} exited {code}:\n{text[-4000:]}")
+    in_vol = sum(parse_fid(f).volume_id == vid for f in blobs)
+    log(f"  (g) CLI: master, volume (-ec.encoder {backend}) and shell as "
+        f"processes; {CLI_BLOBS} blobs, ec.encode -volumeId={vid} "
+        f"({in_vol} of them), all read back; both servers exited 0 "
+        f"on SIGTERM, no Traceback; {secs:.1f} s [{card}]")
+    return dict(seconds=secs, blobs=CLI_BLOBS, encoded_volume=vid)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--needles", type=int, default=1 << 20)
@@ -1393,7 +1938,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import seaweedfs_tpu_torch  # noqa: F401  (fails outside the repo)
-    log(f"card: {nvidia_smi_line()}")
+    card = nvidia_smi_line()
+    log(f"card: {card}")
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
@@ -1429,8 +1975,15 @@ def main() -> int:
         scrub_mesh = phase_scrub_mesh(workdir, ctx, args.seed, "cuda")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log("phase 8: the service path (master, volume servers, shell, CLI)")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        service = phase_service(workdir, args.seed, "cuda", card=card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     main_launches = sum(m["launches"][p] for p in
                         ("generate", "rebuild", "degraded_read", "decode"))
+    service_launches = sum(service["launches"].values())
     compare_launches = sum(scrub_mesh["compare_launches"].values())
     summary = {k: v for k, v in m.items()
                if k not in ("shard_hashes", "large_base")}
@@ -1440,13 +1993,16 @@ def main() -> int:
     summary["fleet"] = fleet
     summary["compare_kernel"] = cstats
     summary["scrub_mesh"] = scrub_mesh
+    summary["service"] = service
     log("metrics: " + json.dumps(summary))
     log('kernels: ["gf_linear", "gf_compare"]')
     print(json.dumps({"kernels": [{
         "name": "gf_linear", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_linear.cu",
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:45",
-        "launches": main_launches,
+        "launches": main_launches + service_launches,
+        "launches_by_path": {"main": main_launches,
+                             "service": service_launches},
         "max_abs_err": kstats["max_abs_err"],
         **kstats["main"], "bound_by": "bytes",
         "library_ms": None}, {

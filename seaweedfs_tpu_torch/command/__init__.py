@@ -1,0 +1,72 @@
+"""The single-binary command layer: ``python -m seaweedfs_tpu_torch <cmd>``.
+
+The port of ``seaweedfs_tpu.command`` for the cluster: ``master``,
+``volume`` and ``shell``. Global flags (-v verbosity, -logFile) are
+peeled off before dispatch, like the reference's glog flags
+(weed/command/command.go:10-34, weed/weed.go:37).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Callable, Dict, Tuple
+
+from seaweedfs_tpu_torch.util import wlog
+
+COMMANDS: Dict[str, Tuple[Callable, str]] = {}
+
+
+def command(name: str, help_text: str):
+    def deco(fn):
+        COMMANDS[name] = (fn, help_text)
+        return fn
+    return deco
+
+
+def _usage(out=sys.stderr) -> None:
+    print("usage: python -m seaweedfs_tpu_torch [-v N] [-logFile PATH] "
+          "<command> [args]\n\ncommands:", file=out)
+    for name in sorted(COMMANDS):
+        print(f"  {name:<16} {COMMANDS[name][1]}", file=out)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # global flags before the subcommand, matched exactly: argparse's
+    # prefix matching would read -volumeSizeLimitMB as "-v olumeSize..."
+    verbosity, log_file = None, None
+    rest = argv
+    while rest:
+        if rest[0] == "-v" and len(rest) >= 2:
+            try:
+                verbosity = int(rest[1])
+            except ValueError:
+                print(f"-v expects an integer, got {rest[1]!r}",
+                      file=sys.stderr)
+                _usage()
+                return 2
+            rest = rest[2:]
+        elif rest[0] == "-logFile" and len(rest) >= 2:
+            log_file, rest = rest[1], rest[2:]
+        else:
+            break
+    if verbosity is not None or log_file:
+        wlog.configure(verbosity=verbosity, log_file=log_file)
+    if not rest or rest[0] in ("-h", "--help", "help"):
+        _usage(sys.stdout if rest and rest[0] != "-h" else sys.stderr)
+        return 0 if rest else 2
+    name, args = rest[0], rest[1:]
+    entry = COMMANDS.get(name)
+    if entry is None:
+        print(f"unknown command {name!r}", file=sys.stderr)
+        _usage()
+        return 2
+    try:
+        return entry[0](args) or 0
+    except KeyboardInterrupt:
+        return 130
+
+
+# registration side effects
+from seaweedfs_tpu_torch.command import servers  # noqa: E402,F401
+from seaweedfs_tpu_torch.command import tools  # noqa: E402,F401

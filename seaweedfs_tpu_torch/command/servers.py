@@ -1,0 +1,112 @@
+"""Server subcommands: master and volume.
+
+Flag names and defaults follow the JAX package's command layer
+(``seaweedfs_tpu/command/servers.py``, itself the reference's
+weed/command/master.go:29-46 and volume.go:65-90) for the flags the port
+carries. ``-ec.encoder`` takes ``cuda`` (the default) or ``cpu``;
+any other name is refused. Each subcommand blocks until SIGINT or
+SIGTERM, then stops its server.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import threading
+from typing import List
+
+from seaweedfs_tpu_torch.command import command
+from seaweedfs_tpu_torch.ops.rs_code import BACKENDS
+
+
+def _serve_until_signalled(server) -> int:
+    done = threading.Event()
+
+    def _stop(signum, frame):  # noqa: ARG001
+        done.set()
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, _stop)
+    server.start()
+    try:
+        while not done.wait(timeout=0.5):
+            pass
+    finally:
+        server.stop()
+    return 0
+
+
+def _split_dirs(dir_flag: str) -> List[str]:
+    dirs = [d.strip() for d in dir_flag.split(",") if d.strip()]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    return dirs
+
+
+def _master_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="master", description="start a master")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=9333)
+    p.add_argument("-mdir", default=None,
+                   help="directory for the max volume id and sequence")
+    p.add_argument("-volumeSizeLimitMB", dest="volume_size_limit_mb",
+                   type=int, default=30 * 1000)
+    p.add_argument("-pulseSeconds", dest="pulse_seconds", type=float,
+                   default=5.0)
+    return p
+
+
+@command("master", "start a master server (control plane)")
+def run_master(args) -> int:
+    opts = _master_parser().parse_args(args)
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    if opts.mdir:
+        os.makedirs(opts.mdir, exist_ok=True)
+    return _serve_until_signalled(MasterServer(
+        ip=opts.ip, port=opts.port, meta_dir=opts.mdir,
+        volume_size_limit_mb=opts.volume_size_limit_mb,
+        pulse_seconds=opts.pulse_seconds))
+
+
+def _volume_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="volume",
+                                description="start a volume server")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8080)
+    p.add_argument("-dir", default="./data",
+                   help="comma-separated storage directories")
+    p.add_argument("-max", default="7",
+                   help="comma-separated max volume counts per dir")
+    p.add_argument("-mserver", default="127.0.0.1:9333")
+    p.add_argument("-pulseSeconds", dest="pulse_seconds", type=float,
+                   default=5.0)
+    p.add_argument("-ec.encoder", dest="ec_encoder", default="cuda",
+                   choices=list(BACKENDS),
+                   help="codec of every EC request and degraded read: "
+                        "cuda (the hand-written kernels on the card; "
+                        "fails without one) or cpu (their plain "
+                        "versions on the host)")
+    p.add_argument("-ec.mesh", dest="ec_mesh", action="store_true",
+                   default=False,
+                   help="run batched EC encode, verify and degraded "
+                        "decode on the unified mesh scheduler (the "
+                        "default mesh needs two cards; with one the "
+                        "server warns at start and the per-card fleet "
+                        "runs)")
+    return p
+
+
+@command("volume", "start a volume server (data plane)")
+def run_volume(args) -> int:
+    opts = _volume_parser().parse_args(args)
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    dirs = _split_dirs(opts.dir)
+    maxes = [int(x) for x in str(opts.max).split(",")]
+    if len(maxes) == 1:
+        maxes = maxes * len(dirs)
+    return _serve_until_signalled(VolumeServer(
+        opts.mserver, dirs, ip=opts.ip, port=opts.port,
+        max_volume_counts=maxes,
+        pulse_seconds=opts.pulse_seconds, ec_encoder=opts.ec_encoder,
+        ec_mesh=opts.ec_mesh))

@@ -17,11 +17,17 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 from seaweedfs_tpu_torch.ec import encoder, fleet
 from seaweedfs_tpu_torch.ec.ec_volume import EcShardNotFound, EcVolume
+from seaweedfs_tpu_torch.ec.shard_bits import TOTAL_SHARDS
 from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon
 from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.storage.needle import Needle, NeedleError
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
+
+
+def _base_name(directory: str, collection: str, vid: int) -> str:
+    name = f"{collection}_{vid}" if collection else str(vid)
+    return os.path.join(directory, name)
 
 
 def _find_ec_base(store: Store, vid: int,
@@ -35,8 +41,7 @@ def _find_ec_base(store: Store, vid: int,
         return ecv.base_name
     for loc in store.locations:
         if collection is not None:
-            name = f"{collection}_{vid}" if collection else str(vid)
-            base = os.path.join(loc.directory, name)
+            base = _base_name(loc.directory, collection, vid)
             if os.path.exists(base + ".ecx"):
                 return base
             continue
@@ -156,6 +161,45 @@ def unmount_ec_shards(store: Store, vid: int,
         ecv.close()
         if loc is not None:
             loc.ec_volumes.pop(vid, None)
+
+
+def delete_ec_shards(store: Store, vid: int,
+                     collection: Optional[str] = None,
+                     shard_ids: Iterable[int] = ()) -> None:
+    """VolumeEcShardsDelete: remove shard files; when none remain, the
+    .ecx/.ecj go too (reference volume_grpc_erasure_coding.go:136-210)."""
+    base = _find_ec_base(store, vid, collection)
+    if base is None:
+        return
+    ecv = store.find_ec_volume(vid)
+    for sid in shard_ids:
+        if ecv is not None:
+            ecv.unmount_shard(sid)
+        p = encoder.shard_file_name(base, sid)
+        if os.path.exists(p):
+            os.remove(p)
+    if not any(os.path.exists(encoder.shard_file_name(base, i))
+               for i in range(TOTAL_SHARDS)):
+        loc = _location_of_base(store, base)
+        if ecv is not None:
+            ecv.close()
+            loc.ec_volumes.pop(vid, None)
+        for ext in (".ecx", ".ecj"):
+            if os.path.exists(base + ext):
+                os.remove(base + ext)
+
+
+def read_ec_shard(store: Store, vid: int, shard_id: int, offset: int,
+                  length: int) -> bytes:
+    """VolumeEcShardRead: raw bytes of one local shard (serves remote
+    peers' interval reads)."""
+    ecv = store.find_ec_volume(vid)
+    if ecv is None:
+        raise EcShardNotFound(f"ec volume {vid} not mounted")
+    shard = ecv.shards.get(shard_id)
+    if shard is None:
+        raise EcShardNotFound(f"ec volume {vid} shard {shard_id} not local")
+    return shard.read_at(offset, length)
 
 
 def read_ec_needle(store: Store, vid: int, n: Needle,

@@ -1,0 +1,671 @@
+"""The cluster's RPC transport on the standard library.
+
+The JAX package carries its control plane on grpcio; the port keeps that
+contract (services, methods, message names and fields, status codes, the
+port at HTTP port + 10000, "stream break == node death") on plain TCP
+sockets, so it runs where neither grpcio nor protobuf is installed.
+
+Wire format: every frame is ``kind (u8) | length (u32, big-endian) |
+payload``. A call is one connection's exclusive use:
+
+    client -> server   HEAD (timeout f64, method path), MSG*, END
+    server -> client   MSG*, STATUS (code u8, details)
+
+STATUS is always last. A client that gives up (cancel, deadline) closes
+its socket; the server then sees end-of-file, its request iterator ends
+and ``context.is_active()`` turns false. A stopped server closes every
+connection, and the client's call fails with UNAVAILABLE. Unary and
+server-streaming calls return their connection to a per-target pool when
+they end cleanly; calls with a request stream never reuse one.
+
+Conventions kept from the JAX package's ``rpc.py``: ``GRPC_PORT_OFFSET``,
+``grpc_address``, ``make_server``, ``generic_handler``, ``make_stub``
+(one cached stub and connection pool per target), ``close_channels``,
+and the ``rpc.call`` failpoint and ambient-deadline seams on every
+outbound call.
+"""
+
+from __future__ import annotations
+
+import enum
+import logging
+import select
+import socket
+import struct
+import threading
+import time
+from typing import Dict, List, Optional
+
+from seaweedfs_tpu_torch.resilience import deadline as _deadline
+from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
+
+log = logging.getLogger(__name__)
+
+GRPC_PORT_OFFSET = 10000
+# the JAX package's channels allow 64 MiB messages; a frame adds a little
+MAX_FRAME = (64 << 20) + 4096
+CONNECT_TIMEOUT_S = 5.0
+
+HEAD, MSG, END, STATUS = 1, 2, 3, 4
+_HDR = struct.Struct(">BI")
+
+
+class StatusCode(enum.Enum):
+    """gRPC's status codes, by the same names and numbers."""
+    OK = 0
+    CANCELLED = 1
+    UNKNOWN = 2
+    INVALID_ARGUMENT = 3
+    DEADLINE_EXCEEDED = 4
+    NOT_FOUND = 5
+    ALREADY_EXISTS = 6
+    PERMISSION_DENIED = 7
+    RESOURCE_EXHAUSTED = 8
+    FAILED_PRECONDITION = 9
+    ABORTED = 10
+    OUT_OF_RANGE = 11
+    UNIMPLEMENTED = 12
+    INTERNAL = 13
+    UNAVAILABLE = 14
+    DATA_LOSS = 15
+    UNAUTHENTICATED = 16
+
+
+class RpcError(Exception):
+    """A call that ended with a status other than OK."""
+
+    def __init__(self, code: StatusCode, details: str = ""):
+        super().__init__(f"{code.name}: {details}")
+        self._code = code
+        self._details = details
+
+    def code(self) -> StatusCode:
+        return self._code
+
+    def details(self) -> str:
+        return self._details
+
+
+class _Abort(Exception):
+    def __init__(self, code: StatusCode, details: str):
+        super().__init__(details)
+        self.code = code
+        self.details = details
+
+
+def grpc_address(url: str) -> str:
+    """Map an HTTP "host:port" to its RPC sibling "host:port+10000"."""
+    if "//" in url:
+        url = url.split("//", 1)[1]
+    host, sep, port = url.rpartition(":")
+    if not sep or not port.isdigit():
+        raise ValueError(f"expected host:port, got {url!r}")
+    return f"{host}:{int(port) + GRPC_PORT_OFFSET}"
+
+
+def _split(target: str):
+    host, _, port = target.rpartition(":")
+    return host or "127.0.0.1", int(port)
+
+
+# -- framing -------------------------------------------------------------------
+
+
+class _Conn:
+    """One socket and its receive buffer; frames in and out."""
+
+    def __init__(self, sock: socket.socket):
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.sock = sock
+        self._buf = bytearray()
+        self.eof = False
+        self.closed = False
+
+    def send(self, *frames) -> None:
+        """(kind, payload) frames in one write when they are small. A call
+        has one sender at a time (the caller, or a streaming call's pump
+        thread after HEAD), so no lock."""
+        parts = []
+        for kind, payload in frames:
+            parts.append(_HDR.pack(kind, len(payload)))
+            parts.append(payload)
+        if sum(len(p) for p in parts) < 65536:
+            self.sock.sendall(b"".join(parts))
+        else:
+            for p in parts:
+                if p:
+                    self.sock.sendall(p)
+
+    def _read_some(self) -> None:
+        data = self.sock.recv(1 << 16)
+        if not data:
+            self.eof = True
+        self._buf += data
+
+    def recv(self):
+        """(kind, payload), or None at end-of-file."""
+        buf = self._buf
+        while len(buf) < _HDR.size:
+            if self.eof:
+                return None
+            self._read_some()
+        kind, n = _HDR.unpack_from(buf)
+        if n > MAX_FRAME:
+            raise OSError(f"rpc frame of {n} bytes exceeds the limit")
+        want = _HDR.size + n
+        if len(buf) < want and n >= 1 << 16:
+            # a large payload lands straight in its own buffer
+            payload = bytearray(n)
+            have = len(buf) - _HDR.size
+            payload[:have] = buf[_HDR.size:]
+            del buf[:]
+            view = memoryview(payload)
+            while have < n:
+                got = self.sock.recv_into(view[have:])
+                if not got:
+                    self.eof = True
+                    return None
+                have += got
+            return kind, bytes(payload)
+        while len(buf) < want:
+            if self.eof:
+                return None
+            self._read_some()
+        payload = bytes(buf[_HDR.size:want])
+        del buf[:want]
+        return kind, payload
+
+    def fill_nowait(self) -> None:
+        """Take in whatever the socket holds without blocking; notes a
+        hang-up in ``eof``."""
+        while not self.eof and not self.closed:
+            try:
+                r, _, _ = select.select([self.sock], [], [], 0)
+                if not r:
+                    return
+                self._read_some()
+            except (OSError, ValueError):
+                self.eof = True
+
+    def idle_unusable(self) -> bool:
+        """For a pooled connection between calls: anything readable means
+        the server hung up (or broke framing), so it is not reused."""
+        self.fill_nowait()
+        return self.closed or self.eof or bool(self._buf)
+
+    def close(self) -> None:
+        self.closed = True
+        for fn in (lambda: self.sock.shutdown(socket.SHUT_RDWR),
+                   self.sock.close):
+            try:
+                fn()
+            except OSError:
+                pass
+
+
+def _status_payload(code: StatusCode, details: str) -> bytes:
+    return bytes([code.value]) + details.encode("utf-8", "replace")
+
+
+def _parse_status(payload: bytes) -> RpcError:
+    return RpcError(StatusCode(payload[0]),
+                    payload[1:].decode("utf-8", "replace"))
+
+
+# -- client --------------------------------------------------------------------
+
+_pool_lock = threading.Lock()
+_pools: Dict[str, List[_Conn]] = {}  # guarded_by(_pool_lock)
+_stub_cache: Dict[tuple, object] = {}  # guarded_by(_pool_lock, writes)
+_generation = 0  # guarded_by(_pool_lock, writes)
+
+
+def _checkout(target: str, timeout: Optional[float]) -> _Conn:
+    while True:
+        with _pool_lock:
+            idle = _pools.get(target)
+            conn = idle.pop() if idle else None
+        if conn is None:
+            break
+        if not conn.idle_unusable():
+            return conn
+        conn.close()            # the server hung up while it sat idle
+    connect = CONNECT_TIMEOUT_S if timeout is None \
+        else max(0.001, min(timeout, CONNECT_TIMEOUT_S))
+    try:
+        sock = socket.create_connection(_split(target), timeout=connect)
+    except socket.timeout:
+        raise RpcError(StatusCode.UNAVAILABLE,
+                       f"connect to {target} timed out") from None
+    except OSError as e:
+        raise RpcError(StatusCode.UNAVAILABLE,
+                       f"cannot connect to {target}: {e}") from None
+    return _Conn(sock)
+
+
+def _checkin(target: str, conn: _Conn) -> None:
+    if conn.closed:
+        return
+    with _pool_lock:
+        _pools.setdefault(target, []).append(conn)
+
+
+def close_channels() -> None:
+    """Close every pooled connection and forget the stubs."""
+    global _generation
+    with _pool_lock:
+        conns = [c for idle in _pools.values() for c in idle]
+        _pools.clear()
+        _stub_cache.clear()
+        _generation += 1
+    for c in conns:
+        c.close()
+
+
+class _Call:
+    """One call in flight on a client connection."""
+
+    def __init__(self, target: str, path: str, resp_cls,
+                 timeout: Optional[float], reuse: bool):
+        self.target = target
+        self.path = path
+        self.resp_cls = resp_cls
+        self.deadline = None if timeout is None \
+            else time.monotonic() + timeout
+        self.reuse = reuse
+        self.cancelled = False
+        self.done = False
+        self.conn = _checkout(target, timeout)
+        self._sender: Optional[threading.Thread] = None
+
+    def _remaining(self) -> Optional[float]:
+        if self.deadline is None:
+            return None
+        left = self.deadline - time.monotonic()
+        if left <= 0:
+            raise socket.timeout()
+        return left
+
+    def start(self, requests, streaming: bool) -> None:
+        t = -1.0 if self.deadline is None else \
+            max(0.0, self.deadline - time.monotonic())
+        try:
+            self.conn.sock.settimeout(self._remaining())
+            head = (HEAD, struct.pack(">d", t) + self.path.encode())
+            if not streaming:
+                self.conn.send(head, (MSG, requests.SerializeToString()),
+                               (END, b""))
+                return
+            self.conn.send(head)
+        except (OSError, socket.timeout) as e:
+            self._fail(e)
+        # the request stream is drained on a thread of its own, as gRPC
+        # does: the caller may block on responses while the iterator
+        # blocks between requests (a heartbeat's pulse)
+        # lint: thread-ok(request-stream pump of one call; a fresh context would drop nothing the peer reads)
+        self._sender = threading.Thread(
+            target=self._pump, args=(requests,),
+            name=f"rpc-send-{self.path.rsplit('/', 1)[-1]}", daemon=True)
+        self._sender.start()
+
+    def _pump(self, requests) -> None:
+        try:
+            for req in requests:
+                if self.cancelled or self.done:
+                    return
+                self.conn.send((MSG, req.SerializeToString()))
+            if not (self.cancelled or self.done):
+                self.conn.send((END, b""))
+        except OSError:
+            pass                 # the receive side reports the broken call
+        except Exception:  # noqa: BLE001 - the request iterator failed
+            # gRPC cancels a call whose request iterator raises: close the
+            # connection, so the receive side and the server see it end
+            log.exception("rpc %s: request iterator failed", self.path)
+            self.cancelled = True
+            self.conn.close()
+
+    def _fail(self, e: BaseException):
+        self.done = True
+        self.conn.close()
+        if self.cancelled:
+            raise RpcError(StatusCode.CANCELLED, "call cancelled") from None
+        if isinstance(e, socket.timeout):
+            raise RpcError(StatusCode.DEADLINE_EXCEEDED,
+                           f"{self.path} to {self.target}: deadline "
+                           "exceeded") from None
+        raise RpcError(StatusCode.UNAVAILABLE,
+                       f"{self.path} to {self.target}: "
+                       f"{e or 'connection closed'}") from None
+
+    def next_message(self):
+        """The next response message, or None after an OK status."""
+        if self.done:
+            return None
+        try:
+            self.conn.sock.settimeout(self._remaining())
+            frame = self.conn.recv()
+        except (OSError, socket.timeout, ValueError) as e:
+            self._fail(e)
+        if frame is None:
+            self._fail(OSError("connection closed by the server"))
+        kind, payload = frame
+        if kind == MSG:
+            return self.resp_cls.FromString(payload)
+        if kind != STATUS:
+            self._fail(OSError(f"unexpected frame kind {kind}"))
+        self.done = True
+        err = _parse_status(payload)
+        if self.reuse:
+            self.conn.sock.settimeout(None)
+            _checkin(self.target, self.conn)
+        else:
+            self.conn.close()
+        if err.code() != StatusCode.OK:
+            raise err
+        return None
+
+    def cancel(self) -> None:
+        if not self.done:
+            self.cancelled = True
+            self.conn.close()
+
+
+class _ResponseStream:
+    """The iterator a streaming call returns (gRPC's call object)."""
+
+    def __init__(self, call: _Call):
+        self._call = call
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        msg = self._call.next_message()
+        if msg is None:
+            raise StopIteration
+        return msg
+
+    def cancel(self) -> None:
+        self._call.cancel()
+
+    def __del__(self):
+        # a stream dropped before its status would pin its connection
+        self._call.cancel()
+
+
+def _invoke(target, path, resp_cls, client_streaming, server_streaming):
+    def invoke(request_or_iterator, timeout=None, **_kwargs):
+        if _failpoint._armed:
+            _failpoint.hit("rpc.call", method=path)
+        if _deadline.get() is not None:
+            rem = _deadline.remaining()
+            if rem <= 0:
+                raise _deadline.DeadlineExceeded(f"rpc {path}")
+            timeout = rem if timeout is None else min(timeout, rem)
+        call = _Call(target, path, resp_cls, timeout,
+                     reuse=not client_streaming)
+        call.start(request_or_iterator, client_streaming)
+        if server_streaming:
+            return _ResponseStream(call)
+        resp = call.next_message()
+        if resp is None:
+            raise RpcError(StatusCode.INTERNAL,
+                           f"{path}: no response message")
+        call.next_message()      # the trailing status
+        return resp
+    invoke.__name__ = path.rsplit("/", 1)[-1]
+    return invoke
+
+
+def make_stub(pb_module, service_name: str, target: str):
+    """A stub object with one callable per method, cached per target.
+
+    Each callable takes the request (an iterator of requests for
+    client-streaming methods) and an optional ``timeout=`` in seconds;
+    unary methods return the response, streaming ones an iterator of
+    responses with ``cancel()``. Failures raise ``RpcError``."""
+    key = (pb_module.PACKAGE, service_name, target, _generation)
+    stub = _stub_cache.get(key)
+    if stub is not None:
+        return stub
+    stub = type(f"{service_name}Stub", (), {})()
+    for name, _req, resp, cs, ss in pb_module.SERVICES[service_name]:
+        path = f"/{pb_module.PACKAGE}.{service_name}/{name}"
+        setattr(stub, name, _invoke(target, path, resp, cs, ss))
+    with _pool_lock:
+        return _stub_cache.setdefault(key, stub)
+
+
+# -- server --------------------------------------------------------------------
+
+
+class _Context:
+    """The servicer's view of one call (gRPC's ServicerContext)."""
+
+    def __init__(self, conn: _Conn, deadline: Optional[float]):
+        self._conn = conn
+        self._deadline = deadline
+        self.cancelled = False
+
+    def abort(self, code: StatusCode, details: str = ""):
+        raise _Abort(code, details)
+
+    def is_active(self) -> bool:
+        if self.cancelled:
+            return False
+        if self._deadline is not None and \
+                time.monotonic() >= self._deadline:
+            return False
+        self._conn.fill_nowait()
+        if self._conn.eof or self._conn.closed:
+            self.cancelled = True
+            return False
+        return True
+
+
+
+class _Requests:
+    """Iterator over a call's request messages; ends at END, at a hang-up
+    or a cancel (then ``context.cancelled`` is set)."""
+
+    def __init__(self, conn: _Conn, req_cls, ctx: _Context):
+        self._conn = conn
+        self._cls = req_cls
+        self._ctx = ctx
+        self.finished = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.finished:
+            raise StopIteration
+        try:
+            frame = self._conn.recv()
+        except (OSError, ValueError):
+            frame = None
+        if frame is None or frame[0] != MSG:
+            self.finished = True
+            if frame is None or frame[0] != END:
+                self._ctx.cancelled = True
+            raise StopIteration
+        return self._cls.FromString(frame[1])
+
+
+class _Method:
+    __slots__ = ("name", "req_cls", "resp_cls", "client_streaming",
+                 "server_streaming", "fn")
+
+    def __init__(self, name, req_cls, resp_cls, cs, ss, fn):
+        self.name = name
+        self.req_cls = req_cls
+        self.resp_cls = resp_cls
+        self.client_streaming = cs
+        self.server_streaming = ss
+        self.fn = fn
+
+
+def generic_handler(pb_module, service_name: str, servicer) -> dict:
+    """{method path: handler} routing each method of one service to the
+    same-named method of ``servicer``; a method the servicer lacks
+    answers UNIMPLEMENTED."""
+    handlers = {}
+    for name, req, resp, cs, ss in pb_module.SERVICES[service_name]:
+        fn = getattr(servicer, name, None)
+        if fn is None:
+            def fn(request, context, _name=name):  # noqa: ARG001
+                context.abort(StatusCode.UNIMPLEMENTED,
+                              f"method {_name} not implemented")
+        path = f"/{pb_module.PACKAGE}.{service_name}/{name}"
+        handlers[path] = _Method(name, req, resp, cs, ss, fn)
+    return handlers
+
+
+class RpcServer:
+    """Accepts connections on one address; a thread per connection runs
+    its calls one after another."""
+
+    def __init__(self, address: str, handlers: List[dict]):
+        self._routes: Dict[str, _Method] = {}
+        for h in handlers:
+            self._routes.update(h)
+        host, port = _split(address)
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            self._listener.bind((host, port))
+        except OSError as e:
+            self._listener.close()
+            raise OSError(f"cannot bind rpc server to {address}: {e}") \
+                from e
+        self._listener.listen(128)
+        self.bound_port = self._listener.getsockname()[1]
+        self._lock = threading.Lock()
+        self._conns: set = set()  # guarded_by(self._lock)
+        self._stopping = False
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        # lint: thread-ok(listener thread; each call mints its own context)
+        self._thread = threading.Thread(
+            target=self._accept_loop, name=f"rpc-{self.bound_port}",
+            daemon=True)
+        self._thread.start()
+
+    def _accept_loop(self) -> None:
+        while not self._stopping:
+            try:
+                sock, _ = self._listener.accept()
+            except OSError:
+                return
+            conn = _Conn(sock)
+            with self._lock:
+                if self._stopping:
+                    conn.close()
+                    return
+                self._conns.add(conn)
+            # lint: thread-ok(connection thread; each call mints its own context)
+            threading.Thread(target=self._serve, args=(conn,),
+                             name=f"rpc-conn-{self.bound_port}",
+                             daemon=True).start()
+
+    def _serve(self, conn: _Conn) -> None:
+        try:
+            while not self._stopping:
+                try:
+                    frame = conn.recv()
+                except (OSError, ValueError):
+                    return
+                if frame is None:
+                    return
+                if frame[0] != HEAD or not self._call(conn, frame[1]):
+                    return
+        finally:
+            with self._lock:
+                self._conns.discard(conn)
+            conn.close()
+
+    def _call(self, conn: _Conn, head: bytes) -> bool:
+        """Run one call; False when the connection cannot carry another."""
+        timeout = struct.unpack(">d", head[:8])[0]
+        path = head[8:].decode("utf-8", "replace")
+        deadline = None if timeout < 0 else time.monotonic() + timeout
+        ctx = _Context(conn, deadline)
+        method = self._routes.get(path)
+        reqs = _Requests(conn, method.req_cls if method else None, ctx)
+        try:
+            if method is None:
+                for _ in reqs:
+                    pass
+                raise _Abort(StatusCode.UNIMPLEMENTED,
+                             f"unknown method {path}")
+            if method.client_streaming:
+                arg = reqs
+            else:
+                arg = next(reqs, None)
+                if arg is None or next(reqs, None) is not None:
+                    if ctx.cancelled:
+                        return False
+                    raise _Abort(StatusCode.INTERNAL,
+                                 f"{path}: expected one request message")
+            result = method.fn(arg, ctx)
+            ok = (STATUS, _status_payload(StatusCode.OK, ""))
+            if method.server_streaming:
+                try:
+                    for msg in result:
+                        conn.send((MSG, msg.SerializeToString()))
+                finally:
+                    close = getattr(result, "close", None)
+                    if close is not None:
+                        close()
+                conn.send(ok)
+            else:
+                conn.send((MSG, result.SerializeToString()), ok)
+        except _Abort as e:
+            return self._send_status(conn, e.code, e.details) and \
+                not (method and method.client_streaming)
+        except OSError:
+            return False         # the peer went away mid-call
+        except Exception as e:  # noqa: BLE001 - becomes the call's status
+            log.exception("rpc %s failed", path)
+            return self._send_status(
+                conn, StatusCode.UNKNOWN,
+                f"Exception calling application: {e}") and \
+                not (method and method.client_streaming)
+        # a request stream may still hold frames: never reuse its socket
+        return not method.client_streaming
+
+    @staticmethod
+    def _send_status(conn: _Conn, code: StatusCode, details: str) -> bool:
+        try:
+            conn.send((STATUS, _status_payload(code, details)))
+            return True
+        except OSError:
+            return False
+
+    def stop(self) -> None:
+        """Close the listener and every connection: in-flight calls end,
+        and peers see their streams break."""
+        self._stopping = True
+        # shutdown wakes the accept() blocked on the listener; a bare
+        # close() would leave the port bound until that call returned
+        for fn in (lambda: self._listener.shutdown(socket.SHUT_RDWR),
+                   self._listener.close):
+            try:
+                fn()
+            except OSError:
+                pass
+        with self._lock:
+            conns = list(self._conns)
+            self._conns.clear()
+        for c in conns:
+            c.close()
+
+
+def make_server(address: str, handlers) -> RpcServer:
+    """Bind ``address`` ("host:port"; port 0 picks one, see
+    ``.bound_port``), route the given ``generic_handler`` tables, start."""
+    server = RpcServer(address, handlers)
+    server.start()
+    return server

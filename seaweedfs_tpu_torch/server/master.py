@@ -1,0 +1,523 @@
+"""Master server: the cluster's control plane, one master.
+
+Owns the Topology, assigns file ids, grows volumes and feeds clients a
+live vid -> location view over the KeepConnected stream. The port of
+``seaweedfs_tpu.server.master`` for a single master: the max volume id
+and the file-id sequence survive a restart from ``-mdir`` (a state file
+written before a grown volume id is used, and at stop), as the JAX
+package's single-node raft log gives. Left out: raft with peers, vacuum,
+the maintenance and scrub-stagger loops, lifecycle, heat and QoS views,
+and replication other than ``000`` (a write or grow that asks for it is
+refused).
+
+Reference: weed/server/master_server.go, master_grpc_server.go
+(SendHeartbeat :20-176, KeepConnected :178-233),
+master_server_handlers*.go.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import threading
+import time
+from typing import Dict, List, Optional
+from urllib.parse import parse_qs
+
+from seaweedfs_tpu_torch import rpc
+from seaweedfs_tpu_torch.pb import master_pb2, volume_server_pb2, volume_stub
+from seaweedfs_tpu_torch.server import convert
+from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement
+from seaweedfs_tpu_torch.topology.node import VolumeInfo
+from seaweedfs_tpu_torch.topology.sequence import MemorySequencer
+from seaweedfs_tpu_torch.topology.topology import Topology
+from seaweedfs_tpu_torch.topology.volume_growth import (GROWTH_COUNT,
+                                                       NoFreeSlots, pick_node)
+from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.util.http_server import (FastHandler,
+                                                  make_http_server)
+
+log = wlog.logger("master")
+
+STATE_FILE = "master.state.json"
+# the only replica placement the port writes: one copy
+SUPPORTED_REPLICATION = "000"
+
+
+class UnsupportedReplication(ValueError):
+    pass
+
+
+def check_replication(replication: str) -> ReplicaPlacement:
+    """The placement of a write or grow; anything but one copy is refused
+    (never acknowledged with fewer copies than asked for)."""
+    rp = ReplicaPlacement.parse(replication or SUPPORTED_REPLICATION)
+    if str(rp) != SUPPORTED_REPLICATION:
+        raise UnsupportedReplication(
+            f"replication {rp} is not supported by this port (only "
+            f"{SUPPORTED_REPLICATION}: one copy)")
+    return rp
+
+
+class AdminLock:
+    """Cluster-wide exclusive admin lease (reference
+    wdclient/exclusive_locks + master_grpc_server_admin.go)."""
+
+    RENEW_WINDOW_NS = 10 * 1_000_000_000
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._token = 0  # guarded_by(self._lock)
+        self._ts_ns = 0  # guarded_by(self._lock)
+
+    def lease(self, previous_token: int) -> tuple:
+        now = time.monotonic_ns()
+        with self._lock:
+            held = self._token and now - self._ts_ns < self.RENEW_WINDOW_NS
+            if held and previous_token != self._token:
+                raise PermissionError("admin lock held by another client")
+            self._token = now
+            self._ts_ns = now
+            return self._token, self._ts_ns
+
+    def release(self, previous_token: int) -> None:
+        with self._lock:
+            if previous_token == self._token:
+                self._token = 0
+                self._ts_ns = 0
+
+
+class MasterServer:
+    def __init__(self, ip: str = "127.0.0.1", port: int = 9333,
+                 meta_dir: Optional[str] = None,
+                 volume_size_limit_mb: int = 30 * 1024,
+                 pulse_seconds: float = 5.0):
+        self.ip = ip
+        self.port = port
+        self.meta_dir = meta_dir
+        state = self._load_state()
+        self.topo = Topology(
+            volume_size_limit=volume_size_limit_mb << 20,
+            sequencer=MemorySequencer(start=state.get("sequence", 1)),
+            pulse_seconds=pulse_seconds)
+        self.topo.adjust_max_volume_id(state.get("max_volume_id", 0))
+        self.admin_lock = AdminLock()
+        self._state_lock = threading.Lock()
+        self._grow_lock = threading.Lock()
+        # layouts being grown -> the event their waiters block on
+        self._growing: Dict[tuple, threading.Event] = {}  # guarded_by(self._grow_lock)
+        self._grpc_server = None
+        self._http_server = None
+        self._http_thread = None
+        # heartbeat stream identity per node url (reconnect-safe cleanup)
+        self._node_streams: Dict[str, object] = {}
+        # KeepConnected subscribers: key -> queue of VolumeLocation
+        self._subscribers: Dict[int, queue.Queue] = {}  # guarded_by(self._sub_lock)
+        self._sub_seq = 0  # guarded_by(self._sub_lock)
+        self._sub_lock = threading.Lock()
+        self._stopping = False
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def url(self) -> str:
+        return f"{self.ip}:{self.port}"
+
+    def start(self) -> None:
+        if self.port == 0:
+            raise ValueError("master port must be fixed (rpc = port+10000)")
+        handler = rpc.generic_handler(master_pb2, "Seaweed", self)
+        self._grpc_server = rpc.make_server(
+            f"{self.ip}:{self.port + rpc.GRPC_PORT_OFFSET}", [handler])
+        self._http_server = make_http_server(
+            (self.ip, self.port), _make_http_handler(self))
+        # lint: thread-ok(listener thread; each request mints its own context)
+        self._http_thread = threading.Thread(
+            target=self._http_server.serve_forever, name="master-http",
+            daemon=True)
+        self._http_thread.start()
+        log.info("master %s started (rpc :%d)", self.url,
+                 self.port + rpc.GRPC_PORT_OFFSET)
+
+    def stop(self) -> None:
+        log.info("master %s stopping", self.url)
+        self._stopping = True
+        self._save_state()
+        if self._http_server:
+            self._http_server.shutdown()
+            self._http_server.server_close()
+        if self._grpc_server:
+            self._grpc_server.stop()
+
+    # -- persistent state ----------------------------------------------------
+
+    def _state_path(self) -> Optional[str]:
+        return os.path.join(self.meta_dir, STATE_FILE) \
+            if self.meta_dir else None
+
+    def _load_state(self) -> dict:
+        p = self._state_path()
+        if p and os.path.exists(p):
+            with open(p) as f:
+                return json.load(f)
+        return {}
+
+    def _save_state(self) -> None:
+        """fsync'd replace of {max_volume_id, sequence}: written before a
+        grown volume id goes out, so a restart never issues it again."""
+        p = self._state_path()
+        if not p:
+            return
+        with self._state_lock:
+            os.makedirs(self.meta_dir, exist_ok=True)
+            tmp = p + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"max_volume_id": self.topo.next_volume_id - 1,
+                           "sequence": self.topo.sequence.peek}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, p)
+
+    # -- KeepConnected fan-out -----------------------------------------------
+
+    def _broadcast(self, loc) -> None:
+        with self._sub_lock:
+            for q in self._subscribers.values():
+                # lint: block-ok(unbounded Queue.put never blocks)
+                q.put(loc)
+
+    def _full_locations(self) -> list:
+        locs = []
+        for node in self.topo.nodes():
+            vids = sorted(set(node.volumes) | set(node.ec_shards))
+            if vids:
+                locs.append(master_pb2.VolumeLocation(
+                    url=node.url, public_url=node.public_url,
+                    new_vids=vids))
+        return locs
+
+    # -- rpc: Seaweed service ------------------------------------------------
+
+    def SendHeartbeat(self, request_iterator, context):
+        node_url = None
+        stream_id = object()  # identity of THIS connection
+        try:
+            for hb in request_iterator:
+                d = convert.heartbeat_from_pb(hb)
+                node_url = f"{d['ip']}:{d['port']}"
+                self._node_streams[node_url] = stream_id
+                prev = self.topo.find_node(node_url)
+                before = (set(prev.volumes) | set(prev.ec_shards)) \
+                    if prev else set()
+                if prev is None:
+                    log.info("volume server %s connected (dc=%s rack=%s)",
+                             node_url, hb.data_center or "DefaultDataCenter",
+                             hb.rack or "DefaultRack")
+                node = self.topo.sync_heartbeat(
+                    d, dc=hb.data_center or "DefaultDataCenter",
+                    rack=hb.rack or "DefaultRack")
+                after = set(node.volumes) | set(node.ec_shards)
+                new, deleted = sorted(after - before), sorted(before - after)
+                if new or deleted:
+                    self._broadcast(master_pb2.VolumeLocation(
+                        url=node.url, public_url=node.public_url,
+                        new_vids=new, deleted_vids=deleted))
+                yield master_pb2.HeartbeatResponse(
+                    volume_size_limit=self.topo.volume_size_limit,
+                    leader=self.url)
+        finally:
+            # stream break == node death (reference
+            # master_grpc_server.go:22-50), unless the node already
+            # reconnected on a fresh stream
+            if node_url is not None and not self._stopping and \
+                    self._node_streams.get(node_url) is stream_id:
+                self._node_streams.pop(node_url, None)
+                node = self.topo.find_node(node_url)
+                if node is not None:
+                    gone = sorted(set(node.volumes) | set(node.ec_shards))
+                    log.warning("volume server %s disconnected; "
+                                "unregistering %d volumes/shards",
+                                node_url, len(gone))
+                    self.topo.unregister_node(node_url)
+                    if gone:
+                        self._broadcast(master_pb2.VolumeLocation(
+                            url=node_url, public_url=node.public_url,
+                            deleted_vids=gone))
+
+    def KeepConnected(self, request_iterator, context):
+        if next(request_iterator, None) is None:  # the client's intro
+            return
+        q: queue.Queue = queue.Queue()
+        with self._sub_lock:
+            self._sub_seq += 1
+            key = self._sub_seq
+            self._subscribers[key] = q
+        try:
+            yield master_pb2.VolumeLocation(leader=self.url)
+            for loc in self._full_locations():
+                yield loc
+            while context.is_active():
+                try:
+                    yield q.get(timeout=1.0)
+                except queue.Empty:
+                    continue
+        finally:
+            with self._sub_lock:
+                self._subscribers.pop(key, None)
+
+    def LookupVolume(self, request, context):
+        out = []
+        VolumeIdLocation = master_pb2.LookupVolumeResponse.VolumeIdLocation
+        for vid_str in request.volume_ids:
+            try:
+                vid = int(vid_str.split(",")[0])
+            except ValueError:
+                out.append(VolumeIdLocation(volume_id=vid_str,
+                                            error="unknown volume id"))
+                continue
+            locs = self.lookup_locations(vid, request.collection)
+            if locs:
+                out.append(VolumeIdLocation(
+                    volume_id=vid_str,
+                    locations=[master_pb2.Location(url=u, public_url=p)
+                               for u, p in locs]))
+            else:
+                out.append(VolumeIdLocation(
+                    volume_id=vid_str, error=f"volume {vid} not found"))
+        return master_pb2.LookupVolumeResponse(volume_id_locations=out)
+
+    def lookup_locations(self, vid: int, collection: str = "") -> List[tuple]:
+        """[(url, public_url)] over normal replicas, else EC shard holders."""
+        nodes = self.topo.lookup(vid, collection)
+        if nodes:
+            return [(n.url, n.public_url) for n in nodes]
+        out = []
+        for u in self.topo.lookup_ec(vid):
+            n = self.topo.find_node(u)
+            out.append((u, n.public_url if n else u))
+        return out
+
+    def Assign(self, request, context):
+        try:
+            fid, count, locs = self.assign(
+                count=max(1, request.count or 1),
+                replication=request.replication,
+                collection=request.collection,
+                ttl=request.ttl,
+                data_center=request.data_center,
+                writable_volume_count=request.writable_volume_count)
+        except (NoFreeSlots, RuntimeError, ValueError) as e:
+            return master_pb2.AssignResponse(error=str(e))
+        return master_pb2.AssignResponse(
+            fid=fid, url=locs[0].url, public_url=locs[0].public_url,
+            count=count)
+
+    def assign(self, count: int = 1, replication: str = "",
+               collection: str = "", ttl: str = "", data_center: str = "",
+               writable_volume_count: int = 0):
+        rp = check_replication(replication)
+        rb = rp.to_byte()
+        key = (collection, rb, ttl)
+        for _ in range(2):
+            if self.topo.has_writable(collection, rb, ttl):
+                break
+            # one grow per layout at a time; the others wait for it, and
+            # no lock is held across the AllocateVolume RPCs
+            with self._grow_lock:
+                ev = self._growing.get(key)
+                leader = ev is None
+                if leader:
+                    ev = self._growing[key] = threading.Event()
+            if not leader:
+                ev.wait(timeout=60.0)
+                continue
+            try:
+                self.grow_volumes(
+                    writable_volume_count or GROWTH_COUNT,
+                    str(rp), collection, ttl, data_center)
+            finally:
+                with self._grow_lock:
+                    self._growing.pop(key, None)
+                ev.set()
+        picked = self.topo.pick_for_write(
+            count=count, collection=collection, replica_byte=rb, ttl=ttl)
+        if picked is None:
+            raise RuntimeError("no writable volumes")
+        return picked
+
+    def grow_volumes(self, target_count: int, replication: str,
+                     collection: str = "", ttl: str = "",
+                     data_center: str = "") -> List[int]:
+        """Allocate `target_count` new volumes, each on one node with a
+        free slot (replication 000 only)."""
+        rp = check_replication(replication)
+        grown = []
+        for _ in range(max(1, target_count)):
+            try:
+                node = pick_node(self.topo, data_center)
+            except NoFreeSlots:
+                if grown:
+                    break  # partial growth still unblocks the assign
+                raise
+            vid = self.topo.reserve_volume_ids(1)[0]
+            self._save_state()
+            try:
+                volume_stub(node.url).AllocateVolume(
+                    volume_server_pb2.AllocateVolumeRequest(
+                        volume_id=vid, collection=collection,
+                        replication=str(rp), ttl=ttl))
+            except rpc.RpcError as e:
+                # dead node: the heartbeat stream's end reaps it
+                log.warning("allocate volume %d on %s failed: %s",
+                            vid, node.url, e)
+                if grown:
+                    break
+                raise RuntimeError(f"volume allocation failed: vid {vid} "
+                                   f"on {node.url}: {e}") from e
+            info = VolumeInfo(id=vid, collection=collection,
+                              replica_placement=rp.to_byte(), ttl=ttl)
+            node.volumes[vid] = info
+            self.topo.register_volume(info, node)
+            self._broadcast(master_pb2.VolumeLocation(
+                url=node.url, public_url=node.public_url, new_vids=[vid]))
+            grown.append(vid)
+        return grown
+
+    def VolumeList(self, request, context):
+        return master_pb2.VolumeListResponse(
+            topology_info=convert.topology_to_pb(self.topo.to_map()),
+            volume_size_limit_mb=self.topo.volume_size_limit >> 20)
+
+    def LookupEcVolume(self, request, context):
+        by_url = self.topo.lookup_ec(request.volume_id)
+        if not by_url:
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"ec volume {request.volume_id} not found")
+        shard_locs: Dict[int, List[str]] = {}
+        for url, bits in by_url.items():
+            for sid in bits.shard_ids:
+                shard_locs.setdefault(sid, []).append(url)
+        EcShardIdLocation = master_pb2.LookupEcVolumeResponse.EcShardIdLocation
+        return master_pb2.LookupEcVolumeResponse(
+            volume_id=request.volume_id,
+            shard_id_locations=[
+                EcShardIdLocation(
+                    shard_id=sid,
+                    locations=[master_pb2.Location(
+                        url=u,
+                        public_url=getattr(self.topo.find_node(u),
+                                           "public_url", u))
+                        for u in urls])
+                for sid, urls in sorted(shard_locs.items())])
+
+    def GetMasterConfiguration(self, request, context):
+        return master_pb2.GetMasterConfigurationResponse()
+
+    def LeaseAdminToken(self, request, context):
+        try:
+            token, ts = self.admin_lock.lease(request.previous_token)
+        except PermissionError as e:
+            context.abort(rpc.StatusCode.PERMISSION_DENIED, str(e))
+        return master_pb2.LeaseAdminTokenResponse(token=token, lock_ts_ns=ts)
+
+    def ReleaseAdminToken(self, request, context):
+        self.admin_lock.release(request.previous_token)
+        return master_pb2.ReleaseAdminTokenResponse()
+
+    # -- HTTP view -----------------------------------------------------------
+
+    def http_assign(self, params: dict) -> dict:
+        try:
+            fid, count, locs = self.assign(
+                count=int(params.get("count", ["1"])[0]),
+                replication=params.get("replication", [""])[0],
+                collection=params.get("collection", [""])[0],
+                ttl=params.get("ttl", [""])[0],
+                data_center=params.get("dataCenter", [""])[0])
+        except (NoFreeSlots, RuntimeError, ValueError) as e:
+            return {"error": str(e)}
+        return {"fid": fid, "url": locs[0].url,
+                "publicUrl": locs[0].public_url, "count": count}
+
+    def http_lookup(self, params: dict) -> dict:
+        """GET /dir/lookup: ``volumeId``/``fileId`` answers one vid;
+        ``volumeIds=a,b,c`` answers each vid as its own entry."""
+        collection = params.get("collection", [""])[0]
+        if "volumeIds" in params:
+            out = []
+            for part in params.get("volumeIds", [""])[0].split(","):
+                try:
+                    vid = int(part)
+                except ValueError:
+                    out.append({"volumeId": part,
+                                "error": f"bad volume id {part!r}"})
+                    continue
+                locs = self.lookup_locations(vid, collection)
+                if locs:
+                    out.append({"volumeId": str(vid),
+                                "locations": [{"url": u, "publicUrl": p}
+                                              for u, p in locs]})
+                else:
+                    out.append({"volumeId": str(vid),
+                                "error": "volume not found"})
+            return {"volumeIdLocations": out}
+        raw = params.get("volumeId", params.get("fileId", [""]))[0]
+        try:
+            vid = int(raw.split(",")[0])
+        except ValueError:
+            return {"error": f"bad volume id {raw!r}"}
+        locs = self.lookup_locations(vid, collection)
+        if not locs:
+            return {"volumeId": str(vid), "error": "volume not found"}
+        return {"volumeId": str(vid),
+                "locations": [{"url": u, "publicUrl": p} for u, p in locs]}
+
+    def http_grow(self, params: dict) -> dict:
+        try:
+            grown = self.grow_volumes(
+                int(params.get("count", ["1"])[0]),
+                params.get("replication", [""])[0],
+                params.get("collection", [""])[0],
+                params.get("ttl", [""])[0],
+                params.get("dataCenter", [""])[0])
+        except (NoFreeSlots, RuntimeError, ValueError) as e:
+            return {"error": str(e)}
+        return {"count": len(grown), "volumeIds": grown}
+
+    def http_cluster_status(self) -> dict:
+        return {"IsLeader": True, "Leader": self.url, "Peers": []}
+
+
+def _make_http_handler(ms: MasterServer):
+    class Handler(FastHandler):
+        protocol_version = "HTTP/1.1"
+        disable_nagle_algorithm = True
+
+        def log_message(self, fmt, *args):  # quiet
+            pass
+
+        def _json(self, payload: dict, code: int = 200) -> None:
+            self.fast_reply(code, json.dumps(payload).encode(),
+                            ctype="application/json")
+
+        def do_GET(self):
+            upath, sep, query = self.path.partition("?")
+            params = parse_qs(query) if sep else {}
+            if upath == "/dir/assign":
+                self._json(ms.http_assign(params))
+            elif upath == "/dir/lookup":
+                self._json(ms.http_lookup(params))
+            elif upath == "/dir/status":
+                self._json({"Topology": ms.topo.to_map(),
+                            "Version": "seaweedfs-tpu-torch"})
+            elif upath == "/vol/grow":
+                self._json(ms.http_grow(params))
+            elif upath == "/cluster/status":
+                self._json(ms.http_cluster_status())
+            else:
+                self._json({"error": f"unknown path {upath}"}, code=404)
+
+        do_POST = do_GET
+
+    return Handler

@@ -1,0 +1,813 @@
+"""Volume server: the data-plane node, with its codec on the card.
+
+HTTP serves the blob path (GET/POST/DELETE /<vid>,<fid>); the RPC port
+serves the admin plane the shell drives (allocate, mount, copy, the EC
+lifecycle, scrub control); a background thread streams heartbeats to the
+master. The port of ``seaweedfs_tpu.server.volume``: every EC RPC and
+every degraded read runs the CUDA codec (``-ec.encoder cuda``, the
+default) or, when asked, its plain version on the host (``cpu``). An
+encoder name the port does not run is refused with INVALID_ARGUMENT, and
+a missing card with FAILED_PRECONDITION; nothing falls back to the host
+quietly.
+
+Left out (each queued in ROADMAP.md): replica fan-out (placements other than
+``000``), vacuum, volume copy/tail/backup, tiers, the read cache,
+hedging and the breaker, heat, QoS, the async core's sendfile path,
+image resizing, query and chunk manifests.
+
+Reference: weed/server/volume_server.go, volume_server_handlers_*.go,
+volume_grpc_*.go, volume_grpc_client_to_master.go.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+from urllib.parse import parse_qs
+
+import torch
+
+from seaweedfs_tpu_torch import rpc
+from seaweedfs_tpu_torch.ec import store_ec
+from seaweedfs_tpu_torch.ec.ec_volume import EcShardNotFound
+from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+from seaweedfs_tpu_torch.ec.shard_bits import DATA_SHARDS, TOTAL_SHARDS
+from seaweedfs_tpu_torch.native.builder import BuildError, KernelLaunchError
+from seaweedfs_tpu_torch.operation.file_id import parse_fid
+from seaweedfs_tpu_torch.ops.rs_code import BACKENDS
+from seaweedfs_tpu_torch.pb import (master_pb2, master_stub,
+                                    volume_server_pb2, volume_stub)
+from seaweedfs_tpu_torch.reads import DegradedReadFleet
+from seaweedfs_tpu_torch.resilience import deadline as _deadline
+from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
+from seaweedfs_tpu_torch.scrub import ScrubDaemon
+from seaweedfs_tpu_torch.server import convert
+from seaweedfs_tpu_torch.storage.needle import (FLAG_IS_COMPRESSED,
+                                                CookieMismatch,
+                                                DataCorruptionError, Needle,
+                                                NeedleError)
+from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.storage.superblock import TTL
+from seaweedfs_tpu_torch.storage.volume import VolumeError
+from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.util.http_server import (FastHandler,
+                                                  make_http_server)
+from seaweedfs_tpu_torch.util.multipart import iter_parts
+
+log = wlog.logger("volume")
+
+COPY_CHUNK = 1 << 20
+# EC shard-location freshness is tiered by how complete the cached view
+# is (reference storage/store_ec.go:221-231)
+EC_REFRESH_SPARSE_S = 11.0
+EC_REFRESH_PARTIAL_S = 7 * 60.0
+EC_REFRESH_FULL_S = 37 * 60.0
+# the deadline on one remote shard interval read
+REMOTE_READ_TIMEOUT_S = 15.0
+
+
+def check_encoder(name: str) -> str:
+    """The codec backend an EC request runs on: ``cuda`` or ``cpu``.
+    Raises ValueError for any other name (the JAX package's
+    ``tpu|jax|native|numpy|auto|pallas`` included)."""
+    if name not in BACKENDS:
+        raise ValueError(f"unknown EC encoder {name!r}; this server runs "
+                         f"{' or '.join(repr(b) for b in BACKENDS)}")
+    return name
+
+
+class VolumeServer:
+    def __init__(self, master_url: str, directories: List[str],
+                 ip: str = "127.0.0.1", port: int = 8080,
+                 max_volume_counts: Optional[List[int]] = None,
+                 pulse_seconds: float = 5.0, ec_encoder: str = "cuda",
+                 ec_mesh: bool = False):
+        self.ec_encoder = check_encoder(ec_encoder)
+        self.master_url = master_url
+        # the master this server last heartbeated successfully
+        self.current_master = master_url.split(",")[0].strip()
+        self.ip = ip
+        self.port = port
+        self.pulse_seconds = pulse_seconds
+        # -ec.mesh: batched encode, verify and degraded decode on the
+        # unified mesh scheduler (parallel/mesh_fleet, its default mesh);
+        # None, not empty, when off
+        self.ec_mesh_cfg = {} if ec_mesh else None
+        self.store = Store(directories, max_volume_counts, ip=ip, port=port)
+        # degraded reads go through the decode fleet; it and the scrub
+        # daemon make no codec, thread or CUDA context until first use
+        self.degraded = DegradedReadFleet(backend=self.ec_encoder,
+                                          use_mesh=ec_mesh)
+        self.scrub = ScrubDaemon(self.store, backend=self.ec_encoder,
+                                 mesh_cfg=self.ec_mesh_cfg)
+        self.volume_size_limit = 30 << 30
+        self._ec_locations: Dict[int, Tuple[float, Dict[int, List[str]]]] = {}
+        self._grpc_server = None
+        self._http_server = None
+        self._http_thread = None
+        self._hb_thread = None
+        self._hb_call = None
+        self._hb_wake = threading.Event()
+        self._stopping = False
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def url(self) -> str:
+        return f"{self.ip}:{self.port}"
+
+    def start(self) -> None:
+        handler = rpc.generic_handler(
+            volume_server_pb2, "VolumeServer", self)
+        self._grpc_server = rpc.make_server(
+            f"{self.ip}:{self.port + rpc.GRPC_PORT_OFFSET}", [handler])
+        self._http_server = make_http_server(
+            (self.ip, self.port), _make_http_handler(self))
+        # lint: thread-ok(listener thread; each request mints its own context)
+        self._http_thread = threading.Thread(
+            target=self._http_server.serve_forever,
+            name=f"volume-http-{self.port}", daemon=True)
+        self._http_thread.start()
+        # lint: thread-ok(heartbeat daemon; no request context)
+        self._hb_thread = threading.Thread(
+            target=self._heartbeat_loop, name=f"heartbeat-{self.port}",
+            daemon=True)
+        self._hb_thread.start()
+        log.info("volume server %s:%d started (rpc :%d, dirs %s, "
+                 "encoder %s)", self.ip, self.port,
+                 self.port + rpc.GRPC_PORT_OFFSET,
+                 [loc.directory for loc in self.store.locations],
+                 self.ec_encoder)
+        if self.ec_mesh_cfg is not None:
+            self._report_mesh()
+
+    def _report_mesh(self) -> None:
+        """Say at start which mesh -ec.mesh rides, or that there is none
+        (fewer than two cards) and the per-card fleet takes its work."""
+        from seaweedfs_tpu_torch.parallel import mesh_fleet
+        try:
+            log.info("-ec.mesh: %r", mesh_fleet._resolve_mesh(None))
+        except mesh_fleet.MeshError as e:
+            log.warning("-ec.mesh: no mesh (%s); EC batches, scrub passes "
+                        "and degraded decodes run on the per-card fleet", e)
+
+    def stop(self) -> None:
+        log.info("volume server %s:%d stopping", self.ip, self.port)
+        self._stopping = True
+        self.degraded.stop()
+        self.scrub.stop()
+        self._hb_wake.set()
+        if self._hb_call is not None:
+            self._hb_call.cancel()
+        if self._http_server:
+            self._http_server.shutdown()
+            self._http_server.server_close()
+        if self._grpc_server:
+            self._grpc_server.stop()
+        self.store.close()
+
+    # -- heartbeat -----------------------------------------------------------
+
+    def _heartbeat_gen(self):
+        while not self._stopping:
+            yield convert.heartbeat_to_pb(self.store.collect_heartbeat())
+            self._hb_wake.wait(timeout=self.pulse_seconds)
+            self._hb_wake.clear()
+
+    def _heartbeat_loop(self) -> None:
+        """Keep one bidi heartbeat stream to the master; redial on a
+        break (reference volume_grpc_client_to_master.go:50-95)."""
+        candidates = [m.strip() for m in self.master_url.split(",")
+                      if m.strip()]
+        rotate = 0
+        while not self._stopping:
+            target = candidates[rotate % len(candidates)]
+            try:
+                self._hb_call = master_stub(target).SendHeartbeat(
+                    self._heartbeat_gen())
+                connected = False
+                for resp in self._hb_call:
+                    if not connected:
+                        connected = True
+                        self.current_master = target
+                        log.info("heartbeat stream to master %s "
+                                 "established", target)
+                    if resp.volume_size_limit:
+                        self.volume_size_limit = resp.volume_size_limit
+                    if self._stopping:
+                        return
+            except rpc.RpcError as e:
+                if self._stopping:
+                    return
+                log.warning("heartbeat stream to master %s broken (%s); "
+                            "reconnecting", target, e.code().name)
+            rotate += 1
+            self._hb_wake.wait(timeout=min(self.pulse_seconds, 1.0))
+            self._hb_wake.clear()
+
+    def trigger_heartbeat(self) -> None:
+        """Push a heartbeat now instead of waiting out the pulse."""
+        self._hb_wake.set()
+
+    # -- rpc: volume lifecycle -----------------------------------------------
+
+    def AllocateVolume(self, request, context):
+        self.store.add_volume(request.volume_id, request.collection,
+                              replica_placement=request.replication or "000",
+                              ttl=request.ttl)
+        self.trigger_heartbeat()
+        return volume_server_pb2.AllocateVolumeResponse()
+
+    def VolumeDelete(self, request, context):
+        self.store.delete_volume(request.volume_id)
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeDeleteResponse()
+
+    def VolumeMarkReadonly(self, request, context):
+        if not self.store.mark_volume_readonly(request.volume_id):
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"volume {request.volume_id} not found")
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeMarkReadonlyResponse()
+
+    def VolumeMarkWritable(self, request, context):
+        if not self.store.mark_volume_writable(request.volume_id):
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"volume {request.volume_id} not found")
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeMarkWritableResponse()
+
+    def VolumeMount(self, request, context):
+        vid = request.volume_id
+        if self.store.find_volume(vid) is None:
+            found = False
+            for loc in self.store.locations:
+                for name in os.listdir(loc.directory):
+                    if not name.endswith(".dat"):
+                        continue
+                    stem = name[:-len(".dat")]
+                    col, _, tail = stem.rpartition("_")
+                    if tail == str(vid) or (not col and stem == str(vid)):
+                        loc.add_volume(vid, col)
+                        found = True
+                        break
+                if found:
+                    break
+            if not found:
+                context.abort(rpc.StatusCode.NOT_FOUND,
+                              f"no .dat for volume {vid} on any disk")
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeMountResponse()
+
+    def VolumeUnmount(self, request, context):
+        for loc in self.store.locations:
+            loc.unload_volume(request.volume_id)
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeUnmountResponse()
+
+    def ReadVolumeFileStatus(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"volume {request.volume_id} not found")
+        base = v.file_name()
+        return volume_server_pb2.ReadVolumeFileStatusResponse(
+            volume_id=v.id,
+            idx_file_size=os.path.getsize(base + ".idx"),
+            dat_file_size=os.path.getsize(base + ".dat"),
+            idx_file_timestamp_seconds=int(os.path.getmtime(base + ".idx")),
+            dat_file_timestamp_seconds=int(os.path.getmtime(base + ".dat")),
+            file_count=v.file_count,
+            compaction_revision=v.super_block.compaction_revision,
+            collection=v.collection)
+
+    # -- rpc: file copy ------------------------------------------------------
+
+    def CopyFile(self, request, context):
+        path = self._file_path_for_copy(request)
+        if path is None or not os.path.exists(path):
+            if request.ignore_source_file_not_found:
+                return
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"no file for vid={request.volume_id} "
+                          f"ext={request.ext}")
+        stop = request.stop_offset or os.path.getsize(path)
+        with open(path, "rb") as f:
+            sent = 0
+            while sent < stop:
+                chunk = f.read(min(COPY_CHUNK, stop - sent))
+                if not chunk:
+                    break
+                sent += len(chunk)
+                yield volume_server_pb2.CopyFileResponse(file_content=chunk)
+
+    def _file_path_for_copy(self, request) -> Optional[str]:
+        vid, ext = request.volume_id, request.ext
+        if request.is_ec_volume:
+            base = store_ec._find_ec_base(self.store, vid,
+                                          request.collection or None)
+            return base + ext if base else None
+        v = self.store.find_volume(vid)
+        return v.file_name() + ext if v else None
+
+    def _pull_file(self, src_stub, vid: int, ext: str, dest_path: str,
+                   collection: str = "", is_ec: bool = False,
+                   ignore_missing: bool = False) -> None:
+        tmp = dest_path + ".copying"
+        with open(tmp, "wb") as f:
+            for resp in src_stub.CopyFile(volume_server_pb2.CopyFileRequest(
+                    volume_id=vid, ext=ext, collection=collection,
+                    is_ec_volume=is_ec,
+                    ignore_source_file_not_found=ignore_missing)):
+                f.write(resp.file_content)
+        os.replace(tmp, dest_path)
+
+    # -- rpc: erasure coding -------------------------------------------------
+
+    def _ec_backend(self, context, requested: str = "") -> str:
+        """The backend an EC request runs on; refuses a name the port
+        does not run and a card that is not there, before any work."""
+        try:
+            name = check_encoder(requested or self.ec_encoder)
+        except ValueError as e:
+            context.abort(rpc.StatusCode.INVALID_ARGUMENT, str(e))
+        if name == "cuda" and not torch.cuda.is_available():
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION,
+                          "EC encoder 'cuda' needs a CUDA device and none "
+                          "is available on this server")
+        return name
+
+    def _codec_call(self, context, fn, *args, **kwargs):
+        """Run one codec step; a kernel that does not build or launch is
+        an INTERNAL status, never a retry on another path."""
+        try:
+            return fn(*args, **kwargs)
+        except (BuildError, KernelLaunchError) as e:
+            context.abort(rpc.StatusCode.INTERNAL, f"EC kernel: {e}")
+
+    def VolumeEcShardsGenerate(self, request, context):
+        backend = self._ec_backend(context, request.encoder)
+        vids = list(request.volume_ids) or [request.volume_id]
+        try:
+            if len(vids) == 1:
+                self._codec_call(context, store_ec.generate_ec_shards,
+                                 self.store, vids[0], backend=backend)
+            else:
+                # cross-volume fused encode: one scheduler packs all the
+                # volumes' chunks into shared dispatches (the mesh
+                # scheduler under -ec.mesh, the fleet otherwise)
+                self._codec_call(context, store_ec.generate_ec_shards_batch,
+                                 self.store, vids, backend=backend,
+                                 mesh_cfg=self.ec_mesh_cfg)
+        except NeedleError as e:
+            context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeEcShardsGenerateResponse()
+
+    def VolumeEcShardsRebuild(self, request, context):
+        backend = self._ec_backend(context, request.encoder)
+        try:
+            rebuilt = self._codec_call(
+                context, store_ec.rebuild_ec_shards, self.store,
+                request.volume_id, collection=request.collection or None,
+                backend=backend)
+        except EcShardNotFound as e:
+            context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeEcShardsRebuildResponse(
+            rebuilt_shard_ids=rebuilt)
+
+    def VolumeEcShardsCopy(self, request, context):
+        vid = request.volume_id
+        src = volume_stub(request.source_data_node)
+        loc = next((l for l in self.store.locations if l.has_free_slot()),
+                   self.store.locations[0])
+        base = store_ec._base_name(loc.directory, request.collection, vid)
+        for sid in request.shard_ids:
+            self._pull_file(src, vid, f".ec{sid:02d}",
+                            shard_file_name(base, sid),
+                            collection=request.collection, is_ec=True)
+        if request.copy_ecx_file:
+            self._pull_file(src, vid, ".ecx", base + ".ecx",
+                            collection=request.collection, is_ec=True)
+        if request.copy_ecj_file:
+            self._pull_file(src, vid, ".ecj", base + ".ecj",
+                            collection=request.collection, is_ec=True,
+                            ignore_missing=True)
+        return volume_server_pb2.VolumeEcShardsCopyResponse()
+
+    def VolumeEcShardsDelete(self, request, context):
+        store_ec.delete_ec_shards(self.store, request.volume_id,
+                                  collection=request.collection or None,
+                                  shard_ids=list(request.shard_ids))
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeEcShardsDeleteResponse()
+
+    def VolumeEcShardsMount(self, request, context):
+        try:
+            store_ec.mount_ec_shards(self.store, request.volume_id,
+                                     request.collection,
+                                     list(request.shard_ids))
+        except EcShardNotFound as e:
+            context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeEcShardsMountResponse()
+
+    def VolumeEcShardsUnmount(self, request, context):
+        store_ec.unmount_ec_shards(self.store, request.volume_id,
+                                   list(request.shard_ids))
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeEcShardsUnmountResponse()
+
+    def VolumeEcShardRead(self, request, context):
+        try:
+            data = store_ec.read_ec_shard(
+                self.store, request.volume_id, request.shard_id,
+                request.offset, request.size)
+        except EcShardNotFound as e:
+            context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        for i in range(0, len(data), COPY_CHUNK):
+            yield volume_server_pb2.VolumeEcShardReadResponse(
+                data=data[i:i + COPY_CHUNK])
+
+    def VolumeEcBlobDelete(self, request, context):
+        try:
+            store_ec.delete_ec_needle(self.store, request.volume_id,
+                                      Needle(id=request.file_key))
+        except EcShardNotFound as e:
+            context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeEcBlobDeleteResponse()
+
+    def VolumeEcShardsToVolume(self, request, context):
+        backend = self._ec_backend(context)
+        try:
+            self._codec_call(context, store_ec.ec_shards_to_volume,
+                             self.store, request.volume_id,
+                             request.collection, backend=backend)
+        except EcShardNotFound as e:
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION, str(e))
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeEcShardsToVolumeResponse()
+
+    # -- rpc: scrub control plane --------------------------------------------
+
+    def VolumeScrubStart(self, request, context):
+        started = self.scrub.start(
+            volume_ids=list(request.volume_ids) or None,
+            throttle_mbps=request.throttle_mbps or None,
+            full=request.full)
+        return volume_server_pb2.VolumeScrubStartResponse(started=started)
+
+    def VolumeScrubPause(self, request, context):
+        return volume_server_pb2.VolumeScrubPauseResponse(
+            paused=self.scrub.pause())
+
+    def VolumeScrubStatus(self, request, context):
+        return volume_server_pb2.VolumeScrubStatusResponse(
+            **self.scrub.status())
+
+    # -- rpc: status ---------------------------------------------------------
+
+    def VolumeServerStatus(self, request, context):
+        disks = []
+        for loc in self.store.locations:
+            st = os.statvfs(loc.directory)
+            disks.append(volume_server_pb2.DiskStatus(
+                dir=loc.directory, all=st.f_blocks * st.f_frsize,
+                free=st.f_bavail * st.f_frsize,
+                used=(st.f_blocks - st.f_bfree) * st.f_frsize))
+        return volume_server_pb2.VolumeServerStatusResponse(
+            disk_statuses=disks)
+
+    def VolumeStatus(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"volume {request.volume_id} not found")
+        return volume_server_pb2.VolumeStatusResponse(
+            is_read_only=v.read_only)
+
+    # -- needle data ops (shared by the HTTP handlers) -----------------------
+
+    def read_needle(self, vid: int, n: Needle) -> Needle:
+        if self.store.has_volume(vid):
+            got = self.store.read_needle(vid, n)
+        elif self.store.find_ec_volume(vid) is not None:
+            got = store_ec.read_ec_needle(
+                self.store, vid, n,
+                remote_reader=self._make_remote_reader(vid),
+                decoder=self.degraded)
+        else:
+            raise NeedleError(f"volume {vid} not found")
+        if _failpoint._armed:
+            got.data = _failpoint.mangle(
+                "volume.read", got.data, vid=str(vid), server=self.url)
+        return got
+
+    def write_needle(self, vid: int, n: Needle, fsync: bool = False) -> int:
+        v = self.store.find_volume(vid)
+        if v is not None and v.read_only:
+            raise NeedleError(f"volume {vid} is read only")
+        if v is not None and v.replica_placement.copy_count > 1:
+            # one copy is all this server can acknowledge
+            raise NeedleError(
+                f"volume {vid} asks for replication "
+                f"{v.replica_placement}; this port writes one copy only")
+        _, size = self.store.write_needle(vid, n, fsync=fsync)
+        return size
+
+    def delete_needle(self, vid: int, n: Needle) -> int:
+        if self.store.has_volume(vid):
+            return self.store.delete_needle(vid, n)
+        if self.store.find_ec_volume(vid) is not None:
+            store_ec.delete_ec_needle(self.store, vid, n)
+            return 0
+        raise NeedleError(f"volume {vid} not found")
+
+    def _make_remote_reader(self, vid: int):
+        def fetch_shard(url: str, shard_id: int, offset: int,
+                        length: int) -> bytes:
+            # deadline: a hung peer must fail this row, not pin the
+            # caller (the decode fleet's workers ride this reader)
+            chunks = [r.data for r in volume_stub(url).VolumeEcShardRead(
+                volume_server_pb2.VolumeEcShardReadRequest(
+                    volume_id=vid, shard_id=shard_id, offset=offset,
+                    size=length), timeout=REMOTE_READ_TIMEOUT_S)]
+            data = b"".join(chunks)
+            if len(data) != length:
+                raise EcShardNotFound(
+                    f"vid {vid} shard {shard_id}: short remote read")
+            return data
+
+        def remote_reader(shard_id: int, offset: int, length: int):
+            urls = [u for u in self._ec_shard_locations(vid)
+                    .get(shard_id, []) if u != self.url]
+            for url in urls:
+                try:
+                    return fetch_shard(url, shard_id, offset, length)
+                except (rpc.RpcError, EcShardNotFound):
+                    continue
+            if urls:
+                # every known holder failed: forget this shard's
+                # locations so reads stop redialing a dead node
+                # (reference forgetShardId, store_ec.go:214-219)
+                self._forget_ec_shard(vid, shard_id)
+            return None
+        return remote_reader
+
+    def _ec_shard_locations(self, vid: int) -> Dict[int, List[str]]:
+        now = time.monotonic()
+        cached = self._ec_locations.get(vid)
+        if cached is not None:
+            ts, locs = cached
+            if len(locs) >= TOTAL_SHARDS:
+                window = EC_REFRESH_FULL_S
+            elif len(locs) >= DATA_SHARDS:
+                window = EC_REFRESH_PARTIAL_S
+            else:
+                window = EC_REFRESH_SPARSE_S
+            if now - ts < window:
+                return locs
+        locs = dict(cached[1]) if cached is not None else {}
+        try:
+            resp = master_stub(self.current_master).LookupEcVolume(
+                master_pb2.LookupEcVolumeRequest(volume_id=vid))
+            # merge per shard (store_ec.go:249-257): shards absent from
+            # the answer keep their last-known urls
+            for sl in resp.shard_id_locations:
+                locs[sl.shard_id] = [l.url for l in sl.locations]
+        except rpc.RpcError:
+            # master unreachable: serve the stale view, and don't poison
+            # the cache with an empty map
+            return cached[1] if cached is not None else {}
+        self._ec_locations[vid] = (now, locs)
+        return locs
+
+    def _forget_ec_shard(self, vid: int, shard_id: int) -> None:
+        cached = self._ec_locations.get(vid)
+        if cached is not None:
+            cached[1].pop(shard_id, None)
+
+
+# -- HTTP layer ----------------------------------------------------------------
+
+
+def parse_byte_range(rng: str, total: int) -> Tuple[int, int]:
+    """Parse a single "bytes=a-b" / "bytes=a-" / "bytes=-n" header against
+    a payload of `total` bytes. Returns (start, end) inclusive; raises
+    ValueError on anything unsatisfiable (HTTP 416)."""
+    start_s, _, end_s = rng[len("bytes="):].partition("-")
+    if not start_s:  # suffix range: last N bytes
+        start = max(0, total - int(end_s))
+        end = total - 1
+    else:
+        start = int(start_s)
+        end = int(end_s) if end_s else total - 1
+    end = min(end, total - 1)
+    if start > end or start < 0:
+        raise ValueError(f"unsatisfiable range {rng!r} for {total}")
+    return start, end
+
+
+def content_disposition(name: str) -> str:
+    """inline; filename=... with CR/LF/quotes stripped, so a name cannot
+    split the response into injected headers."""
+    safe = name.replace("\r", "").replace("\n", "").replace('"', "")
+    return f'inline; filename="{safe}"'
+
+
+def parse_multipart(content_type: str, body: bytes):
+    """(filename, mime, data, encoding) of the first file part, where
+    encoding is the part's Content-Encoding (reference
+    needle_parse_upload.go)."""
+    fallback = None
+    for _name, filename, headers, data in iter_parts(content_type, body):
+        mime = headers.get("content-type", "")
+        encoding = headers.get("content-encoding", "")
+        if filename:
+            return filename, mime, data, encoding
+        if fallback is None:
+            fallback = ("", mime, data, encoding)
+    if fallback is None:
+        raise ValueError("empty multipart body")
+    return fallback
+
+
+def _make_http_handler(vs: VolumeServer):
+    class Handler(FastHandler):
+        protocol_version = "HTTP/1.1"
+        disable_nagle_algorithm = True
+
+        def log_message(self, fmt, *args):
+            pass
+
+        def _json(self, payload: dict, code: int = 200) -> None:
+            self.fast_reply(code, json.dumps(payload).encode(),
+                            ctype="application/json")
+
+        def _parse_path(self):
+            """/<vid>,<key_hex><cookie_hex> and the query parameters."""
+            path, sep, query = self.path.partition("?")
+            return parse_fid(path.lstrip("/")), \
+                (parse_qs(query) if sep else {})
+
+        # -- read ------------------------------------------------------------
+
+        def do_GET(self):
+            upath = self.path.partition("?")[0]
+            if upath == "/status":
+                self._json({
+                    "Version": "seaweedfs-tpu-torch",
+                    "Volumes": [Store.volume_info(v)
+                                for loc in vs.store.locations
+                                for v in list(loc.volumes.values())],
+                    "Scrub": vs.scrub.status(),
+                })
+                return
+            try:
+                f, _params = self._parse_path()
+            except ValueError as e:
+                self._json({"error": str(e)}, code=404)
+                return
+            if not vs.store.has_volume(f.volume_id) and \
+                    vs.store.find_ec_volume(f.volume_id) is None:
+                self._redirect(f)
+                return
+            try:
+                got = vs.read_needle(f.volume_id,
+                                     Needle(id=f.key, cookie=f.cookie))
+                _deadline.check(f"volume {f.volume_id} read")
+            except CookieMismatch:
+                self.fast_reply(404)
+                return
+            except _deadline.DeadlineExceeded as e:
+                self._json({"error": str(e)}, code=504)
+                return
+            except (_failpoint.FailpointError, DataCorruptionError) as e:
+                self._json({"error": str(e)}, code=500)
+                return
+            except (NeedleError, EcShardNotFound) as e:
+                self._json({"error": str(e)}, code=404)
+                return
+            except Exception as e:  # noqa: BLE001 - a failed read is a 500
+                log.exception("read %s failed", self.path)
+                self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
+                return
+            self._send_needle(got)
+
+        do_HEAD = do_GET
+
+        def _redirect(self, f) -> None:
+            try:
+                resp = master_stub(vs.current_master).LookupVolume(
+                    master_pb2.LookupVolumeRequest(
+                        volume_ids=[str(f.volume_id)]))
+            except rpc.RpcError:
+                self._json({"error": "master unreachable"}, code=500)
+                return
+            for vl in resp.volume_id_locations:
+                for loc in vl.locations:
+                    if loc.url != vs.url:
+                        self.fast_reply(302, headers={
+                            "Location":
+                                f"http://{loc.public_url or loc.url}/{f}"})
+                        return
+            self._json({"error": f"volume {f.volume_id} not found"},
+                       code=404)
+
+        def _send_needle(self, got: Needle) -> None:
+            etag = f'"{got.etag}"'
+            if self.headers.get("if-none-match") == etag:
+                self.fast_reply(304)
+                return
+            data = got.data
+            headers = {"ETag": etag, "Accept-Ranges": "bytes"}
+            if got.name:
+                headers["Content-Disposition"] = content_disposition(
+                    got.name.decode("utf-8", "replace"))
+            mime = got.mime.decode("utf-8", "replace") if got.mime else ""
+            if mime:
+                headers["Content-Type"] = mime
+            if got.is_compressed:
+                if "gzip" in (self.headers.get("accept-encoding") or ""):
+                    headers["Content-Encoding"] = "gzip"
+                else:
+                    data = gzip.decompress(data)
+            rng = self.headers.get("range")
+            if rng and rng.startswith("bytes=") and not got.is_compressed:
+                try:
+                    start, end = parse_byte_range(rng, len(data))
+                except ValueError:
+                    self.fast_reply(416, headers={
+                        "Content-Range": f"bytes */{len(data)}"})
+                    return
+                headers["Content-Range"] = f"bytes {start}-{end}/{len(data)}"
+                self.fast_reply(206, data[start:end + 1], headers)
+                return
+            self.fast_reply(200, data, headers)
+
+        # -- write -----------------------------------------------------------
+
+        def do_POST(self):
+            try:
+                f, params = self._parse_path()
+            except ValueError as e:
+                self._json({"error": str(e)}, code=400)
+                return
+            body = self.read_body()
+            ctype = self.headers.get("content-type") or ""
+            encoding = self.headers.get("content-encoding") or ""
+            filename, mime, data = "", ctype, body
+            if ctype.startswith("multipart/form-data"):
+                try:
+                    filename, mime, data, part_enc = \
+                        parse_multipart(ctype, body)
+                except ValueError as e:
+                    self._json({"error": str(e)}, code=400)
+                    return
+                encoding = part_enc or encoding
+            ttl_s = params.get("ttl", [""])[0]
+            n = Needle(id=f.key, cookie=f.cookie, data=data,
+                       flags=FLAG_IS_COMPRESSED
+                       if encoding.lower() == "gzip" else 0,
+                       name=filename.encode() if filename else b"",
+                       mime=mime.encode() if mime and
+                       mime != "application/octet-stream" else b"",
+                       ttl=TTL.parse(ttl_s) if ttl_s else None)
+            try:
+                size = vs.write_needle(f.volume_id, n,
+                                       fsync="fsync" in params)
+            except (NeedleError, VolumeError) as e:
+                self._json({"error": str(e)}, code=500)
+                return
+            self._json({"name": filename, "size": size, "eTag": n.etag},
+                       code=201)
+
+        do_PUT = do_POST
+
+        # -- delete ----------------------------------------------------------
+
+        def do_DELETE(self):
+            try:
+                f, _params = self._parse_path()
+            except ValueError as e:
+                self._json({"error": str(e)}, code=400)
+                return
+            n = Needle(id=f.key, cookie=f.cookie)
+            try:
+                got = vs.read_needle(f.volume_id, n)
+                if got.cookie != f.cookie:
+                    self._json({"error": "cookie mismatch"}, code=403)
+                    return
+                size = vs.delete_needle(f.volume_id, n)
+            except CookieMismatch:
+                self._json({"error": "cookie mismatch"}, code=403)
+                return
+            except (NeedleError, EcShardNotFound, VolumeError) as e:
+                self._json({"error": str(e)}, code=404)
+                return
+            self._json({"size": size}, code=202)
+
+    return Handler

@@ -1,0 +1,455 @@
+"""EC lifecycle commands: ec.encode / ec.rebuild / ec.balance / ec.decode.
+
+Reference: weed/shell/command_ec_encode.go:55-298,
+command_ec_rebuild.go:97-244, command_ec_balance.go, command_ec_decode.go.
+The crash-safety ordering is the reference's: generate -> copy -> mount
+-> unmount/delete source -> delete original volume, so the source
+volume survives until all 14 shards are spread.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Dict, List
+
+from seaweedfs_tpu_torch.ec.shard_bits import ShardBits, DATA_SHARDS, TOTAL_SHARDS
+from seaweedfs_tpu_torch.pb import volume_server_pb2
+from seaweedfs_tpu_torch.shell import command, ec_common
+from seaweedfs_tpu_torch.shell.command_env import CommandEnv, EcNode
+from seaweedfs_tpu_torch.stats import trace
+
+
+@command("ec.encode", "erasure-code volumes (one, a list, or all full "
+                      "ones) as RS(10,4) shards spread over the cluster")
+def ec_encode(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.encode")
+    p.add_argument("-volumeId", type=parse_vid_list, default=[],
+                   help="volume id, or a comma-separated list "
+                        "(-volumeId=3,4,5) encoded in one invocation")
+    p.add_argument("-collection", default="")
+    p.add_argument("-fullPercent", type=float, default=95.0)
+    p.add_argument("-quietFor", default="0", type=parse_duration,
+                   help="only encode volumes idle this long (e.g. 1h)")
+    p.add_argument("-encoder", default="",
+                   help="cuda|cpu (the codec of the encode; empty = the "
+                        "volume server's -ec.encoder)")
+    args = p.parse_args(argv)
+    encoder = args.encoder
+
+    vids = args.volumeId or \
+        _collect_full_volumes(env, args.collection, args.fullPercent,
+                              args.quietFor)
+    if not vids:
+        out.write("no volumes to encode\n")
+        return
+    env.acquire_lock()
+    try:
+        # one topology snapshot for collection lookups, not one per vid
+        collections = {v: replicas[0].info.collection
+                       for v, replicas in
+                       env.collect_volume_replicas().items()}
+        # Resolve replicas up front and group volumes by (generator
+        # node, collection) — the generator is the first replica
+        # holder: each group goes out as ONE VolumeEcShardsGenerate
+        # RPC, so the server fuses the whole group's chunks into
+        # shared RS dispatches (store_ec.generate_ec_shards_batch ->
+        # ec/fleet.py) instead of encoding the volumes serially.
+        resolved: Dict[int, List[str]] = {}  # vid -> replicas
+        groups: Dict[tuple, List[int]] = {}
+        for vid in vids:
+            collection = args.collection or collections.get(vid, "")
+            replicas = env.lookup(vid, collection)
+            if not replicas:
+                out.write(f"volume {vid}: no locations\n")
+                continue
+            resolved[vid] = replicas
+            groups.setdefault((replicas[0], collection), []).append(vid)
+        failures: List[str] = []
+        for source, collection in sorted(groups):
+            group = groups[(source, collection)]
+            # 1.+2. freeze writes on every replica of every volume,
+            # then one fused generate for the whole group; if either
+            # step fails, unfreeze everything frozen so far (best
+            # effort — a volume never frozen tolerates MarkWritable)
+            # so the group keeps taking writes and later groups still
+            # get their chance
+            try:
+                for vid in group:
+                    for url in resolved[vid]:
+                        env.volume_server(url).VolumeMarkReadonly(
+                            volume_server_pb2.VolumeMarkReadonlyRequest(
+                                volume_id=vid))
+                # the client-side view of the fused generate: with
+                # tracing on, this span brackets the whole server-side
+                # fleet encode from the shell's vantage point
+                with trace.span("shell.ec_encode.generate",
+                                source=source, volumes=len(group)):
+                    env.volume_server(source).VolumeEcShardsGenerate(
+                        volume_server_pb2.VolumeEcShardsGenerateRequest(
+                            volume_id=group[0], volume_ids=group,
+                            collection=collection, encoder=encoder))
+            except Exception as e:
+                failures.append(f"volumes {group}: generate failed: {e}")
+                out.write(failures[-1] + "\n")
+                for vid in group:
+                    for url in resolved[vid]:
+                        try:
+                            env.volume_server(url).VolumeMarkWritable(
+                                volume_server_pb2.VolumeMarkWritableRequest(
+                                    volume_id=vid))
+                        # lint: swallow-ok(node down: nothing left to unfreeze)
+                        except Exception:
+                            pass
+                continue
+            for vid in group:
+                out.write(f"volume {vid}: generated 14 shards "
+                          f"on {source}\n")
+            # 3./4. spread + retire the originals per volume; one
+            # volume's failure must not strand the rest of its group
+            # frozen with unspread shards
+            for vid in group:
+                try:
+                    with trace.span("shell.ec_encode.spread", vid=vid):
+                        _spread_and_retire(env, vid, collection, source,
+                                           resolved[vid], out)
+                except Exception as e:
+                    failures.append(f"volume {vid}: {e}")
+                    out.write(f"volume {vid}: ec.encode failed: {e}\n")
+        if failures:
+            raise RuntimeError("ec.encode failed: " +
+                               "; ".join(failures))
+    finally:
+        env.release_lock()
+
+
+def parse_vid_list(text: str) -> List[int]:
+    """'-volumeId=7' or '-volumeId=3,4,5' -> volume ids; 0/'' means
+    "unset" (fall back to collecting full volumes), matching the old
+    single-id flag."""
+    vids = [int(t) for t in (text or "").split(",") if t.strip()]
+    return [] if vids == [0] else vids
+
+
+def parse_duration(text: str) -> float:
+    """Go-style duration -> seconds: '90', '90s', '15m', '1h', '1h30m',
+    '100ms'. Raises ValueError on anything unrecognized — silently
+    treating garbage as 0 would disable quietFor write-protection."""
+    import re
+    text = (text or "0").strip().lower()
+    if re.fullmatch(r"\d+(\.\d+)?", text):
+        return float(text)
+    total = 0.0
+    pos = 0
+    for m in re.finditer(r"(\d+(?:\.\d+)?)(ms|h|m|s)", text):
+        if m.start() != pos:
+            raise ValueError(f"bad duration {text!r}")
+        total += float(m.group(1)) * \
+            {"ms": 0.001, "s": 1.0, "m": 60.0, "h": 3600.0}[m.group(2)]
+        pos = m.end()
+    if pos != len(text):
+        raise ValueError(f"bad duration {text!r}")
+    return total
+
+
+def _collect_full_volumes(env: CommandEnv, collection: str,
+                          full_percent: float,
+                          quiet_for_s: float = 0.0) -> List[int]:
+    import time as _time
+    limit = env.volume_size_limit()
+    vids = []
+    for vid, replicas in env.collect_volume_replicas().items():
+        info = replicas[0].info
+        if collection and info.collection != collection:
+            continue
+        if quiet_for_s and info.modified_at_second and \
+                _time.time() - info.modified_at_second < quiet_for_s:
+            # still being written: leave it alone (reference
+            # collectVolumeIdsForEcEncode quietPeriod check)
+            continue
+        if info.size >= limit * full_percent / 100.0:
+            vids.append(vid)
+    return sorted(vids)
+
+
+def _spread_and_retire(env: CommandEnv, vid: int, collection: str,
+                       source: str, replicas: List[str], out) -> None:
+    """Steps 3-4 of ec.encode for one volume whose 14 shards already
+    sit on `source`: spread by free slots, then drop the original."""
+    nodes = env.collect_ec_nodes()
+    plan = ec_common.balanced_distribution(nodes)
+    _spread_ec_shards(env, vid, collection, source, plan, out)
+    for url in replicas:
+        env.volume_server(url).VolumeDelete(
+            volume_server_pb2.VolumeDeleteRequest(volume_id=vid))
+    out.write(f"volume {vid}: ec.encode done "
+              f"({sum(len(s) for s in plan.values())} shards on "
+              f"{len(plan)} nodes)\n")
+
+
+def _spread_ec_shards(env: CommandEnv, vid: int, collection: str,
+                      source: str, plan: Dict[str, List[int]], out) -> None:
+    """copy -> mount on each target, then unmount+delete the moved
+    shards from the source (reference command_ec_encode.go:160-246)."""
+    moved_away = []
+    for target, sids in plan.items():
+        if target != source:
+            # the copy stage on its own span: the shard bytes cross the
+            # RPC transport here
+            with trace.span("shell.ec_encode.copy", vid=vid,
+                            shards=len(sids)):
+                env.volume_server(target).VolumeEcShardsCopy(
+                    volume_server_pb2.VolumeEcShardsCopyRequest(
+                        volume_id=vid, collection=collection,
+                        shard_ids=sids, copy_ecx_file=True,
+                        copy_ecj_file=True, source_data_node=source))
+            moved_away.extend(sids)
+        env.volume_server(target).VolumeEcShardsMount(
+            volume_server_pb2.VolumeEcShardsMountRequest(
+                volume_id=vid, collection=collection, shard_ids=sids))
+        out.write(f"volume {vid}: shards {sids} -> {target}\n")
+    if moved_away:
+        env.volume_server(source).VolumeEcShardsUnmount(
+            volume_server_pb2.VolumeEcShardsUnmountRequest(
+                volume_id=vid, shard_ids=moved_away))
+        env.volume_server(source).VolumeEcShardsDelete(
+            volume_server_pb2.VolumeEcShardsDeleteRequest(
+                volume_id=vid, collection=collection,
+                shard_ids=moved_away))
+
+
+@command("ec.rebuild", "regenerate missing EC shards on the roomiest node")
+def ec_rebuild(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.rebuild")
+    p.add_argument("-collection", default="")
+    p.add_argument("-encoder", default="",
+                   help="cuda|cpu (empty = the server's -ec.encoder)")
+    args = p.parse_args(argv)
+    encoder = args.encoder
+    env.acquire_lock()
+    try:
+        nodes = env.collect_ec_nodes()
+        collections = _ec_collections(env)  # one topology RPC for all vids
+        vids = sorted({vid for n in nodes for vid in n.shards})
+        for vid in vids:
+            missing = ec_common.missing_shards(nodes, vid)
+            if not missing:
+                continue
+            if TOTAL_SHARDS - len(missing) < DATA_SHARDS:
+                out.write(f"volume {vid}: only "
+                          f"{TOTAL_SHARDS - len(missing)} shards left, "
+                          f"cannot rebuild\n")
+                continue
+            _rebuild_one(env, nodes, vid, missing, encoder,
+                         collections.get(vid, ""), out)
+    finally:
+        env.release_lock()
+
+
+def _rebuild_one(env: CommandEnv, nodes: List[EcNode], vid: int,
+                 missing: List[int], encoder: str, collection: str,
+                 out) -> None:
+    rebuilder = ec_common.pick_rebuilder(nodes)
+    local = rebuilder.shards.get(vid, ShardBits(0))
+    # pull enough foreign shards (files only, no mount) to reach >=10
+    pulled = []
+    for n in nodes:
+        if n.url == rebuilder.url:
+            continue
+        for sid in n.shards.get(vid, ShardBits(0)).shard_ids:
+            if local.has(sid) or sid in pulled:
+                continue
+            if local.count + len(pulled) >= DATA_SHARDS:
+                break
+            env.volume_server(rebuilder.url).VolumeEcShardsCopy(
+                volume_server_pb2.VolumeEcShardsCopyRequest(
+                    volume_id=vid, collection=collection, shard_ids=[sid],
+                    copy_ecx_file=not local.count and not pulled,
+                    copy_ecj_file=not local.count and not pulled,
+                    source_data_node=n.url))
+            pulled.append(sid)
+    resp = env.volume_server(rebuilder.url).VolumeEcShardsRebuild(
+        volume_server_pb2.VolumeEcShardsRebuildRequest(
+            volume_id=vid, collection=collection, encoder=encoder))
+    env.volume_server(rebuilder.url).VolumeEcShardsMount(
+        volume_server_pb2.VolumeEcShardsMountRequest(
+            volume_id=vid, collection=collection, shard_ids=missing))
+    # drop the scaffolding: pulled copies, plus shards the local rebuild
+    # regenerated that other nodes still hold (would be duplicates)
+    to_delete = sorted(set(pulled) |
+                       (set(resp.rebuilt_shard_ids) - set(missing)))
+    if to_delete:
+        env.volume_server(rebuilder.url).VolumeEcShardsDelete(
+            volume_server_pb2.VolumeEcShardsDeleteRequest(
+                volume_id=vid, collection=collection, shard_ids=to_delete))
+    out.write(f"volume {vid}: rebuilt shards {missing} on "
+              f"{rebuilder.url}\n")
+
+
+def _ec_collections(env: CommandEnv) -> Dict[int, str]:
+    """vid -> collection for every EC volume, from one topology RPC."""
+    topo = env.topology()
+    out: Dict[int, str] = {}
+    for _, _, dn in env.data_nodes(topo):
+        for e in dn.ec_shard_infos:
+            out.setdefault(e.id, e.collection)
+    return out
+
+
+def apply_shard_move(env: CommandEnv, mv, collection: str, out) -> None:
+    """Execute one planned ShardMove: copy (with .ecx/.ecj) to the
+    destination, mount there, then unmount+delete at the source — the
+    crash-safe ordering the reference uses everywhere shards travel
+    (command_ec_balance.go/_evacuate: the shard exists in two places
+    until the destination serves it)."""
+    env.volume_server(mv.dst).VolumeEcShardsCopy(
+        volume_server_pb2.VolumeEcShardsCopyRequest(
+            volume_id=mv.vid, collection=collection,
+            shard_ids=list(mv.shard_ids), copy_ecx_file=True,
+            copy_ecj_file=True, source_data_node=mv.src))
+    env.volume_server(mv.dst).VolumeEcShardsMount(
+        volume_server_pb2.VolumeEcShardsMountRequest(
+            volume_id=mv.vid, collection=collection,
+            shard_ids=list(mv.shard_ids)))
+    env.volume_server(mv.src).VolumeEcShardsUnmount(
+        volume_server_pb2.VolumeEcShardsUnmountRequest(
+            volume_id=mv.vid, shard_ids=list(mv.shard_ids)))
+    env.volume_server(mv.src).VolumeEcShardsDelete(
+        volume_server_pb2.VolumeEcShardsDeleteRequest(
+            volume_id=mv.vid, collection=collection,
+            shard_ids=list(mv.shard_ids)))
+    out.write(f"volume {mv.vid}: moved shards "
+              f"{list(mv.shard_ids)} {mv.src} -> {mv.dst}\n")
+
+
+@command("ec.balance", "dedupe and spread EC shards evenly over nodes")
+def ec_balance(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.balance")
+    p.add_argument("-apply", action="store_true", default=False,
+                   help="execute the plan (default: print it only)")
+    args = p.parse_args(argv)
+
+    def balance_plan(nodes):
+        """dedupe is applied separately; this is the reference's
+        rack-then-node ordering (command_ec_balance.go:99+): spread
+        each volume's shards across racks first, then even out node
+        loads inside every rack."""
+        across = ec_common.plan_balance_across_racks(nodes)
+        after = ec_common.apply_moves_to_nodes(nodes, across)
+        within = []
+        for rack in sorted({n.rack for n in after}):
+            within += ec_common.plan_balance(
+                [n for n in after if n.rack == rack])
+        return across + within
+
+    if not args.apply:
+        nodes = env.collect_ec_nodes()
+        for vid, sid, url in ec_common.plan_dedupe(nodes):
+            out.write(f"would drop duplicate shard {sid} of volume "
+                      f"{vid} from {url}\n")
+        for mv in balance_plan(nodes):
+            out.write(f"would move shards {list(mv.shard_ids)} of "
+                      f"volume {mv.vid} {mv.src} -> {mv.dst}\n")
+        out.write("dry run; add -apply to execute\n")
+        return
+    env.acquire_lock()
+    try:
+        collections = _ec_collections(env)
+        nodes = env.collect_ec_nodes()
+        for vid, sid, url in ec_common.plan_dedupe(nodes):
+            env.volume_server(url).VolumeEcShardsUnmount(
+                volume_server_pb2.VolumeEcShardsUnmountRequest(
+                    volume_id=vid, shard_ids=[sid]))
+            env.volume_server(url).VolumeEcShardsDelete(
+                volume_server_pb2.VolumeEcShardsDeleteRequest(
+                    volume_id=vid,
+                    collection=collections.get(vid, ""),
+                    shard_ids=[sid]))
+            out.write(f"volume {vid}: dropped duplicate shard {sid} "
+                      f"from {url}\n")
+        nodes = env.collect_ec_nodes()
+        for mv in balance_plan(nodes):
+            apply_shard_move(env, mv, collections.get(mv.vid, ""), out)
+    finally:
+        env.release_lock()
+
+
+@command("ec.decode", "decode an EC volume back into a normal volume")
+def ec_decode(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.decode")
+    p.add_argument("-volumeId", type=int, default=0)
+    p.add_argument("-collection", default="")
+    args = p.parse_args(argv)
+    env.acquire_lock()
+    try:
+        nodes = env.collect_ec_nodes()
+        collections = _ec_collections(env)  # one topology RPC for all vids
+        vids = [args.volumeId] if args.volumeId else \
+            sorted({vid for n in nodes for vid in n.shards})
+        failed = []
+        for vid in vids:
+            try:
+                _decode_one(env, nodes, vid, collections.get(vid, ""), out)
+            except Exception as e:  # keep decoding the other volumes
+                failed.append(vid)
+                out.write(f"volume {vid}: decode failed: {e}\n")
+        if failed:
+            raise RuntimeError(f"ec.decode failed for volumes {failed}")
+    finally:
+        env.release_lock()
+
+
+def _decode_one(env: CommandEnv, nodes: List[EcNode], vid: int,
+                collection: str, out) -> None:
+    holders = [n for n in nodes if vid in n.shards]
+    if not holders:
+        out.write(f"volume {vid}: no ec shards\n")
+        return
+    # decodability pre-check BEFORE any destructive unmount: need >=10
+    # distinct shards somewhere in the cluster
+    distinct = set()
+    for n in holders:
+        distinct.update(n.shards[vid].shard_ids)
+    if len(distinct) < DATA_SHARDS:
+        out.write(f"volume {vid}: only {len(distinct)} distinct shards, "
+                  f"cannot decode\n")
+        return
+    target = max(holders, key=lambda n: n.shards[vid].count)
+    local = target.shards[vid]
+    # pull shards until the target can decode: either all 10 data
+    # shards, or >=10 of any kind (the decode regenerates missing data
+    # from parity locally). Data shards first, parity as backfill.
+    data_local = sum(1 for s in range(DATA_SHARDS) if local.has(s))
+    for want_data in (True, False):
+        for n in holders:
+            if n.url == target.url:
+                continue
+            for sid in n.shards[vid].shard_ids:
+                if local.has(sid) or (sid < DATA_SHARDS) != want_data:
+                    continue
+                if data_local >= DATA_SHARDS or \
+                        local.count >= DATA_SHARDS:
+                    break
+                env.volume_server(target.url).VolumeEcShardsCopy(
+                    volume_server_pb2.VolumeEcShardsCopyRequest(
+                        volume_id=vid, collection=collection,
+                        shard_ids=[sid], source_data_node=n.url))
+                local = local.add(sid)
+                if sid < DATA_SHARDS:
+                    data_local += 1
+    # unmount everywhere, then decode on the target
+    for n in holders:
+        env.volume_server(n.url).VolumeEcShardsUnmount(
+            volume_server_pb2.VolumeEcShardsUnmountRequest(
+                volume_id=vid,
+                shard_ids=n.shards[vid].shard_ids))
+    env.volume_server(target.url).VolumeEcShardsToVolume(
+        volume_server_pb2.VolumeEcShardsToVolumeRequest(
+            volume_id=vid, collection=collection))
+    # drop all shard files cluster-wide
+    for n in holders:
+        env.volume_server(n.url).VolumeEcShardsDelete(
+            volume_server_pb2.VolumeEcShardsDeleteRequest(
+                volume_id=vid, collection=collection,
+                shard_ids=list(range(TOTAL_SHARDS))))
+    out.write(f"volume {vid}: decoded back to a normal volume on "
+              f"{target.url}\n")

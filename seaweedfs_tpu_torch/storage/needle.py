@@ -106,6 +106,14 @@ class Needle:
     append_at_ns: int = 0
     size: int = field(default=0)  # body size as stored in the header
 
+    @property
+    def is_compressed(self) -> bool:
+        return bool(self.flags & FLAG_IS_COMPRESSED)
+
+    @property
+    def etag(self) -> str:
+        return f"{self.checksum:08x}"
+
     def _sync_flags(self) -> None:
         if self.name:
             self.flags |= FLAG_HAS_NAME

@@ -47,6 +47,11 @@ class NeedleMap:
         self._lock = threading.Lock()
         self.index_path = index_path
         self._index_file = None
+        # the volume's heartbeat numbers (JAX storage/needle_map.py): the
+        # puts since overwritten or deleted, their bytes, the largest key
+        self.deleted_count = 0
+        self.deleted_size = 0
+        self.max_key = 0
         if index_path is not None:
             self._load(index_path)
             self._index_file = open(index_path, "ab")
@@ -60,10 +65,21 @@ class NeedleMap:
         self._map = dict(zip(live["key"].tolist(),
                              zip(live["offset"].tolist(),
                                  live["size"].tolist())))
+        sizes = arr["size"].astype("int64")
+        puts = sizes >= 0
+        self.max_key = int(arr["key"].max())
+        self.deleted_count = int(puts.sum()) - len(live)
+        self.deleted_size = int(sizes[puts].sum()) - \
+            int(live["size"].astype("int64").sum())
 
     def put(self, key: int, offset: int, size: int) -> None:
         with self._lock:
+            prev = self._map.get(key)
+            if prev is not None and not t.size_is_deleted(prev[1]):
+                self.deleted_count += 1
+                self.deleted_size += prev[1]
             self._map[key] = (offset, size)
+            self.max_key = max(self.max_key, key)
             self._append_entry(key, offset, size)
 
     def get(self, key: int) -> Optional[NeedleValue]:
@@ -78,8 +94,13 @@ class NeedleMap:
             prev = self._map.pop(key, None)
             if prev is None or t.size_is_deleted(prev[1]):
                 return 0
+            self.deleted_count += 1
+            self.deleted_size += prev[1]
             self._append_entry(key, marker_offset, t.TOMBSTONE_SIZE)
             return prev[1]
+
+    def __len__(self) -> int:
+        return len(self._map)
 
     def _append_entry(self, key: int, offset: int, size: int) -> None:
         if self._index_file is not None:

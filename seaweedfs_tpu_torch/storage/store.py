@@ -1,7 +1,7 @@
 """Store: all DiskLocations of one volume server; routes ops by volume id.
 
 Reference: weed/storage/store.go (struct :32-48, read/write/delete
-:302-330).
+:302-330, CollectHeartbeat :203).
 """
 
 from __future__ import annotations
@@ -17,11 +17,15 @@ from seaweedfs_tpu_torch.storage.volume import Volume
 
 class Store:
     def __init__(self, directories: List[str],
-                 max_volume_counts: Optional[List[int]] = None):
+                 max_volume_counts: Optional[List[int]] = None,
+                 ip: str = "", port: int = 0):
         if max_volume_counts is None:
             max_volume_counts = [8] * len(directories)
         self.locations = [DiskLocation(d, c)
                           for d, c in zip(directories, max_volume_counts)]
+        self.ip = ip
+        self.port = port
+        self.public_url = f"{ip}:{port}" if ip else ""
         self._lock = threading.RLock()
         for loc in self.locations:
             loc.load_existing_volumes()
@@ -48,6 +52,9 @@ class Store:
                 return loc
         return None
 
+    def has_volume(self, vid: int) -> bool:
+        return self.find_volume(vid) is not None
+
     def add_volume(self, vid: int, collection: str = "",
                    replica_placement: str = "000", ttl: str = "") -> Volume:
         with self._lock:
@@ -69,6 +76,20 @@ class Store:
         with self._lock:
             return any(loc.delete_volume(vid) for loc in self.locations)
 
+    def mark_volume_readonly(self, vid: int) -> bool:
+        v = self.find_volume(vid)
+        if v is None:
+            return False
+        v.read_only = True
+        return True
+
+    def mark_volume_writable(self, vid: int) -> bool:
+        v = self.find_volume(vid)
+        if v is None:
+            return False
+        v.read_only = False
+        return True
+
     # -- data ops ------------------------------------------------------------
 
     def write_needle(self, vid: int, n: Needle, fsync: bool = False):
@@ -88,6 +109,47 @@ class Store:
         if v is None:
             raise NeedleError(f"volume {vid} not found")
         return v.delete_needle(n)
+
+    # -- heartbeat -----------------------------------------------------------
+
+    @staticmethod
+    def volume_info(v: Volume) -> dict:
+        return {
+            "id": v.id,
+            "collection": v.collection,
+            "size": v.content_size,
+            "file_count": v.file_count,
+            "delete_count": v.deleted_count,
+            "deleted_byte_count": v.deleted_size,
+            "read_only": v.read_only,
+            "replica_placement": v.replica_placement.to_byte(),
+            "ttl": str(v.ttl),
+            "version": v.version,
+            "modified_at_second": v.last_append_at_ns // 1_000_000_000,
+        }
+
+    def collect_heartbeat(self) -> dict:
+        """The full-state heartbeat: every volume and every mounted EC
+        volume's shard bits (reference store.go CollectHeartbeat)."""
+        with self._lock:
+            volumes = [self.volume_info(v) for loc in self.locations
+                       for v in list(loc.volumes.values())]
+            ec_shards = [{"id": vid, "collection": ecv.collection,
+                          "ec_index_bits": ecv.shard_bits}
+                         for loc in self.locations
+                         for vid, ecv in list(loc.ec_volumes.items())]
+            return {
+                "ip": self.ip,
+                "port": self.port,
+                "public_url": self.public_url,
+                "max_volume_count": sum(loc.max_volume_count
+                                        for loc in self.locations),
+                "volumes": volumes,
+                "ec_shards": ec_shards,
+                "max_file_key": max(
+                    (v.nm.max_key for loc in self.locations
+                     for v in list(loc.volumes.values())), default=0),
+            }
 
     def close(self) -> None:
         for loc in self.locations:

@@ -65,6 +65,8 @@ class Volume:
         self.id = vid
         self.version = VERSION3
         self.read_only = False
+        # the newest append, for the heartbeat's modified_at_second
+        self.last_append_at_ns = 0
         self._lock = threading.RLock()
         base = self.file_name()
         self.dat_path = base + ".dat"
@@ -88,6 +90,26 @@ class Volume:
     @property
     def ttl(self) -> TTL:
         return self.super_block.ttl
+
+    @property
+    def replica_placement(self) -> ReplicaPlacement:
+        return self.super_block.replica_placement
+
+    @property
+    def content_size(self) -> int:
+        return self._dat.size()
+
+    @property
+    def file_count(self) -> int:
+        return len(self.nm)
+
+    @property
+    def deleted_count(self) -> int:
+        return self.nm.deleted_count
+
+    @property
+    def deleted_size(self) -> int:
+        return self.nm.deleted_size
 
     # -- loading / integrity -------------------------------------------------
 
@@ -141,6 +163,7 @@ class Volume:
             self._check_cookie(n)
             n.append_at_ns = time.time_ns()
             offset = self._append(n.to_bytes(self.version), fsync)
+            self.last_append_at_ns = n.append_at_ns
             self.nm.put(n.id, offset, n.size)
             self.nm.flush()
             return offset, n.size
@@ -158,6 +181,7 @@ class Volume:
             marker = Needle(id=n.id, cookie=n.cookie, data=b"")
             marker.append_at_ns = time.time_ns()
             offset = self._append(marker.to_bytes(self.version), False)
+            self.last_append_at_ns = marker.append_at_ns
             self.nm.delete(n.id, offset)
             self.nm.flush()
             return nv.size

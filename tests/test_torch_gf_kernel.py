@@ -191,7 +191,8 @@ def test_crc_known_vector():
 
 def test_port_imports_neither_jax_nor_jax_package():
     """Every module of the port, and chip_smoke.py (its imports sit inside
-    functions, which ast.walk reaches too)."""
+    functions, which ast.walk reaches too): no JAX, no JAX package, and no
+    grpcio or protobuf, which the card's machine does not have."""
     root = pathlib.Path(seaweedfs_tpu_torch.__file__).parent
     smoke = root.parent / "chip_smoke.py"
     files = sorted(root.rglob("*.py")) + [smoke]
@@ -207,7 +208,8 @@ def test_port_imports_neither_jax_nor_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "seaweedfs_tpu"), \
+                assert top not in ("jax", "jaxlib", "seaweedfs_tpu", "grpc",
+                                   "google"), \
                     f"{path.relative_to(root.parent)} imports {name}"
 
 
