@@ -80,11 +80,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    must rise where they run, and the mesh must never fall back.
 8. The service path, in this process (so the kernels' launch counts see
    the servers' launches): a port MasterServer (volumes of 1,024 MiB) and
-   four VolumeServers (``ec_encoder`` cuda, the decode fleet on), each
-   with its own directory. (a) 1 GiB of needles of 1 B-256 KiB
-   (uniform, seeded) into collection "smoke" through operations.assign +
-   upload_data over HTTP from 16 threads; the master grows 7 volumes; MB/s
-   and every .dat hashed. (b) ``Shell.run_command("ec.encode
+   four VolumeServers (``ec_encoder`` cuda, the decode fleet on, a
+   1,024 MiB read cache and hedged shard reads; the last one on the kv
+   needle map), each with its own directory. (a) 1 GiB of needles of
+   1 B-256 KiB (uniform, seeded) into collection "smoke" through
+   operations.assign + upload_data over HTTP from 16 threads; the master
+   grows 7 volumes; MB/s, group-commit batches and every .dat hashed. (b) ``Shell.run_command("ec.encode
    -collection=smoke -volumeId=<every vid>")``, one fused generate RPC per
    source server: wall seconds and .dat GB/s, with the fused generates,
    the spread and its shard copies over the RPC transport timed apart;
@@ -92,14 +93,18 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    shards on all four servers. (c) 4,096 sampled needles read over HTTP
    from random servers (16 threads): bytes equal, p50/p99. (d) a server
    holding at most four shards of every volume stopped; once the master
-   drops it, the sample again, p50/p99 of the reads across its shards;
-   decode fleet dispatches > 0. (e) ``ec.rebuild``: 14 shards per volume
-   on the live servers, the sample again. (f) ``ec.decode``: every .dat
-   hashes as in (a), the sample read from the normal volumes. (g) ``python
-   -m seaweedfs_tpu_torch master`` and ``volume`` as subprocesses, 64
-   blobs, ``shell ec.encode -volumeId=N`` as a third, the blobs read back,
-   both servers stopped by SIGTERM (exit 0, no Traceback). gf_linear's
-   launch count must rise in (b), (d), (e) and (f).
+   drops it, 4,096 other needles (the caches hold (c)'s), p50/p99 of the
+   reads across its shards, decode fleet dispatches > 0; then the same
+   reads again, each to the same server: bytes equal, no decode dispatch,
+   no kernel launch, cache hits = reads. (e) ``ec.rebuild``: 14 shards
+   per volume on the live servers, cache entries invalidated, both
+   samples again. (f) ``ec.decode``: every .dat hashes as in (a), the
+   sample read from the normal volumes. (g) ``python -m
+   seaweedfs_tpu_torch master`` and ``volume`` as subprocesses, 64 blobs,
+   ``shell ec.encode -volumeId=N`` as a third, the blobs read back, both
+   servers stopped by SIGTERM (exit 0, no Traceback). (h) ``fix`` of
+   phase 3's volume: the .idx it writes equals the original. gf_linear's
+   launch count must rise in (b), (d)'s first pass, (e) and (f).
 9. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -110,6 +115,7 @@ rounding.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import hashlib
 import json
@@ -340,14 +346,16 @@ def phase_kernel(seed: int) -> dict:
 class Launches:
     """Counts the kernels' launches over one phase: both counts are set to
     0 just before it and read just after. gf_linear must launch in every
-    phase, gf_compare in those run with ``compare=True``."""
+    phase, gf_compare in those run with ``compare=True``; a phase run with
+    ``none=True`` must launch no kernel at all."""
 
     def __init__(self, backend: str):
         self.backend = backend
         self.per_phase = {}          # gf_linear launches
         self.compare_per_phase = {}  # gf_compare launches
 
-    def run(self, phase: str, fn, *args, compare: bool = False, **kwargs):
+    def run(self, phase: str, fn, *args, compare: bool = False,
+            none: bool = False, **kwargs):
         from seaweedfs_tpu_torch.ops import gf_compare, gf_kernel
         gf_kernel.LAUNCHES = gf_compare.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -356,6 +364,11 @@ class Launches:
         n, c = gf_kernel.LAUNCHES, gf_compare.LAUNCHES
         self.per_phase[phase] = n
         self.compare_per_phase[phase] = c
+        if none:
+            if n or c:
+                raise AssertionError(f"{phase}: {n} gf_linear and {c} "
+                                     "gf_compare launches, want none")
+            return out, secs
         if self.backend == "cuda" and n == 0:
             raise AssertionError(f"{phase}: gf_linear was never launched")
         if self.backend == "cuda" and compare and c == 0:
@@ -1408,13 +1421,19 @@ def phase_scrub(workdir: str, ctx: dict, mesh, backend: str, launches,
 # The cluster configuration: four volume servers, volumes of at most
 # 1,024 MiB, 1 GiB of needles of 1-256 KiB (uniform), written from 16
 # client threads into collection "smoke"; the master grows 7 volumes. (At
-# 2 GiB the whole run took past eight minutes.)
+# 2 GiB the whole run took past eight minutes.) Every server runs the read
+# cache and hedged shard reads; the last one the kv needle map. The cache's
+# RAM tier holds every needle a server serves in (c) and both passes of
+# (d): (c) reads 4,096 needles of 128 KiB mean, about 128 MiB on each of 4
+# servers; (d) 4,096 others, about 171 MiB on each of 3, plus at most as
+# much again of reconstructed spans; 1,024 MiB a server leaves room.
 SERVICE_SERVERS = 4
 SERVICE_BYTES = 1 << 30
 SERVICE_NEEDLE_MAX = 256 << 10
 SERVICE_THREADS = 16
 SERVICE_SAMPLE = 4096
 SERVICE_VOLUMES = 7
+SERVICE_CACHE_MB = 1024
 CLI_BLOBS = 64
 
 
@@ -1619,14 +1638,58 @@ def trace_span_cost(n: int = 20000) -> float:
         trace.clear()
 
 
+def cache_totals(servers) -> dict:
+    """The read caches' hits, misses and invalidations, summed."""
+    return {k: sum(getattr(vs.read_cache, k) for vs in servers)
+            for k in ("hits", "misses", "invalidations")}
+
+
+def commit_totals(servers) -> tuple:
+    """(batches, requests, batches by the writer threads) of every
+    volume's group commit."""
+    stats = [v.commit_stats() for vs in servers
+             for loc in vs.store.locations for v in loc.volumes.values()]
+    return tuple(sum(x[i] for x in stats) for i in range(3))
+
+
+def phase_fix(fix_dir: str, card: str) -> dict:
+    """(h) ``fix`` of phase 3's volume (1,048,576 needles written once each,
+    in id order): the .idx it writes from the .dat equals the original."""
+    import contextlib
+    import io
+    from seaweedfs_tpu_torch.command import main as cli
+    idx = os.path.join(fix_dir, "1.idx")
+    with open(idx, "rb") as f:
+        original = f.read()
+    os.remove(idx)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli(["fix", "-dir", fix_dir, "-volumeId", "1"])
+    secs = time.perf_counter() - t0
+    with open(idx, "rb") as f:
+        rebuilt = f.read()
+    if code != 0 or rebuilt != original:
+        raise AssertionError(f"fix exited {code} ({out.getvalue()!r}); "
+                             f".idx {len(rebuilt)} B against the original "
+                             f"{len(original)} B")
+    entries = len(original) // 16
+    log(f"  (h) fix of phase 3's volume: {entries} entries from "
+        f"{os.path.getsize(os.path.join(fix_dir, '1.dat'))} B of .dat in "
+        f"{secs:.3f} s; the .idx equals the original byte for byte "
+        f"[{card}]")
+    return dict(seconds=secs, entries=entries)
+
+
 def phase_service(workdir: str, seed: int, backend: str,
                   total_bytes: int = SERVICE_BYTES,
                   sample_size: int = SERVICE_SAMPLE, cli: bool = True,
-                  card: str = "") -> dict:
+                  card: str = "", fix_dir: str = "") -> dict:
     """The service path: a MasterServer and SERVICE_SERVERS VolumeServers
     in this process, (a) uploads over HTTP, (b) shell ec.encode of every
-    volume, (c) healthy reads, (d) reads with one server stopped, (e)
-    ec.rebuild, (f) ec.decode, and (g) the CLI as subprocesses."""
+    volume, (c) healthy reads, (d) reads with one server stopped, twice,
+    (e) ec.rebuild, (f) ec.decode, (g) the CLI as subprocesses, and, with
+    ``fix_dir``, (h) the ``fix`` tool on phase 3's volume."""
     from seaweedfs_tpu_torch.operation.file_id import parse_fid
     from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.server.volume import VolumeServer
@@ -1645,9 +1708,12 @@ def phase_service(workdir: str, seed: int, backend: str,
         for i in range(SERVICE_SERVERS):
             d = os.path.join(workdir, f"vol{i}")
             os.makedirs(d)
-            vs = VolumeServer(master.url, [d], port=free_port_pair(),
-                              max_volume_counts=[16], pulse_seconds=1.0,
-                              ec_encoder=backend)
+            vs = VolumeServer(
+                master.url, [d], port=free_port_pair(),
+                max_volume_counts=[16], pulse_seconds=1.0,
+                ec_encoder=backend, cache_size_mb=SERVICE_CACHE_MB,
+                hedge_reads=True, needle_map_kind="kv"
+                if i == SERVICE_SERVERS - 1 else "memory")
             vs.start()
             servers.append(vs)
         wait_until(lambda: len(master.topo.nodes()) == SERVICE_SERVERS, 30,
@@ -1656,6 +1722,7 @@ def phase_service(workdir: str, seed: int, backend: str,
         # (a) upload
         blobs, buf, secs = upload_needles(master.url, total_bytes, seed)
         nbytes = sum(s for _, s in blobs.values())
+        batches, batched, by_writer = commit_totals(servers)
         vids = sorted({parse_fid(f).volume_id for f in blobs})
         if len(vids) != SERVICE_VOLUMES:
             raise AssertionError(f"the master grew volumes {vids}, "
@@ -1676,11 +1743,17 @@ def phase_service(workdir: str, seed: int, backend: str,
         dat_bytes = sum(os.path.getsize(p) for p in dats.values())
         out["upload"] = dict(needles=len(blobs), bytes=nbytes,
                              seconds=secs, MBps=nbytes / secs / 1e6,
-                             volumes=len(vids), dat_bytes=dat_bytes)
+                             volumes=len(vids), dat_bytes=dat_bytes,
+                             batches=batches, batched_requests=batched,
+                             writer_batches=by_writer,
+                             mean_batch=batched / batches)
         log(f"  (a) upload: {len(blobs)} needles, {nbytes} B in "
             f"{secs:.3f} s from {SERVICE_THREADS} threads = "
-            f"{nbytes / secs / 1e6:.1f} MB/s; {len(vids)} volumes, "
-            f"{dat_bytes} B of .dat [{card}]")
+            f"{nbytes / secs / 1e6:.1f} MB/s; group commit: {batched} "
+            f"requests in {batches} batches, "
+            f"{out['upload']['mean_batch']:.3f} a batch; {by_writer} "
+            f"batches by the writer threads (contended writes), the rest "
+            f"inline; {len(vids)} volumes, {dat_bytes} B of .dat [{card}]")
 
         # (b) encode through the shell
         sh = Shell(master.url)
@@ -1750,20 +1823,26 @@ def phase_service(workdir: str, seed: int, backend: str,
             f"parity == gf_linear_plain, shards on all "
             f"{SERVICE_SERVERS} servers [{card}]")
 
-        # (c) healthy reads
-        picks = rng.choice(len(blobs), size=min(sample_size, len(blobs)),
-                           replace=False)
+        # (c) healthy reads. They fill the servers' needle caches, so (d)
+        # reads a sample disjoint from this one
+        picks = rng.choice(len(blobs),
+                           size=min(2 * sample_size, len(blobs)),
+                           replace=False).tolist()
         fids = sorted(blobs)
-        sample = {fids[i]: blobs[fids[i]] for i in sorted(picks.tolist())}
+        half = len(picks) // 2
+        sample = {fids[i]: blobs[fids[i]] for i in sorted(picks[:half])}
+        sample_d = {fids[i]: blobs[fids[i]] for i in sorted(picks[half:])}
         t0 = time.perf_counter()
         every, _ = read_sample(servers, sample, buf)
         secs = time.perf_counter() - t0
         out["healthy_reads"] = dict(
             reads=len(every), seconds=secs,
             p50_ms=float(np.percentile(every, 50) * 1e3),
-            p99_ms=float(np.percentile(every, 99) * 1e3))
+            p99_ms=float(np.percentile(every, 99) * 1e3),
+            cache=cache_totals(servers))
         log(f"  (c) healthy reads over HTTP from {SERVICE_THREADS} threads "
-            f"at random servers: {pcts(every)}, {secs:.3f} s [{card}]")
+            f"at random servers: {pcts(every)}, {secs:.3f} s; caches "
+            f"{out['healthy_reads']['cache']} [{card}]")
 
         # (d) a server stopped: degraded reads through the decode fleet
         victim = next(vs for vs in servers if all(
@@ -1778,48 +1857,77 @@ def phase_service(workdir: str, seed: int, backend: str,
                    {n.url for n in master.topo.nodes()}, 30,
                    "the master dropping the stopped server")
         drop = time.perf_counter() - t0
-        d0 = sum(vs.degraded.dispatches for vs in servers)
-        t0 = time.perf_counter()
-        (every, degraded), _ = launches.run(
-            "service_degraded_read", read_sample, servers, sample, buf,
-            lost)
-        secs = time.perf_counter() - t0
-        dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
-        if not dispatches or not degraded:
-            raise AssertionError(f"degraded reads: {dispatches} decode "
-                                 f"fleet dispatches, {len(degraded)} "
-                                 "degraded reads")
-        out["degraded_reads"] = dict(
-            reads=len(every), degraded=len(degraded), seconds=secs,
-            p50_ms=float(np.percentile(degraded, 50) * 1e3),
-            p99_ms=float(np.percentile(degraded, 99) * 1e3),
-            all_p50_ms=float(np.percentile(every, 50) * 1e3),
-            all_p99_ms=float(np.percentile(every, 99) * 1e3),
-            dispatches=dispatches, drop_seconds=drop,
-            launches=launches.per_phase["service_degraded_read"])
+        passes = {}
+        for name, phase in (("first", "service_degraded_read"),
+                            ("repeat", "service_degraded_repeat")):
+            # the repeat pass sends every needle to the same server as the
+            # first (read_sample's choice is a function of the sample)
+            d0 = sum(vs.degraded.dispatches for vs in servers)
+            c0 = cache_totals(servers)
+            t0 = time.perf_counter()
+            (every, degraded), _ = launches.run(
+                phase, read_sample, servers, sample_d, buf, lost,
+                none=name == "repeat")
+            secs = time.perf_counter() - t0
+            c1 = cache_totals(servers)
+            passes[name] = dict(
+                reads=len(every), degraded=len(degraded), seconds=secs,
+                p50_ms=float(np.percentile(degraded, 50) * 1e3),
+                p99_ms=float(np.percentile(degraded, 99) * 1e3),
+                all_p50_ms=float(np.percentile(every, 50) * 1e3),
+                all_p99_ms=float(np.percentile(every, 99) * 1e3),
+                dispatches=sum(vs.degraded.dispatches for vs in servers) - d0,
+                cache_hits=c1["hits"] - c0["hits"],
+                cache_misses=c1["misses"] - c0["misses"],
+                launches=launches.per_phase[phase])
+        first, repeat = passes["first"], passes["repeat"]
+        if not first["dispatches"] or not first["degraded"]:
+            raise AssertionError(f"degraded reads: {first['dispatches']} "
+                                 f"decode fleet dispatches, "
+                                 f"{first['degraded']} degraded reads")
+        if repeat["dispatches"] or repeat["cache_hits"] != repeat["reads"]:
+            raise AssertionError(
+                f"repeat pass: {repeat['dispatches']} decode fleet "
+                f"dispatches, {repeat['cache_hits']} cache hits for "
+                f"{repeat['reads']} reads")
+        out["degraded_reads"] = dict(first, drop_seconds=drop,
+                                     repeat=repeat)
         log(f"  (d) stopped {victim.url} (shards "
             f"{sorted(lost[vids[0]])} of volume {vids[0]}, <= 4 of each); "
-            f"the master dropped it after {drop:.3f} s; reads across its "
-            f"shards: {pcts(degraded)}; all reads: {pcts(every)}; "
-            f"{dispatches} decode fleet dispatches, "
-            f"{launches.per_phase['service_degraded_read']} gf_linear "
-            f"launches [{card}]")
+            f"the master dropped it after {drop:.3f} s; {len(sample_d)} "
+            f"needles apart from (c)'s")
+        for name, ps in passes.items():
+            log(f"      {name} pass: reads across its shards: "
+                f"p50 {ps['p50_ms']:.3f} ms, p99 {ps['p99_ms']:.3f} ms over "
+                f"{ps['degraded']} reads; all reads: p50 "
+                f"{ps['all_p50_ms']:.3f} ms, p99 {ps['all_p99_ms']:.3f} ms "
+                f"over {ps['reads']}; {ps['seconds']:.3f} s; "
+                f"{ps['dispatches']} decode fleet dispatches, "
+                f"{ps['launches']} gf_linear launches, cache hits "
+                f"{ps['cache_hits']}, misses {ps['cache_misses']} [{card}]")
 
         # (e) rebuild
+        inv0 = cache_totals(servers)["invalidations"]
         text, secs = launches.run("service_rebuild", sh.run_command,
                                   "ec.rebuild -collection=smoke")
         if not all(f"volume {v}: rebuilt shards" in text for v in vids):
             raise AssertionError(f"ec.rebuild:\n{text}")
+        invalidated = cache_totals(servers)["invalidations"] - inv0
+        if not invalidated:
+            raise AssertionError("ec.rebuild invalidated no cache entry")
         wait_until(lambda: all(
             sum(b.count for b in master.topo.lookup_ec(v).values()) == 14
             for v in vids), 30, "14 shards per volume on the live servers")
         every, _ = read_sample(servers, sample, buf)
+        every_d, _ = read_sample(servers, sample_d, buf)
         out["rebuild"] = dict(seconds=secs,
-                              launches=launches.per_phase["service_rebuild"])
+                              launches=launches.per_phase["service_rebuild"],
+                              invalidated=invalidated)
         log(f"  (e) ec.rebuild: {secs:.3f} s, "
             f"{launches.per_phase['service_rebuild']} gf_linear launches; "
-            f"14 shards of every volume on {len(servers)} servers; the "
-            f"sample reads back ({pcts(every)}) [{card}]")
+            f"{invalidated} cache entries invalidated; 14 shards of every "
+            f"volume on {len(servers)} servers; both samples read back "
+            f"byte for byte ({pcts(every + every_d)}) [{card}]")
 
         # (f) decode
         text, secs = launches.run("service_decode", sh.run_command,
@@ -1849,6 +1957,8 @@ def phase_service(workdir: str, seed: int, backend: str,
         master.stop()
     if cli:
         out["cli"] = phase_cli(workdir, backend, card)
+    if fix_dir:
+        out["fix"] = phase_fix(fix_dir, card)
     out["launches"] = dict(launches.per_phase)
     return out
 
@@ -1950,6 +2060,9 @@ def main() -> int:
     kstats = phase_kernel(args.seed)
     log("phase 3: main path")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    # phase 3's original volume files, kept for phase 8 (h)
+    fix_dir = tempfile.mkdtemp(prefix="chip_smoke_fix_")
+    atexit.register(shutil.rmtree, fix_dir, True)
     try:
         log(f"  workdir {workdir}, "
             f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB free")
@@ -1959,6 +2072,9 @@ def main() -> int:
                                   m["shard_hashes"], "cuda")
         log("phase 5: trace of one encode")
         trace = phase_trace(m["large_base"], "cuda")
+        for ext in (".dat", ".idx"):
+            os.replace(m["large_base"] + ext,
+                       os.path.join(fix_dir, "1" + ext))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("phase 6: fleet")
@@ -1978,7 +2094,8 @@ def main() -> int:
     log("phase 8: the service path (master, volume servers, shell, CLI)")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_service_")
     try:
-        service = phase_service(workdir, args.seed, "cuda", card=card)
+        service = phase_service(workdir, args.seed, "cuda", card=card,
+                                fix_dir=fix_dir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     main_launches = sum(m["launches"][p] for p in
@@ -2002,7 +2119,8 @@ def main() -> int:
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:45",
         "launches": main_launches + service_launches,
         "launches_by_path": {"main": main_launches,
-                             "service": service_launches},
+                             "service": service_launches,
+                             "service_by_phase": service["launches"]},
         "max_abs_err": kstats["max_abs_err"],
         **kstats["main"], "bound_by": "bytes",
         "library_ms": None}, {

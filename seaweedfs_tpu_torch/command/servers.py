@@ -94,6 +94,29 @@ def _volume_parser() -> argparse.ArgumentParser:
                         "default mesh needs two cards; with one the "
                         "server warns at start and the per-card fleet "
                         "runs)")
+    p.add_argument("-index", dest="needle_map_kind", default="memory",
+                   choices=["memory", "kv"],
+                   help="needle map kind: memory (dict rebuild from .idx) "
+                        "or kv (persistent LogKV, O(live) reopen; reference "
+                        "command/volume.go:203-211 leveldb kinds)")
+    p.add_argument("-cache.sizeMB", dest="cache_size_mb", type=int,
+                   default=0,
+                   help="RAM budget for the tiered read cache "
+                        "(0 = disabled; serves hot EC needle reads and "
+                        "reconstructed spans)")
+    p.add_argument("-cache.dir", dest="cache_dir", default="",
+                   help="directory for the read cache's disk tier "
+                        "(empty = RAM tier only)")
+    p.add_argument("-resilience.hedge", dest="resilience_hedge",
+                   action="store_true",
+                   help="hedged reads: after the tracked p95, send one "
+                        "speculative request to another shard holder "
+                        "(<=5%% extra-request budget)")
+    p.add_argument("-resilience.hedgeDelayMs",
+                   dest="resilience_hedge_delay_ms", type=float,
+                   default=10.0,
+                   help="floor for the hedge delay (the tracked p95 "
+                        "takes over once measured)")
     return p
 
 
@@ -109,4 +132,7 @@ def run_volume(args) -> int:
         opts.mserver, dirs, ip=opts.ip, port=opts.port,
         max_volume_counts=maxes,
         pulse_seconds=opts.pulse_seconds, ec_encoder=opts.ec_encoder,
-        ec_mesh=opts.ec_mesh))
+        ec_mesh=opts.ec_mesh, needle_map_kind=opts.needle_map_kind,
+        cache_size_mb=opts.cache_size_mb, cache_dir=opts.cache_dir or None,
+        hedge_reads=opts.resilience_hedge,
+        hedge_delay_ms=opts.resilience_hedge_delay_ms))

@@ -204,7 +204,7 @@ class EcVolume:
     def read_needle(self, n: Needle, version: int = 3,
                     remote_reader: Optional[Callable] = None,
                     rs: Optional[ReedSolomon] = None,
-                    decoder=None) -> Needle:
+                    decoder=None, span_cache=None) -> Needle:
         """Read and CRC-check a needle from the local shards, remote
         shards, or by live RS reconstruction of missing intervals.
 
@@ -212,9 +212,12 @@ class EcVolume:
         serves shards that are not local. ``decoder``
         (``reads.DegradedReadFleet``) routes reconstructions to the fused
         batch path; without one they are solved in place through ``rs``
-        (the card's codec when None)."""
+        (the card's codec when None). ``span_cache``
+        (``cache.TieredReadCache``) serves repeat reconstructions of a
+        span without solving again."""
         got = Needle.from_bytes(
-            self.read_needle_blob(n.id, version, remote_reader, rs, decoder),
+            self.read_needle_blob(n.id, version, remote_reader, rs, decoder,
+                                  span_cache),
             version)
         if n.cookie and got.cookie != n.cookie:
             raise CookieMismatch(
@@ -224,15 +227,18 @@ class EcVolume:
     def read_needle_blob(self, needle_id: int, version: int = 3,
                          remote_reader: Optional[Callable] = None,
                          rs: Optional[ReedSolomon] = None,
-                         decoder=None) -> bytes:
-        """The raw stored record bytes of one needle."""
+                         decoder=None, span_cache=None) -> bytes:
+        """The raw stored record bytes of one needle: the unit the read
+        cache keeps (every parse of it checks the CRC)."""
         _, _, intervals = self.locate_needle(needle_id, version)
-        return b"".join(self._read_interval(iv, remote_reader, rs, decoder)
+        return b"".join(self._read_interval(iv, remote_reader, rs, decoder,
+                                            span_cache)
                         for iv in intervals)
 
     def _read_interval(self, iv: ec_locate.Interval,
                        remote_reader: Optional[Callable],
-                       rs: Optional[ReedSolomon], decoder=None) -> bytes:
+                       rs: Optional[ReedSolomon], decoder=None,
+                       span_cache=None) -> bytes:
         shard_id, off = iv.to_shard_and_offset(self.large_block,
                                                self.small_block)
         s = self.shards.get(shard_id)
@@ -267,20 +273,40 @@ class EcVolume:
             if data is not None and len(data) == iv.size:
                 return data
         return self._recover_interval(shard_id, off, iv.size, remote_reader,
-                                      rs, decoder)
+                                      rs, decoder, span_cache)
 
     def _recover_interval(self, missing_shard: int, off: int, length: int,
                           remote_reader: Optional[Callable],
-                          rs: Optional[ReedSolomon], decoder=None) -> bytes:
+                          rs: Optional[ReedSolomon], decoder=None,
+                          span_cache=None) -> bytes:
         """On-the-fly RS reconstruction of one interval (reference
         store_ec.go:322-376): through the fused ``decoder`` fleet when
         one is given, else the in-place parallel fetch and one-row
-        solve."""
+        solve. With a ``span_cache`` the span is served from it, and a
+        reconstructed span is published to it."""
+        gen = None
+        if span_cache is not None:
+            key = span_cache.span_key(self.volume_id, missing_shard, off,
+                                      length)
+            hit = span_cache.get(key)
+            if hit is not None:
+                if len(hit) == length:
+                    return hit
+                # a torn span (a disk-tier file cut short by power
+                # loss): drop it and reconstruct
+                span_cache.drop(key)
+            # snapshot before solving: a rebuild or scrub invalidation
+            # racing this reconstruction must win (set refuses stale)
+            gen = span_cache.generation(key)
         if decoder is not None:
-            return decoder.decode(self, missing_shard, off, length,
+            data = decoder.decode(self, missing_shard, off, length,
                                   remote_reader)
-        return self._recover_in_place(missing_shard, off, length,
-                                      remote_reader, rs)
+        else:
+            data = self._recover_in_place(missing_shard, off, length,
+                                          remote_reader, rs)
+        if span_cache is not None:
+            span_cache.set(key, data, gen=gen)
+        return data
 
     def _recover_in_place(self, missing_shard: int, off: int, length: int,
                           remote_reader: Optional[Callable],

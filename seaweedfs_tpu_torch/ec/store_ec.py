@@ -13,6 +13,7 @@ or a ``decoder=DegradedReadFleet("cpu")``).
 from __future__ import annotations
 
 import os
+import struct
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 from seaweedfs_tpu_torch.ec import encoder, fleet
@@ -20,7 +21,9 @@ from seaweedfs_tpu_torch.ec.ec_volume import EcShardNotFound, EcVolume
 from seaweedfs_tpu_torch.ec.shard_bits import TOTAL_SHARDS
 from seaweedfs_tpu_torch.ops.rs_code import ReedSolomon
 from seaweedfs_tpu_torch.stats import trace
-from seaweedfs_tpu_torch.storage.needle import Needle, NeedleError
+from seaweedfs_tpu_torch.storage.needle import (CookieMismatch,
+                                                DataCorruptionError, Needle,
+                                                NeedleError)
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
 
@@ -205,27 +208,84 @@ def read_ec_shard(store: Store, vid: int, shard_id: int, offset: int,
 def read_ec_needle(store: Store, vid: int, n: Needle,
                    remote_reader: Optional[Callable] = None,
                    rs: Optional[ReedSolomon] = None, decoder=None,
-                   version: int = 3) -> Needle:
+                   cache=None, version: int = 3) -> Needle:
     """ReadEcShardNeedle: cookie-checked needle read over shards, with
     remote fan-out and on-the-fly RS recovery (store_ec.go:122-262).
 
     ``remote_reader(shard_id, offset, length) -> bytes | None`` serves
     shards that are not local; ``decoder`` (``reads.DegradedReadFleet``)
     fuses any reconstruction the read needs into batched dispatches,
-    else it is solved in place through ``rs``."""
+    else it is solved in place through ``rs``.
+
+    With a ``cache`` (``cache.TieredReadCache``) the whole stored record
+    rides the needle-keyed tier: a repeat read costs one hit and a
+    CRC-checked parse, and concurrent misses of one needle single-flight,
+    so one reconstruction serves them all. A cached blob that fails its
+    parse is data corruption (a torn cache file, or a torn span in the
+    blob): the needle's entry and the volume's spans are dropped and the
+    read is made once more from the shards. Nothing else is caught: a
+    fault of a kernel or of the card reaches the caller, and every
+    single-flight follower, and is never cached."""
     ecv = store.find_ec_volume(vid)
     if ecv is None:
         raise EcShardNotFound(f"ec volume {vid} not mounted")
-    return ecv.read_needle(n, version, remote_reader=remote_reader, rs=rs,
-                           decoder=decoder)
+    if cache is None:
+        return ecv.read_needle(n, version, remote_reader=remote_reader,
+                               rs=rs, decoder=decoder)
+    sp = trace.span("reads.ec_needle", vid=vid) \
+        if trace.is_enabled() else trace.NOOP
+    with sp:
+        key = cache.needle_key(vid, n.id)
+        blob = cache.get(key)
+        if blob is None:
+            with cache.single_flight(key) as leader:
+                if not leader:
+                    blob = cache.get(key)  # the leader's result
+                if blob is None:
+                    # snapshot BEFORE the read: a delete or scrub repair
+                    # that lands while we reconstruct makes set() refuse
+                    gen = cache.generation(key)
+                    blob = ecv.read_needle_blob(
+                        n.id, version, remote_reader, rs, decoder,
+                        span_cache=cache)
+                    cache.set(key, blob, gen=gen)
+        try:
+            got = _parse_record(blob, version)
+        except DataCorruptionError:
+            cache.drop(key)
+            cache.drop_spans(vid)
+            gen = cache.generation(key)
+            blob = ecv.read_needle_blob(n.id, version, remote_reader, rs,
+                                        decoder, span_cache=None)
+            got = Needle.from_bytes(blob, version)
+            cache.set(key, blob, gen=gen)
+    if n.cookie and got.cookie != n.cookie:
+        raise CookieMismatch(
+            f"needle {n.id:x}: cookie {n.cookie:08x} != {got.cookie:08x}")
+    return got
 
 
-def delete_ec_needle(store: Store, vid: int, n: Needle) -> None:
-    """Tombstone in .ecx + journal to .ecj (store_ec_delete.go)."""
+def _parse_record(blob: bytes, version: int) -> Needle:
+    """Needle.from_bytes, with a record that does not parse at all (a
+    torn or garbled blob) reported as the data corruption it is."""
+    try:
+        return Needle.from_bytes(blob, version)
+    except DataCorruptionError:
+        raise
+    except (NeedleError, ValueError, IndexError, struct.error) as e:
+        raise DataCorruptionError(f"unparsable needle record: {e}") from e
+
+
+def delete_ec_needle(store: Store, vid: int, n: Needle,
+                     cache=None) -> None:
+    """Tombstone in .ecx + journal to .ecj (store_ec_delete.go); drops
+    the needle's cached entry, so a delete is never masked."""
     ecv = store.find_ec_volume(vid)
     if ecv is None:
         raise EcShardNotFound(f"ec volume {vid} not mounted")
     ecv.delete_needle(n.id)
+    if cache is not None:
+        cache.invalidate(vid, n.id, reason="delete")
 
 
 def ec_shards_to_volume(store: Store, vid: int, collection: str = "",
@@ -253,6 +313,7 @@ def ec_shards_to_volume(store: Store, vid: int, collection: str = "",
                            small_block=small_block)
     encoder.write_idx_file_from_ec_index(base)
     with loc._lock:
-        v = Volume(loc.directory, collection, vid, create_if_missing=False)
+        v = Volume(loc.directory, collection, vid, create_if_missing=False,
+                   needle_map_kind=loc.needle_map_kind)
         loc.volumes[vid] = v
     return v

@@ -1,1 +1,2 @@
-"""Fault injection (failpoints) and per-request deadline budgets."""
+"""Fault injection (failpoints), per-request deadline budgets and hedged
+reads (``hedge.Hedger``)."""

@@ -8,6 +8,11 @@ Sites in the port:
 
   fleet.dispatch    ec/fleet._Dispatcher, before every fused RS
                     dispatch (`op`)
+  volume.read       server/volume.VolumeServer.read_needle, every
+                    served needle (`vid`, `server`)
+  backend.write_at  storage/backend.DiskFile.write_at, every .dat
+                    append (`path`); a data site: short | corrupt
+                    mangle the bytes written
 
 Arming: SEAWEED_FAILPOINTS="site=spec;site{label=val}=spec" at process
 start (parsed at import), or ``arm()`` at run time. Spec grammar:

@@ -39,7 +39,8 @@ from seaweedfs_tpu_torch.ops.rs_code import (
     DATA_SHARDS, PARITY_SHARDS, TOTAL_SHARDS, coding_matrix)
 from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.storage.needle import Needle, NeedleError, masked_crc
-from seaweedfs_tpu_torch.storage.volume import Volume, VolumeError
+from seaweedfs_tpu_torch.storage.volume import (Volume, VolumeError,
+                                                _WriteRequest)
 
 
 @dataclass
@@ -174,10 +175,11 @@ def repair_needle(v: Volume, corrupt: Needle,
     since only `data` failed its CRC, so the replica's bytes are validated
     against the LOCAL record's stored checksum before anything is written:
     a replica that is itself corrupt (or serves a newer overwrite) never
-    lands here. The rewrite is a cookie-checked append made under the
-    volume lock with the seal lifted only inside that critical section, so
-    no client write can slip onto a sealed volume through the repair
-    window. The bad record becomes dead space for vacuum."""
+    lands here. The rewrite is a cookie-checked append committed directly
+    under the volume lock with the seal lifted only inside that critical
+    section, so no client write can slip onto a sealed volume through the
+    repair window. It bypasses the group-commit writer, which would need
+    the same lock. The bad record becomes dead space for vacuum."""
     data = replica_fetch(v.id, corrupt)
     if data is None or masked_crc(data) != corrupt.checksum:
         return False
@@ -186,12 +188,15 @@ def repair_needle(v: Volume, corrupt: Needle,
                    mime=corrupt.mime, pairs=corrupt.pairs,
                    last_modified=corrupt.last_modified, ttl=corrupt.ttl)
     with trace.span("scrub.repair", vid=v.id, needle=corrupt.id):
+        req = _WriteRequest("write", fixed)
         with v._lock:
             was_ro, v.read_only = v.read_only, False
             try:
-                v.write_needle(fixed)
-            except (NeedleError, VolumeError):
-                return False
+                v._apply_batch([req])
             finally:
                 v.read_only = was_ro
+        try:
+            req.wait()
+        except (NeedleError, VolumeError):
+            return False
     return True

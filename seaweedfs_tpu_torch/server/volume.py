@@ -10,10 +10,18 @@ encoder name the port does not run is refused with INVALID_ARGUMENT, and
 a missing card with FAILED_PRECONDITION; nothing falls back to the host
 quietly.
 
+With ``cache_size_mb`` a tiered read cache sits in front of every EC
+read (``cache/``): a repeat read is one hit instead of a reconstruction
+on the card, and every write, delete, rebuild, decode and scrub repair
+invalidates what it changes. With ``hedge_reads`` a remote shard read
+with more than one holder hedges to the next after the tracked p95
+(``resilience/hedge.py``). Both are None unless asked for.
+
 Left out (each queued in ROADMAP.md): replica fan-out (placements other than
-``000``), vacuum, volume copy/tail/backup, tiers, the read cache,
-hedging and the breaker, heat, QoS, the async core's sendfile path,
-image resizing, query and chunk manifests.
+``000``), vacuum, volume copy/tail/backup, tiers, the breaker, heat, QoS,
+the async core's sendfile path, image resizing, query and chunk manifests
+(an upload with ``cm=true``, and a read or delete of a needle flagged as
+one, is refused with 400).
 
 Reference: weed/server/volume_server.go, volume_server_handlers_*.go,
 volume_grpc_*.go, volume_grpc_client_to_master.go.
@@ -46,6 +54,7 @@ from seaweedfs_tpu_torch.resilience import deadline as _deadline
 from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
 from seaweedfs_tpu_torch.scrub import ScrubDaemon
 from seaweedfs_tpu_torch.server import convert
+from seaweedfs_tpu_torch.stats.metrics import ScrubCorruptionsFoundCounter
 from seaweedfs_tpu_torch.storage.needle import (FLAG_IS_COMPRESSED,
                                                 CookieMismatch,
                                                 DataCorruptionError, Needle,
@@ -68,6 +77,11 @@ EC_REFRESH_PARTIAL_S = 7 * 60.0
 EC_REFRESH_FULL_S = 37 * 60.0
 # the deadline on one remote shard interval read
 REMOTE_READ_TIMEOUT_S = 15.0
+# what a request for a chunk manifest gets until the client libraries
+# that write and resolve them are ported
+CHUNK_MANIFEST_REFUSAL = ("chunk manifests are not served by this port: "
+                          "chunk manifests arrive with the client "
+                          "libraries")
 
 
 def check_encoder(name: str) -> str:
@@ -85,7 +99,9 @@ class VolumeServer:
                  ip: str = "127.0.0.1", port: int = 8080,
                  max_volume_counts: Optional[List[int]] = None,
                  pulse_seconds: float = 5.0, ec_encoder: str = "cuda",
-                 ec_mesh: bool = False):
+                 ec_mesh: bool = False, needle_map_kind: str = "memory",
+                 cache_size_mb: int = 0, cache_dir: Optional[str] = None,
+                 hedge_reads: bool = False, hedge_delay_ms: float = 10.0):
         self.ec_encoder = check_encoder(ec_encoder)
         self.master_url = master_url
         # the master this server last heartbeated successfully
@@ -97,13 +113,33 @@ class VolumeServer:
         # unified mesh scheduler (parallel/mesh_fleet, its default mesh);
         # None, not empty, when off
         self.ec_mesh_cfg = {} if ec_mesh else None
-        self.store = Store(directories, max_volume_counts, ip=ip, port=port)
+        self.store = Store(directories, max_volume_counts, ip=ip, port=port,
+                           needle_map_kind=needle_map_kind)
+        # tiered read cache (-cache.sizeMB, -cache.dir): None, not empty,
+        # unless sized, so the read path without it pays one None check
+        self.read_cache = None
+        if cache_size_mb > 0:
+            from seaweedfs_tpu_torch.cache import TieredReadCache
+            self.read_cache = TieredReadCache(
+                cache_size_mb << 20,
+                disk_dir=os.path.join(cache_dir, f"rc{port}")
+                if cache_dir else None)
         # degraded reads go through the decode fleet; it and the scrub
         # daemon make no codec, thread or CUDA context until first use
         self.degraded = DegradedReadFleet(backend=self.ec_encoder,
                                           use_mesh=ec_mesh)
         self.scrub = ScrubDaemon(self.store, backend=self.ec_encoder,
-                                 mesh_cfg=self.ec_mesh_cfg)
+                                 mesh_cfg=self.ec_mesh_cfg,
+                                 on_repair=self._invalidate_volume_cache)
+        # hedged remote shard reads (-resilience.hedge): None unless
+        # asked for; a Hedger makes no thread until its first fetch with
+        # more than one candidate
+        self.hedger = None
+        if hedge_reads:
+            from seaweedfs_tpu_torch.resilience.hedge import Hedger
+            self.hedger = Hedger(
+                delay_floor_s=max(hedge_delay_ms, 0.1) / 1000.0,
+                name=f"hedge-volume-{port}")
         self.volume_size_limit = 30 << 30
         self._ec_locations: Dict[int, Tuple[float, Dict[int, List[str]]]] = {}
         self._grpc_server = None
@@ -160,6 +196,8 @@ class VolumeServer:
         self._stopping = True
         self.degraded.stop()
         self.scrub.stop()
+        if self.hedger is not None:
+            self.hedger.stop()
         self._hb_wake.set()
         if self._hb_call is not None:
             self._hb_call.cancel()
@@ -376,6 +414,9 @@ class VolumeServer:
                 backend=backend)
         except EcShardNotFound as e:
             context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        if rebuilt:
+            # rebuilt shard bytes supersede any reconstructed spans
+            self._invalidate_volume_cache(request.volume_id, "rebuild")
         return volume_server_pb2.VolumeEcShardsRebuildResponse(
             rebuilt_shard_ids=rebuilt)
 
@@ -402,6 +443,8 @@ class VolumeServer:
         store_ec.delete_ec_shards(self.store, request.volume_id,
                                   collection=request.collection or None,
                                   shard_ids=list(request.shard_ids))
+        # the shard set changed under any cached reconstructed spans
+        self._invalidate_volume_cache(request.volume_id, "rebuild")
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeEcShardsDeleteResponse()
 
@@ -435,7 +478,8 @@ class VolumeServer:
     def VolumeEcBlobDelete(self, request, context):
         try:
             store_ec.delete_ec_needle(self.store, request.volume_id,
-                                      Needle(id=request.file_key))
+                                      Needle(id=request.file_key),
+                                      cache=self.read_cache)
         except EcShardNotFound as e:
             context.abort(rpc.StatusCode.NOT_FOUND, str(e))
         return volume_server_pb2.VolumeEcBlobDeleteResponse()
@@ -448,6 +492,9 @@ class VolumeServer:
                              request.collection, backend=backend)
         except EcShardNotFound as e:
             context.abort(rpc.StatusCode.FAILED_PRECONDITION, str(e))
+        # the vid serves from a normal volume now: no EC-era entry may
+        # outlive the change (writes can land again)
+        self._invalidate_volume_cache(request.volume_id, "rebuild")
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeEcShardsToVolumeResponse()
 
@@ -498,7 +545,7 @@ class VolumeServer:
             got = store_ec.read_ec_needle(
                 self.store, vid, n,
                 remote_reader=self._make_remote_reader(vid),
-                decoder=self.degraded)
+                decoder=self.degraded, cache=self.read_cache)
         else:
             raise NeedleError(f"volume {vid} not found")
         if _failpoint._armed:
@@ -516,15 +563,31 @@ class VolumeServer:
                 f"volume {vid} asks for replication "
                 f"{v.replica_placement}; this port writes one copy only")
         _, size = self.store.write_needle(vid, n, fsync=fsync)
+        self._invalidate_needle_cache(vid, n.id, "overwrite")
         return size
 
     def delete_needle(self, vid: int, n: Needle) -> int:
         if self.store.has_volume(vid):
-            return self.store.delete_needle(vid, n)
+            size = self.store.delete_needle(vid, n)
+            self._invalidate_needle_cache(vid, n.id, "delete")
+            return size
         if self.store.find_ec_volume(vid) is not None:
-            store_ec.delete_ec_needle(self.store, vid, n)
+            store_ec.delete_ec_needle(self.store, vid, n,
+                                      cache=self.read_cache)
             return 0
         raise NeedleError(f"volume {vid} not found")
+
+    # -- read-cache invalidation ---------------------------------------------
+
+    def _invalidate_needle_cache(self, vid: int, needle_id: int,
+                                 reason: str) -> None:
+        if self.read_cache is not None:
+            self.read_cache.invalidate(vid, needle_id, reason)
+
+    def _invalidate_volume_cache(self, vid: int,
+                                 reason: str = "scrub_repair") -> None:
+        if self.read_cache is not None:
+            self.read_cache.invalidate_volume(vid, reason)
 
     def _make_remote_reader(self, vid: int):
         def fetch_shard(url: str, shard_id: int, offset: int,
@@ -542,13 +605,30 @@ class VolumeServer:
             return data
 
         def remote_reader(shard_id: int, offset: int, length: int):
-            urls = [u for u in self._ec_shard_locations(vid)
-                    .get(shard_id, []) if u != self.url]
-            for url in urls:
+            # a stable order: a shard's primary is the same holder on
+            # every read (the breaker that reorders it by health comes
+            # with replica fan-out)
+            urls = sorted(u for u in self._ec_shard_locations(vid)
+                          .get(shard_id, []) if u != self.url)
+            if self.hedger is not None and len(urls) > 1:
+                # a stalled holder hedges to the next one after the
+                # tracked p95; the first response wins
                 try:
-                    return fetch_shard(url, shard_id, offset, length)
-                except (rpc.RpcError, EcShardNotFound):
-                    continue
+                    return self.hedger.fetch(
+                        [lambda u=u: fetch_shard(u, shard_id, offset,
+                                                 length) for u in urls])
+                except _deadline.DeadlineExceeded:
+                    # a spent budget is the client's state, not evidence
+                    # against these holders: never forget them for it
+                    raise
+                except (rpc.RpcError, OSError, EcShardNotFound):
+                    pass
+            else:
+                for url in urls:
+                    try:
+                        return fetch_shard(url, shard_id, offset, length)
+                    except (rpc.RpcError, EcShardNotFound):
+                        continue
             if urls:
                 # every known holder failed: forget this shard's
                 # locations so reads stop redialing a dead node
@@ -664,6 +744,8 @@ def _make_http_handler(vs: VolumeServer):
                                 for loc in vs.store.locations
                                 for v in list(loc.volumes.values())],
                     "Scrub": vs.scrub.status(),
+                    "Cache": vs.read_cache.stats()
+                    if vs.read_cache is not None else {"enabled": False},
                 })
                 return
             try:
@@ -685,7 +767,13 @@ def _make_http_handler(vs: VolumeServer):
             except _deadline.DeadlineExceeded as e:
                 self._json({"error": str(e)}, code=504)
                 return
-            except (_failpoint.FailpointError, DataCorruptionError) as e:
+            except _failpoint.FailpointError as e:
+                self._json({"error": str(e)}, code=500)
+                return
+            except DataCorruptionError as e:
+                # corrupt is not missing: 500, and the scrub counter
+                # flags it for repair
+                ScrubCorruptionsFoundCounter.labels("read").inc()
                 self._json({"error": str(e)}, code=500)
                 return
             except (NeedleError, EcShardNotFound) as e:
@@ -694,6 +782,9 @@ def _make_http_handler(vs: VolumeServer):
             except Exception as e:  # noqa: BLE001 - a failed read is a 500
                 log.exception("read %s failed", self.path)
                 self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
+                return
+            if got.is_chunk_manifest:
+                self._json({"error": CHUNK_MANIFEST_REFUSAL}, code=400)
                 return
             self._send_needle(got)
 
@@ -757,6 +848,9 @@ def _make_http_handler(vs: VolumeServer):
                 self._json({"error": str(e)}, code=400)
                 return
             body = self.read_body()
+            if params.get("cm", [""])[0].lower() == "true":
+                self._json({"error": CHUNK_MANIFEST_REFUSAL}, code=400)
+                return
             ctype = self.headers.get("content-type") or ""
             encoding = self.headers.get("content-encoding") or ""
             filename, mime, data = "", ctype, body
@@ -800,6 +894,10 @@ def _make_http_handler(vs: VolumeServer):
                 got = vs.read_needle(f.volume_id, n)
                 if got.cookie != f.cookie:
                     self._json({"error": "cookie mismatch"}, code=403)
+                    return
+                if got.is_chunk_manifest:
+                    # deleting one means deleting its chunks first
+                    self._json({"error": CHUNK_MANIFEST_REFUSAL}, code=400)
                     return
                 size = vs.delete_needle(f.volume_id, n)
             except CookieMismatch:

@@ -298,6 +298,51 @@ ReadsShortShardCounter = REGISTRY.counter(
     "local shard reads that came back short (shard truncated on disk) "
     "and fell into reconstruction", ("vid", "shard"))
 
+# Storage families (storage/store.py collect_heartbeat): per collection,
+# `type` is "volume" for the count and "normal" for the disk size.
+# lint: metric-ok(reference family name predates the lowercase rule; renaming breaks dashboards)
+VolumeServerVolumeCounter = REGISTRY.gauge(
+    "SeaweedFS_volumeServer_volumes", "volume count", ("collection", "type"))
+# lint: metric-ok(reference family name predates the lowercase rule; renaming breaks dashboards)
+VolumeServerDiskSizeGauge = REGISTRY.gauge(
+    "SeaweedFS_volumeServer_total_disk_size", "disk size",
+    ("collection", "type"))
+
+# Read-cache families (cache/read_cache.py): `tier` is mem | disk; an
+# invalidation's `reason` is delete | overwrite | rebuild | scrub_repair.
+ReadsSingleFlightWaitCounter = REGISTRY.counter(
+    "SeaweedFS_reads_singleflight_waits_total",
+    "reads that waited on another thread's in-flight reconstruction "
+    "instead of launching their own")
+CacheHitCounter = REGISTRY.counter(
+    "SeaweedFS_cache_hits_total", "read cache hits", ("tier",))
+CacheMissCounter = REGISTRY.counter(
+    "SeaweedFS_cache_misses_total", "read cache misses (all tiers)")
+CacheAdmitCounter = REGISTRY.counter(
+    "SeaweedFS_cache_admitted_total", "entries admitted", ("tier",))
+CacheEvictCounter = REGISTRY.counter(
+    "SeaweedFS_cache_evictions_total", "entries evicted", ("tier",))
+CacheInvalidateCounter = REGISTRY.counter(
+    "SeaweedFS_cache_invalidations_total",
+    "entries dropped by invalidation", ("reason",))
+CacheBytesGauge = REGISTRY.gauge(
+    "SeaweedFS_cache_bytes", "bytes resident per cache tier", ("tier",))
+
+# Hedged-read families (resilience/hedge.py).
+HedgeRequestsCounter = REGISTRY.counter(
+    "SeaweedFS_hedge_requests_total",
+    "hedge-eligible fetches (the budget denominator)")
+HedgeIssuedCounter = REGISTRY.counter(
+    "SeaweedFS_hedge_issued_total",
+    "speculative second requests actually sent")
+HedgeWinsCounter = REGISTRY.counter(
+    "SeaweedFS_hedge_wins_total",
+    "fetches where the hedge answered before the primary")
+HedgeDeniedCounter = REGISTRY.counter(
+    "SeaweedFS_hedge_budget_denied_total",
+    "hedges withheld because the <=budget_pct extra-request cap "
+    "was spent")
+
 # Resilience family (resilience/failpoint.py).
 FailpointTriggersCounter = REGISTRY.counter(
     "SeaweedFS_failpoint_triggers_total",

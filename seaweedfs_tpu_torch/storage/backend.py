@@ -11,6 +11,8 @@ from __future__ import annotations
 import os
 import threading
 
+from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
+
 
 class BackendStorageFile:
     """Positional-IO interface over a volume's data bytes
@@ -61,6 +63,11 @@ class DiskFile(BackendStorageFile):
         # pwrite may return a short count (e.g. ENOSPC mid-write); loop so
         # callers get all-or-exception — the volume's truncate-on-error
         # path depends on partial writes raising
+        if _failpoint._armed:
+            # injected torn write (short), bit flip (corrupt), EIO
+            # (error) or stall (delay)
+            data = _failpoint.mangle("backend.write_at", data,
+                                     path=self._path)
         view = memoryview(data)
         total = len(view)
         written = 0

@@ -37,10 +37,13 @@ def parse_ec_shard_filename(name: str):
 
 
 class DiskLocation:
-    def __init__(self, directory: str, max_volume_count: int = 8):
+    def __init__(self, directory: str, max_volume_count: int = 8,
+                 needle_map_kind: str = "memory"):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_volume_count = max_volume_count
+        # the -index kind every volume of this location opens with
+        self.needle_map_kind = needle_map_kind
         self.volumes: Dict[int, Volume] = {}
         self.ec_volumes: Dict[int, "object"] = {}  # vid -> ec.EcVolume
         self._lock = threading.RLock()
@@ -55,8 +58,9 @@ class DiskLocation:
                 if vid in self.volumes:
                     continue
                 try:
-                    self.volumes[vid] = Volume(self.directory, col, vid,
-                                               create_if_missing=False)
+                    self.volumes[vid] = Volume(
+                        self.directory, col, vid, create_if_missing=False,
+                        needle_map_kind=self.needle_map_kind)
                 except (OSError, ValueError, VolumeError) as e:
                     log.warning("volume %d in %s unloadable, skipped: %s",
                                 vid, self.directory, e)
@@ -89,6 +93,7 @@ class DiskLocation:
         with self._lock:
             if vid in self.volumes:
                 return self.volumes[vid]
+            kwargs.setdefault("needle_map_kind", self.needle_map_kind)
             v = Volume(self.directory, collection, vid, **kwargs)
             self.volumes[vid] = v
             return v

@@ -111,6 +111,10 @@ class Needle:
         return bool(self.flags & FLAG_IS_COMPRESSED)
 
     @property
+    def is_chunk_manifest(self) -> bool:
+        return bool(self.flags & FLAG_IS_CHUNK_MANIFEST)
+
+    @property
     def etag(self) -> str:
         return f"{self.checksum:08x}"
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import threading
 from typing import List, Optional
 
+from seaweedfs_tpu_torch.stats.metrics import (VolumeServerDiskSizeGauge,
+                                               VolumeServerVolumeCounter)
 from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
 from seaweedfs_tpu_torch.storage.needle import Needle, NeedleError
 from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement, TTL
@@ -18,15 +20,18 @@ from seaweedfs_tpu_torch.storage.volume import Volume
 class Store:
     def __init__(self, directories: List[str],
                  max_volume_counts: Optional[List[int]] = None,
-                 ip: str = "", port: int = 0):
+                 ip: str = "", port: int = 0,
+                 needle_map_kind: str = "memory"):
         if max_volume_counts is None:
             max_volume_counts = [8] * len(directories)
-        self.locations = [DiskLocation(d, c)
+        self.locations = [DiskLocation(d, c, needle_map_kind)
                           for d, c in zip(directories, max_volume_counts)]
         self.ip = ip
         self.port = port
         self.public_url = f"{ip}:{port}" if ip else ""
         self._lock = threading.RLock()
+        # collections the storage gauges were last set for
+        self._metric_collections: set = set()  # guarded_by(self._lock)
         for loc in self.locations:
             loc.load_existing_volumes()
 
@@ -130,10 +135,28 @@ class Store:
 
     def collect_heartbeat(self) -> dict:
         """The full-state heartbeat: every volume and every mounted EC
-        volume's shard bits (reference store.go CollectHeartbeat)."""
+        volume's shard bits (reference store.go CollectHeartbeat). It
+        also sets the storage gauges per collection, and zeroes those of
+        a collection that has disappeared since the last pass, or a
+        dashboard would keep showing its last value (JAX
+        storage/store.py:168-199)."""
         with self._lock:
-            volumes = [self.volume_info(v) for loc in self.locations
-                       for v in list(loc.volumes.values())]
+            vols = [v for loc in self.locations
+                    for v in list(loc.volumes.values())]
+            counts: dict = {}
+            sizes: dict = {}
+            for v in vols:
+                counts[v.collection] = counts.get(v.collection, 0) + 1
+                sizes[v.collection] = sizes.get(v.collection, 0) + \
+                    v.content_size
+            for col in self._metric_collections - set(counts):
+                VolumeServerVolumeCounter.labels(col, "volume").set(0)
+                VolumeServerDiskSizeGauge.labels(col, "normal").set(0)
+            self._metric_collections = set(counts)
+            for col, n in counts.items():
+                VolumeServerVolumeCounter.labels(col, "volume").set(n)
+            for col, size in sizes.items():
+                VolumeServerDiskSizeGauge.labels(col, "normal").set(size)
             ec_shards = [{"id": vid, "collection": ecv.collection,
                           "ec_index_bits": ecv.shard_bits}
                          for loc in self.locations
@@ -144,11 +167,10 @@ class Store:
                 "public_url": self.public_url,
                 "max_volume_count": sum(loc.max_volume_count
                                         for loc in self.locations),
-                "volumes": volumes,
+                "volumes": [self.volume_info(v) for v in vols],
                 "ec_shards": ec_shards,
-                "max_file_key": max(
-                    (v.nm.max_key for loc in self.locations
-                     for v in list(loc.volumes.values())), default=0),
+                "max_file_key": max((v.nm.max_key for v in vols),
+                                    default=0),
             }
 
     def close(self) -> None:

@@ -4,17 +4,30 @@ Behavioral parity with the reference volume engine
 (weed/storage/volume_read_write.go, volume_loading.go,
 volume_checking.go): cookie-checked overwrites, tombstone deletes (an
 empty needle appended to .dat + a size=-1 .idx entry), TTL expiry on
-read, torn-tail truncation at load. Writes are applied inline under the
-volume lock; a failed physical write truncates the .dat back to where the
-record started, so no index entry points at torn bytes.
+read, torn-tail truncation at load.
+
+Writes ride a per-volume group-commit writer, the counterpart of
+``seaweedfs_tpu.storage.volume`` and the reference's async write path
+(volume_read_write.go:331-405): while a batch is in flight, requests
+queue; one drain takes at most 128 requests or 4 MiB, stages every
+append into one buffer, commits it with one write (and one fsync when a
+request asked for it), then publishes the index entries and wakes the
+waiters. A failed physical write truncates the .dat back to the batch
+start and fails every request of the batch. An uncontended write that
+wants no fsync is applied inline under the volume lock; the writer
+thread is made at the first fsync'd or contended write (one that finds
+the volume lock taken, where the reference waits for the lock and
+applies the write alone).
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import struct
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -26,10 +39,13 @@ from seaweedfs_tpu_torch.storage.needle import (
     Needle, NeedleError, CookieMismatch, actual_size, VERSION3,
     verify_needle_integrity,
 )
-from seaweedfs_tpu_torch.storage.needle_map import NeedleMap
+from seaweedfs_tpu_torch.storage.needle_map import make_needle_map
 from seaweedfs_tpu_torch.storage.superblock import (
     SuperBlock, ReplicaPlacement, TTL,
 )
+from seaweedfs_tpu_torch.util import wlog
+
+_log = wlog.logger("storage.volume")
 
 
 # SEAWEED_VERIFY_READS=1: read_needle re-verifies the masked CRC of every
@@ -52,22 +68,143 @@ class VolumeError(Exception):
     pass
 
 
+class _WriteRequest:
+    """One write or delete, committed inline or by the group-commit
+    writer. Only a request handed to the writer gets an event to wait on
+    (an inline commit is done when _apply_batch returns)."""
+
+    __slots__ = ("kind", "needle", "fsync", "event", "done", "result",
+                 "error")
+
+    def __init__(self, kind: str, needle: Needle, fsync: bool = False):
+        self.kind = kind
+        self.needle = needle
+        self.fsync = fsync
+        self.event: Optional[threading.Event] = None
+        self.done = False
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+    def complete(self, result=None, error: Optional[BaseException] = None):
+        self.result = result
+        self.error = error
+        self.done = True
+        if self.event is not None:
+            self.event.set()
+
+    def wait(self):
+        # no timeout: a waiter that gave up would leave a request the
+        # writer later commits anyway. The writer completes every
+        # request, stop() included.
+        if not self.done:
+            self.event.wait()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+class _GroupCommitWriter:
+    """The volume's one writer thread, committing queued requests in
+    batches of at most MAX_BATCH_REQS requests or MAX_BATCH_BYTES of
+    payload (see Volume._apply_batch for one batch's protocol)."""
+
+    MAX_BATCH_REQS = 128
+    MAX_BATCH_BYTES = 4 * 1024 * 1024
+
+    def __init__(self, volume: "Volume"):
+        self.volume = volume
+        # backlog() peeks lock-free (a deque's len is GIL-atomic; the
+        # routing heuristic tolerates a stale answer)
+        self._queue: collections.deque = collections.deque()  # guarded_by(self._cond, writes)
+        self._cond = threading.Condition()
+        self._stopped = False  # guarded_by(self._cond)
+        self.batches = 0  # batches this thread committed
+        # lint: gate-ok(made lazily by Volume._get_writer at the first fsync'd or contended write) # lint: thread-ok(group-commit writer; requests rendezvous on their events)
+        self._thread = threading.Thread(
+            target=self._run, name=f"vol-{volume.id}-writer", daemon=True)
+        self._thread.start()
+
+    def backlog(self) -> int:
+        return len(self._queue)
+
+    def submit(self, req: _WriteRequest):
+        req.event = threading.Event()
+        with self._cond:
+            if self._stopped:
+                raise VolumeError(
+                    f"volume {self.volume.id}: writer is stopped")
+            self._queue.append(req)
+            self._cond.notify()
+        return req.wait()
+
+    def stop(self) -> None:
+        """Commit what is queued, then end the thread; a request that
+        arrives later is refused by submit()."""
+        with self._cond:
+            self._stopped = True
+            self._cond.notify()
+        self._thread.join(timeout=10)
+        while self._queue:
+            # lint: guard-ok(post-join drain: the thread has exited and submit refuses once stopped)
+            self._queue.popleft().complete(
+                error=VolumeError("volume closed"))
+
+    def _drain(self) -> Optional[list]:
+        with self._cond:
+            while not self._queue and not self._stopped:
+                self._cond.wait()
+            if not self._queue:
+                return None
+            batch, payload = [], 0
+            while self._queue and len(batch) < self.MAX_BATCH_REQS and \
+                    payload < self.MAX_BATCH_BYTES:
+                req = self._queue.popleft()
+                batch.append(req)
+                payload += len(req.needle.data)
+            return batch
+
+    def _run(self) -> None:
+        while True:
+            batch = self._drain()
+            if batch is None:
+                return
+            self.batches += 1
+            try:
+                self.volume._apply_batch(batch)
+            except BaseException as e:  # never kill the writer thread
+                for req in batch:
+                    if not req.done:
+                        req.complete(error=e)
+
+
 class Volume:
     def __init__(self, dirname: str, collection: str, vid: int,
                  replica_placement: ReplicaPlacement = ReplicaPlacement(),
                  ttl: TTL = TTL.empty(),
-                 create_if_missing: bool = True):
+                 create_if_missing: bool = True,
+                 async_write: bool = True,
+                 needle_map_kind: str = "memory"):
         # every needle write and read checksums through the native CRC
         # library: fail here, at open, if it cannot be built
         crc.load()
         self.dir = dirname
         self.collection = collection
         self.id = vid
+        self.needle_map_kind = needle_map_kind
         self.version = VERSION3
         self.read_only = False
         # the newest append, for the heartbeat's modified_at_second
         self.last_append_at_ns = 0
         self._lock = threading.RLock()
+        self.async_write = async_write
+        # _use_worker peeks lock-free (a stale None only routes one
+        # request inline, which is valid)
+        self._writer: Optional[_GroupCommitWriter] = None  # guarded_by(self._writer_lock, writes)
+        self._writer_lock = threading.Lock()
+        # batches committed (one .dat write each, inline or by the
+        # writer) and the requests they held
+        self.batches = 0  # guarded_by(self._lock, writes)
+        self.batched_requests = 0  # guarded_by(self._lock, writes)
         base = self.file_name()
         self.dat_path = base + ".dat"
         self.idx_path = base + ".idx"
@@ -81,7 +218,7 @@ class Volume:
             self._dat: BackendStorageFile = DiskFile(self.dat_path,
                                                      create=True)
             self._dat.write_at(self.super_block.to_bytes(), 0)
-            self.nm = NeedleMap(self.idx_path)
+            self.nm = make_needle_map(self.idx_path, needle_map_kind)
 
     def file_name(self) -> str:
         name = f"{self.collection}_{self.id}" if self.collection else str(self.id)
@@ -120,7 +257,7 @@ class Volume:
             raise VolumeError(f"{self.dat_path}: truncated superblock")
         self.super_block = SuperBlock.from_bytes(header)
         self.version = self.super_block.version
-        self.nm = NeedleMap(self.idx_path)
+        self.nm = make_needle_map(self.idx_path, self.needle_map_kind)
         self._check_and_fix_integrity()
 
     def _check_and_fix_integrity(self) -> None:
@@ -150,67 +287,200 @@ class Volume:
     # -- write path ----------------------------------------------------------
 
     def write_needle(self, n: Needle, fsync: bool = False) -> tuple[int, int]:
-        """Append a needle; returns (offset, size). Cookie-checked overwrite."""
+        """Append a needle; returns (offset, size). Cookie-checked overwrite.
+
+        An fsync'd write, one that arrives while the writer has a
+        backlog, and one that finds the volume lock taken ride the
+        group-commit writer, so concurrent requests share one write (and
+        one fsync); an uncontended write without fsync is applied inline,
+        which is cheaper than a thread handoff. Either way the call
+        returns once the bytes are committed."""
         if len(n.data) == 0:
             raise VolumeError(
                 "zero-byte writes are not storable (indistinguishable from "
                 "a delete marker); reject at the write path")
-        with self._lock:
-            if self.read_only:
-                raise VolumeError(f"volume {self.id} is read-only")
-            if (n.ttl is None or n.ttl.is_empty) and not self.ttl.is_empty:
-                n.ttl = self.ttl
-            self._check_cookie(n)
-            n.append_at_ns = time.time_ns()
-            offset = self._append(n.to_bytes(self.version), fsync)
-            self.last_append_at_ns = n.append_at_ns
-            self.nm.put(n.id, offset, n.size)
-            self.nm.flush()
-            return offset, n.size
+        return self._commit(_WriteRequest("write", n, fsync))
 
     def delete_needle(self, n: Needle) -> int:
         """Tombstone a needle; returns freed size (0 if absent)."""
-        with self._lock:
-            if self.read_only:
-                raise VolumeError(f"volume {self.id} is read-only")
-            nv = self.nm.get(n.id)
-            if nv is None or not t.size_is_valid(nv.size):
-                return 0
-            if n.cookie:
-                self._check_cookie(n)
-            marker = Needle(id=n.id, cookie=n.cookie, data=b"")
-            marker.append_at_ns = time.time_ns()
-            offset = self._append(marker.to_bytes(self.version), False)
-            self.last_append_at_ns = marker.append_at_ns
-            self.nm.delete(n.id, offset)
-            self.nm.flush()
-            return nv.size
+        return self._commit(_WriteRequest("delete", n))
 
-    def _check_cookie(self, n: Needle) -> None:
-        nv = self.nm.get(n.id)
-        if nv is None or not t.size_is_valid(nv.size):
-            return
-        old = self._read_needle_at(nv.offset, nv.size, check_crc=False)
-        if old.cookie != n.cookie:
-            raise CookieMismatch(
-                f"needle {n.id:x}: cookie mismatch {n.cookie:08x}")
-
-    def _append(self, blob: bytes, fsync: bool) -> int:
-        """Write one record at the 8-aligned tail; returns its offset.
-        On a physical write error the .dat is truncated back
-        (reference volume_read_write.go:385-399)."""
-        start = self._dat.size()
-        offset = start + (-start) % t.NEEDLE_PADDING
-        if offset + len(blob) > t.MAX_POSSIBLE_VOLUME_SIZE:
-            raise VolumeError(f"volume {self.id} exceeds max size")
+    def _commit(self, req: _WriteRequest):
+        if self._use_worker(req.fsync):
+            return self._get_writer().submit(req)
+        if not self._lock.acquire(blocking=not self.async_write):
+            # contended: join the writer's next batch (the reference
+            # waits for the lock and applies the write alone)
+            return self._get_writer().submit(req)
         try:
-            self._dat.write_at(b"\x00" * (offset - start) + blob, start)
-            if fsync:
-                self._dat.sync()
-        except OSError as e:
-            self._dat.truncate(start)
-            raise VolumeError(f"volume {self.id}: write failed: {e}") from e
-        return offset
+            self._apply_batch([req])
+        finally:
+            self._lock.release()
+        return req.wait()
+
+    def _use_worker(self, fsync: bool) -> bool:
+        if not self.async_write:
+            return False
+        if fsync:
+            return True
+        w = self._writer
+        return w is not None and w.backlog() > 0
+
+    def _get_writer(self) -> _GroupCommitWriter:
+        with self._writer_lock:
+            if self._writer is None:
+                self._writer = _GroupCommitWriter(self)
+            return self._writer
+
+    def commit_stats(self) -> tuple[int, int, int]:
+        """(batches, requests, batches by the writer thread) committed
+        since the volume was opened."""
+        w = self._writer
+        return (self.batches, self.batched_requests,
+                w.batches if w is not None else 0)
+
+    def _lookup_for_batch(self, key: int, pending: dict):
+        """The index as a batch sees it: entries staged earlier in the
+        batch first (None for a staged delete), then the needle map.
+        Returns (offset, size) or None."""
+        if key in pending:
+            return pending[key]
+        nv = self.nm.get(key)
+        if nv is None or not t.size_is_valid(nv.size):
+            return None
+        return (nv.offset, nv.size)
+
+    def _read_old_needle(self, offset: int, size: int, batch_start: int,
+                         buf: bytearray) -> Needle:
+        """A needle for a cookie check: one staged earlier in this batch
+        lives in ``buf``, not on disk."""
+        if offset >= batch_start:
+            start = offset - batch_start
+            blob = bytes(buf[start:start + actual_size(size, self.version)])
+            return Needle.from_bytes(blob, self.version, check_crc=False)
+        return self._read_needle_at(offset, size, check_crc=False)
+
+    def _apply_batch(self, batch: list) -> None:
+        """Commit a batch of write/delete requests with one append.
+
+        Every request is staged into one buffer (cookie checks see the
+        batch's own earlier entries); the buffer is written once (and
+        fsync'd once if any request asked); only then are the index
+        entries published, so a reader never finds an entry that points
+        at unwritten bytes. On a write error the .dat is truncated back
+        to the batch start (reference volume_read_write.go:385-399) and
+        every staged request fails."""
+        with self._lock:
+            self.batches += 1
+            self.batched_requests += len(batch)
+            batch_start = self._dat.size()
+            buf = bytearray()
+            staged = []  # (req, needle or delete marker, offset, result)
+            pending: dict = {}
+            any_fsync = False
+            for req in batch:
+                try:
+                    if self.read_only:
+                        raise VolumeError(f"volume {self.id} is read-only")
+                    if req.kind == "write":
+                        staged.append(self._stage_write(
+                            req, batch_start, buf, pending))
+                        any_fsync = any_fsync or req.fsync
+                    else:
+                        item = self._stage_delete(
+                            req, batch_start, buf, pending)
+                        if item is None:
+                            req.complete(result=0)
+                        else:
+                            staged.append(item)
+                except Exception as e:  # noqa: BLE001 - the request's own error
+                    req.complete(error=e)
+            if buf:
+                try:
+                    self._dat.write_at(buf, batch_start)
+                    if any_fsync:
+                        self._dat.sync()
+                except OSError as e:
+                    try:
+                        self._dat.truncate(batch_start)
+                    except OSError:
+                        pass
+                    err = VolumeError(
+                        f"volume {self.id}: batch write failed: {e}")
+                    for req, _, _, _ in staged:
+                        req.complete(error=err)
+                    return
+            for req, n, offset, result in staged:
+                try:
+                    if req.kind == "write":
+                        self.nm.put(n.id, offset, n.size)
+                    else:
+                        self.nm.delete(n.id, offset)
+                    if n.append_at_ns > self.last_append_at_ns:
+                        self.last_append_at_ns = n.append_at_ns
+                except OSError as e:
+                    req.complete(error=VolumeError(
+                        f"volume {self.id}: index publish failed: {e}"))
+                    continue
+                req.complete(result=result)
+            try:
+                # .idx entries are buffered: one flush per batch. On a
+                # failure the map is already right and a later flush or
+                # sync() retries, so acknowledged writes stay readable.
+                self.nm.flush()
+            except OSError as e:
+                _log.warning("volume %d: idx flush failed (will retry "
+                             "on next batch/sync): %s", self.id, e)
+
+    def _stage_write(self, req: _WriteRequest, batch_start: int,
+                     buf: bytearray, pending: dict):
+        n = req.needle
+        if (n.ttl is None or n.ttl.is_empty) and not self.ttl.is_empty:
+            n.ttl = self.ttl
+        existing = self._lookup_for_batch(n.id, pending)
+        if existing is not None:
+            old = self._read_old_needle(existing[0], existing[1],
+                                        batch_start, buf)
+            if old.cookie != n.cookie:
+                raise CookieMismatch(
+                    f"needle {n.id:x}: cookie mismatch {n.cookie:08x}")
+        n.append_at_ns = time.time_ns()
+        offset = self._stage_blob(batch_start, buf, n.to_bytes(self.version))
+        pending[n.id] = (offset, n.size)
+        return req, n, offset, (offset, n.size)
+
+    def _stage_delete(self, req: _WriteRequest, batch_start: int,
+                      buf: bytearray, pending: dict):
+        n = req.needle
+        existing = self._lookup_for_batch(n.id, pending)
+        if existing is None:
+            return None
+        if n.cookie:
+            old = self._read_old_needle(existing[0], existing[1],
+                                        batch_start, buf)
+            if old.cookie != n.cookie:
+                raise CookieMismatch(
+                    f"needle {n.id:x}: delete cookie mismatch")
+        marker = Needle(id=n.id, cookie=n.cookie, data=b"")
+        marker.append_at_ns = time.time_ns()
+        offset = self._stage_blob(batch_start, buf,
+                                  marker.to_bytes(self.version))
+        pending[n.id] = None
+        return req, marker, offset, existing[1]
+
+    def _stage_blob(self, batch_start: int, buf: bytearray,
+                    blob: bytes) -> int:
+        """Pad the batch to the 8-byte needle alignment and append one
+        record; returns its .dat offset."""
+        tail = batch_start + len(buf)
+        pad = (-tail) % t.NEEDLE_PADDING
+        if pad:
+            buf += b"\x00" * pad
+            tail += pad
+        if tail + len(blob) > t.MAX_POSSIBLE_VOLUME_SIZE:
+            raise VolumeError(f"volume {self.id} exceeds max size")
+        buf += blob
+        return tail
 
     # -- read path -----------------------------------------------------------
 
@@ -248,8 +518,10 @@ class Volume:
 
         Opens its own read-only fd, so a long scan (scrub) never races
         reads and writes on the shared handle. A garbled record is
-        skipped, never raised."""
-        size = os.path.getsize(self.dat_path)
+        skipped, never raised. The scan ends where the .dat ended when
+        no batch was in flight (taken under the volume lock)."""
+        with self._lock:
+            size = self._dat.size()
         offset = 8
         with open(self.dat_path, "rb") as f:
             while offset + t.NEEDLE_HEADER_SIZE <= size:
@@ -284,16 +556,26 @@ class Volume:
     # -- lifecycle -----------------------------------------------------------
 
     def sync(self) -> None:
-        self._dat.sync()
-        self.nm.sync()
+        """fsync the .dat and the index. Under the volume lock, so a
+        batch in flight is committed and published first (the freeze
+        before ec.encode: read_only, then sync)."""
+        with self._lock:
+            self._dat.sync()
+            self.nm.sync()
 
     def close(self) -> None:
+        # the writer first: what it has queued is committed before the
+        # files close (reference storage/volume.py:700-711)
+        with self._writer_lock:
+            writer, self._writer = self._writer, None
+        if writer is not None:
+            writer.stop()
         with self._lock:
             self._dat.close()
             self.nm.close()
 
     def destroy(self) -> None:
         self.close()
-        self.nm.destroy()
+        self.nm.destroy()  # the .idx, and the .nmkv directory of a kv map
         if os.path.exists(self.dat_path):
             os.remove(self.dat_path)

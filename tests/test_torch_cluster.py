@@ -12,7 +12,12 @@ a port volume directory serves the same needles from the JAX Store, and
 the shell prints the JAX shell's lines. Also: the default encoder
 (``cuda``) answers with an error status where there is no card, JAX
 encoder names are refused, a replication-001 assign is refused, the
-master's ids survive a restart, and the CLI runs as subprocesses.
+master's ids survive a restart, and the CLI runs as subprocesses. The
+read cache: repeat degraded reads through a stopped server are cache
+hits with no new decode dispatch, and a rebuild invalidates. Against a
+JAX volume server: a chunk-manifest upload and a read or delete of a
+flagged needle are refused, and a corrupt read counts in
+``ScrubCorruptionsFoundCounter{kind="read"}`` on both.
 """
 
 import hashlib
@@ -87,11 +92,14 @@ def holder(master, vid: int, collection: str = "") -> str:
 class Cluster:
     def __init__(self, tmp_path, n_volume_servers: int = 2,
                  volumes_per_server: int = 30, ec_encoder: str = "cpu",
-                 volume_size_limit_mb: int = 64, ec_mesh: bool = False):
+                 volume_size_limit_mb: int = 64, ec_mesh: bool = False,
+                 volume_kwargs=()):
         self.tmp_path = tmp_path
         self.volumes_per_server = volumes_per_server
         self.ec_encoder = ec_encoder
         self.ec_mesh = ec_mesh
+        # more VolumeServer options: server i gets volume_kwargs[i % n]
+        self.volume_kwargs = list(volume_kwargs) or [{}]
         self.master = MasterServer(
             port=free_port_pair(), meta_dir=str(tmp_path / "master"),
             volume_size_limit_mb=volume_size_limit_mb,
@@ -114,7 +122,9 @@ class Cluster:
                 self.master.url, [str(d)], port=free_port_pair(),
                 max_volume_counts=[self.volumes_per_server],
                 pulse_seconds=PULSE, ec_encoder=self.ec_encoder,
-                ec_mesh=self.ec_mesh)
+                ec_mesh=self.ec_mesh,
+                **self.volume_kwargs[len(self.volume_servers) %
+                                     len(self.volume_kwargs)])
             vs.start()
             self.volume_servers.append(vs)
         wait_for(lambda: len(self.master.topo.nodes()) >= want,
@@ -826,3 +836,218 @@ def test_cli_master_volume_and_shell(tmp_path):
     assert codes == [0, 0]
     for name in ("master.log", "volume.log"):
         assert "Traceback" not in (tmp_path / name).read_text()
+
+
+# -- the read cache on the service path (tests/test_cluster.py:483) ------------
+
+
+def test_degraded_reads_through_the_cache_end_to_end(tmp_path):
+    """Four servers with the read cache and hedging on (one on the kv
+    needle map): reads through a stopped server are byte-identical and
+    decode on the fleet; the same reads repeated, each to the same
+    server, are cache hits with zero new decode dispatches; /status has
+    the Cache block; ec.rebuild invalidates and the reads after it are
+    byte-identical; a scrub repair and an EC delete invalidate."""
+    cached = {"cache_size_mb": 16, "hedge_reads": True}
+    c = Cluster(tmp_path, n_volume_servers=4, volumes_per_server=10,
+                volume_kwargs=[cached, cached, cached,
+                               dict(cached, needle_map_kind="kv")])
+    try:
+        assert [vs.store.locations[0].needle_map_kind
+                for vs in c.volume_servers] == ["memory"] * 3 + ["kv"]
+        with c.http(f"{c.master.url}/vol/grow?collection=deg&count=2") as r:
+            assert json.load(r)["count"] == 2
+        rng = np.random.default_rng(17)
+        blobs = {}
+        for _ in range(40):
+            d = rng.integers(0, 256, int(rng.integers(1, 64 << 10)),
+                             dtype=np.uint8).tobytes()
+            blobs[c.upload(d, collection="deg")] = d
+        vids = sorted({parse_fid(f).volume_id for f in blobs})
+        out = Shell(c.master.url).run_command(
+            f"ec.encode -collection=deg "
+            f"-volumeId={','.join(map(str, vids))}")
+        assert all(f"volume {v}: ec.encode done" in out for v in vids)
+        wait_for(lambda: all(c.master.topo.lookup_ec(v) and
+                             not c.master.topo.lookup(v) for v in vids),
+                 what="every volume as spread EC shards")
+        victim = next(vs for vs in c.volume_servers
+                      if vs.store.find_ec_volume(vids[0]).shard_bits.has(0))
+        victim.stop()
+        c.volume_servers.remove(victim)
+        wait_for(lambda: victim.url not in
+                 {n.url for n in c.master.topo.nodes()},
+                 what="the master dropping the stopped server")
+        servers = c.volume_servers
+
+        def read_all():
+            for i, (fid, d) in enumerate(sorted(blobs.items())):
+                with c.http(f"{servers[i % len(servers)].url}/{fid}") as r:
+                    assert r.read() == d
+
+        def total(attr):
+            return sum(getattr(vs.read_cache, attr) for vs in servers)
+
+        d0 = sum(vs.degraded.dispatches for vs in servers)
+        read_all()
+        d1 = sum(vs.degraded.dispatches for vs in servers)
+        assert d1 > d0, "degraded reads never reached the decode fleet"
+        h0 = total("hits")
+        read_all()
+        assert sum(vs.degraded.dispatches for vs in servers) == d1, \
+            "repeat reads made new decode dispatches past the cache"
+        assert total("hits") - h0 == len(blobs)
+        with c.http(f"{servers[0].url}/status") as r:
+            st = json.load(r)
+        assert st["Cache"]["enabled"] and st["Cache"]["hits"] > 0
+        assert st["Cache"]["mem_entries"] > 0
+
+        inv0 = total("invalidations")
+        out = Shell(c.master.url).run_command("ec.rebuild -collection=deg")
+        assert all(f"volume {v}: rebuilt shards" in out for v in vids)
+        assert total("invalidations") > inv0, \
+            "a shard rebuild must invalidate cached entries"
+        wait_for(lambda: all(
+            sum(b.count for b in c.master.topo.lookup_ec(v).values()) == 14
+            for v in vids), what="14 shards per volume on live servers")
+        read_all()
+
+        vs = servers[0]
+        assert vs.scrub.on_repair == vs._invalidate_volume_cache
+        before = vs.read_cache.stats()["mem_entries"]
+        vs.scrub.on_repair(vids[0])
+        assert vs.read_cache.stats()["mem_entries"] < before
+        fid = next(f for i, f in enumerate(sorted(blobs))
+                   if i % len(servers) == 0)
+        key = vs.read_cache.needle_key(parse_fid(fid).volume_id,
+                                       parse_fid(fid).key)
+        with c.http(f"{vs.url}/{fid}") as r:
+            r.read()
+        assert vs.read_cache.get(key) is not None
+        with c.http(f"{vs.url}/{fid}", method="DELETE") as r:
+            assert r.status == 202
+        assert vs.read_cache.get(key) is None
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            c.http(f"{vs.url}/{fid}")
+        assert ei.value.code == 404
+    finally:
+        c.stop()
+
+
+# -- faults found against the JAX server (ROADMAP Queue 3) ---------------------
+
+
+def _jax_volume_server(d, port):
+    from seaweedfs_tpu.server.volume import VolumeServer as JaxVolumeServer
+    vs = JaxVolumeServer("127.0.0.1:1", [str(d)], port=port,
+                         pulse_seconds=60.0, ec_encoder="numpy")
+    vs.start()
+    vs.store.add_volume(1)
+    return vs
+
+
+def _request(method, url, data=None, headers=None):
+    """(status, body) of one HTTP request, errors included."""
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://{url}", data=data, method=method,
+                headers=headers or {}), timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+MANIFEST = b'{"name": "x", "mime": "", "size": 0, "chunks": []}'
+
+
+def test_chunk_manifest_is_refused(tmp_path):
+    """The 50-byte manifest: the JAX server stores it flagged 0x84 (at
+    record offset 70); the port refuses the upload, and the port serving
+    the JAX server's directory refuses its GET, HEAD and DELETE."""
+    assert len(MANIFEST) == 50
+    d = tmp_path / "v"
+    d.mkdir()
+    jvs = _jax_volume_server(d, free_port_pair())
+    try:
+        status, _ = _request("POST", f"{jvs.url}/1,01000000aa?cm=true",
+                             MANIFEST, {"Content-Type": "application/json"})
+        assert status == 201
+        jvs.store.find_volume(1).sync()
+    finally:
+        jvs.stop()
+    with open(d / "1.dat", "rb") as f:
+        record = f.read()[8:]
+    assert record[70] == 0x84
+    vs = VolumeServer("127.0.0.1:1", [str(d)], port=free_port_pair(),
+                      pulse_seconds=60.0, ec_encoder="cpu")
+    vs.start()
+    try:
+        for method in ("GET", "DELETE"):
+            status, body = _request(method, f"{vs.url}/1,01000000aa")
+            assert status == 400, (method, body)
+            assert b"chunk manifests arrive with the client libraries" \
+                in body
+        status, _ = _request("HEAD", f"{vs.url}/1,01000000aa")
+        assert status == 400
+        status, body = _request("POST", f"{vs.url}/1,02000000bb?cm=true",
+                                MANIFEST,
+                                {"Content-Type": "application/json"})
+        assert status == 400
+        assert b"chunk manifests arrive with the client libraries" in body
+        assert vs.store.find_volume(1).nm.get(2) is None
+        # without cm the same bytes are a plain needle, as in the JAX
+        # package: the flags byte is 0x04 (a mime type)
+        status, _ = _request("POST", f"{vs.url}/1,03000000cc", MANIFEST,
+                             {"Content-Type": "application/json"})
+        assert status == 201
+        status, body = _request("GET", f"{vs.url}/1,03000000cc")
+        assert (status, body) == (200, MANIFEST)
+    finally:
+        vs.stop()
+
+
+def test_corrupt_read_is_counted_on_both_servers(tmp_path):
+    """One needle whose payload has one byte flipped, read with
+    SEAWEED_VERIFY_READS on: 500 from both servers, and
+    ScrubCorruptionsFoundCounter{kind="read"} rises by one on both."""
+    from seaweedfs_tpu.stats.metrics import \
+        ScrubCorruptionsFoundCounter as JaxCounter
+    from seaweedfs_tpu.storage import volume as jax_volume
+    from seaweedfs_tpu_torch.stats.metrics import \
+        ScrubCorruptionsFoundCounter as PortCounter
+    from seaweedfs_tpu_torch.storage import volume as port_volume
+    payload = np.random.default_rng(23).bytes(3000)
+    fid = "1,05000000ee"
+    rises = {}
+    for name, mod, counter, make in (
+            ("jax", jax_volume, JaxCounter,
+             lambda d: _jax_volume_server(d, free_port_pair())),
+            ("port", port_volume, PortCounter, None)):
+        d = tmp_path / name
+        d.mkdir()
+        if make is None:
+            vs = VolumeServer("127.0.0.1:1", [str(d)], port=free_port_pair(),
+                              pulse_seconds=60.0, ec_encoder="cpu")
+            vs.start()
+            vs.store.add_volume(1)
+        else:
+            vs = make(d)
+        was = mod.verify_reads_enabled()
+        mod.set_verify_reads(True)
+        try:
+            assert _request("POST", f"{vs.url}/{fid}", payload)[0] == 201
+            assert _request("GET", f"{vs.url}/{fid}") == (200, payload)
+            v = vs.store.find_volume(1)
+            v.sync()
+            with open(v.dat_path, "r+b") as f:  # record at 8, data at +20
+                f.seek(8 + 20 + 1234)
+                b = f.read(1)
+                f.seek(8 + 20 + 1234)
+                f.write(bytes([b[0] ^ 0x40]))
+            before = counter.labels("read").value
+            status, body = _request("GET", f"{vs.url}/{fid}")
+            rises[name] = (status, counter.labels("read").value - before)
+        finally:
+            mod.set_verify_reads(was)
+            vs.stop()
+    assert rises == {"jax": (500, 1), "port": (500, 1)}
