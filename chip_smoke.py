@@ -105,7 +105,31 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    servers stopped by SIGTERM (exit 0, no Traceback). (h) ``fix`` of
    phase 3's volume: the .idx it writes equals the original. gf_linear's
    launch count must rise in (b), (d)'s first pass, (e) and (f).
-9. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+9. The maintenance cycle, on phase 8's cluster after (f) (its master runs
+   the maintenance cron, MAINTENANCE_SCRIPTS, an hour apart). (i)
+   BatchDelete of the largest third of the needles of two volumes, one on
+   the kv needle map, then ``volume.vacuum -garbageThreshold=0.3``: only
+   those two compacted (revision + 1 by ReadVolumeFileStatus, .dat
+   shrank), sampled survivors byte-identical over HTTP, deleted needles
+   404. (j) ``volume.move`` of a vacuumed volume (.dat hash unchanged);
+   64 new needles, then VolumeIncrementalCopy into a backup copy (its
+   .dat and .idx hash as the source's); ``volume.tier.upload`` of one
+   volume to a memory backend, its sample read through the tier,
+   ``volume.tier.download`` (.dat hash unchanged). (k)
+   ``master.run_maintenance_now()``: the cron EC-encodes every volume on
+   the card; 0 scripts failed, data shards == the vacuumed .dat's
+   stripes, sampled parity == gf_linear_plain, the sample reads back
+   through the EC path. (l) every shard of one volume gathered on one
+   server, ``master.scrub_all_now()`` (every pass finishes, nothing
+   found), then a flipped parity byte and ``volume.scrub -node
+   -volumeId``: found 1, repaired 1, the shard's hash as in (k). (m)
+   ``volume.tier.upload`` of one EC volume's shards on their holders, its
+   sample read through the tier, ``volume.tier.download`` (shard hashes
+   as in (k)). (n) ``collection.list``, ``cluster.status`` against
+   Statistics, ``collection.delete``: no smoke file and no smoke volume
+   left. gf_linear's launch count must rise in (k) and both scrubs, and
+   stay 0 in (i), (j), (m) and (n).
+10. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -1699,9 +1723,13 @@ def phase_service(workdir: str, seed: int, backend: str,
     card = card or backend
     launches = Launches(backend)
     out = {}
+    # the maintenance cron of phase 9 (k): an hour apart, so it runs
+    # only when run_maintenance_now() asks
     master = MasterServer(port=free_port_pair(),
                           meta_dir=os.path.join(workdir, "master"),
-                          volume_size_limit_mb=1024, pulse_seconds=1.0)
+                          volume_size_limit_mb=1024, pulse_seconds=1.0,
+                          maintenance_scripts=MAINTENANCE_SCRIPTS,
+                          maintenance_interval_s=3600.0)
     master.start()
     servers = []
     try:
@@ -1951,6 +1979,15 @@ def phase_service(workdir: str, seed: int, backend: str,
             f"{launches.per_phase['service_decode']} gf_linear launches; "
             f"every .dat hashes as in (a); the sample reads back from the "
             f"normal volumes ({pcts(every)}) [{card}]")
+
+        log("phase 9: the maintenance cycle (vacuum, move, backup, tiers, "
+            "the cron's ec.encode, scrub, collections)")
+        t9 = time.perf_counter()
+        out["maintenance"] = phase_maintenance(
+            master, servers, sh, blobs, buf, vids, workdir, seed, backend,
+            launches, card)
+        out["maintenance"]["seconds"] = time.perf_counter() - t9
+        log(f"  phase 9 took {out['maintenance']['seconds']:.3f} s [{card}]")
     finally:
         for vs in servers:
             vs.stop()
@@ -1960,6 +1997,435 @@ def phase_service(workdir: str, seed: int, backend: str,
     if fix_dir:
         out["fix"] = phase_fix(fix_dir, card)
     out["launches"] = dict(launches.per_phase)
+    return out
+
+
+# --- phase 9 ------------------------------------------------------------------
+
+# The master's maintenance cron, as upstream's master.toml ships it
+# (lock, ec.encode, ec.rebuild, unlock; balance and fix.replication left
+# out). fullPercent is low enough for the vacuumed volumes: 0.1% of the
+# 1,024 MiB volume limit.
+MAINTENANCE_SCRIPTS = ["lock",
+                       "ec.encode -collection=smoke -fullPercent=0.1 "
+                       "-quietFor=0",
+                       "ec.rebuild -collection=smoke",
+                       "unlock"]
+MAINTENANCE_SAMPLE = 1024
+TAIL_NEEDLES = 64
+TIER_BACKEND = "memory.smoke"
+
+
+def batch_delete(holder_url: str, fids) -> list:
+    from seaweedfs_tpu_torch.pb import volume_server_pb2, volume_stub
+    resp = volume_stub(holder_url).BatchDelete(
+        volume_server_pb2.BatchDeleteRequest(file_ids=list(fids)))
+    return [r.status for r in resp.results]
+
+
+def file_status(url: str, vid: int):
+    from seaweedfs_tpu_torch.pb import volume_server_pb2, volume_stub
+    return volume_stub(url).ReadVolumeFileStatus(
+        volume_server_pb2.ReadVolumeFileStatusRequest(volume_id=vid))
+
+
+def http_status(url: str) -> int:
+    from seaweedfs_tpu_torch.operation import operations
+    return operations.http_request("GET", url).status
+
+
+def holder_of(servers, vid: int):
+    return next(vs for vs in servers if vs.store.has_volume(vid))
+
+
+def read_back(servers, sample, buf) -> float:
+    """Every needle of ``sample`` over HTTP, byte-compared; seconds."""
+    t0 = time.perf_counter()
+    read_sample(servers, sample, buf)
+    return time.perf_counter() - t0
+
+
+def phase_maintenance(master, servers, sh, blobs, buf, vids, workdir: str,
+                      seed: int, backend: str, launches, card: str) -> dict:
+    """Phase 9 on phase 8's cluster, whose ``smoke`` volumes are normal
+    volumes again: (i) BatchDelete and volume.vacuum, (j) volume.move,
+    an incremental backup and the memory tier, (k) the master's cron
+    encodes every volume on the card, (l) scrub passes on every server
+    and a targeted EC scrub, (m) tiered EC shards, (n) collections."""
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.operation.file_id import parse_fid
+    from seaweedfs_tpu_torch.pb import volume_server_pb2, volume_stub
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.storage import backend as bk
+    from seaweedfs_tpu_torch.storage import volume_backup
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    out = {}
+    rng = np.random.default_rng(seed + 9)
+    bk.register_backend(bk.MemoryBackendStorage(TIER_BACKEND))
+    by_vid = {}
+    for fid, rec in blobs.items():
+        by_vid.setdefault(parse_fid(fid).volume_id, {})[fid] = rec
+    # a server on the kv needle map must hold one of the two vacuumed
+    # volumes: (d) may have stopped the kv one, and the decode may have
+    # put no volume there
+    kv = next((vs for vs in servers
+               if vs.store.locations[0].needle_map_kind == "kv"), None)
+    if kv is None:
+        d = os.path.join(workdir, "vol_kv")
+        os.makedirs(d)
+        kv = VolumeServer(master.url, [d], port=free_port_pair(),
+                          max_volume_counts=[16], pulse_seconds=1.0,
+                          ec_encoder=backend, cache_size_mb=SERVICE_CACHE_MB,
+                          hedge_reads=True, needle_map_kind="kv")
+        kv.start()
+        servers.append(kv)
+        wait_until(lambda: kv.url in {n.url for n in master.topo.nodes()},
+                   30, "the kv volume server's heartbeat")
+    on_kv = [v for v in vids if kv.store.has_volume(v)]
+    if not on_kv:
+        v = vids[0]
+        src = holder_of(servers, v)
+        sh.run_command(f"volume.move -volumeId={v} -source={src.url} "
+                       f"-target={kv.url}")
+        on_kv = [v]
+    victims = [on_kv[0], next(v for v in vids
+                              if not kv.store.has_volume(v))]
+
+    # (i) delete a third of two volumes' needles (their largest third, so
+    # the garbage is above 0.3), then volume.vacuum -garbageThreshold=0.3
+    deleted = set()
+    before = {}
+    for v in vids:
+        url = holder_of(servers, v).url
+        before[v] = (url, file_status(url, v))
+    t0 = time.perf_counter()
+    for v in victims:
+        fids = sorted(by_vid[v], key=lambda f: -by_vid[v][f][1])
+        doomed = fids[:len(fids) // 3]
+        statuses = batch_delete(before[v][0], doomed)
+        if statuses != [202] * len(doomed):
+            raise AssertionError(f"BatchDelete of volume {v}: {statuses}")
+        deleted.update(doomed)
+    delete_secs = time.perf_counter() - t0
+    ratios = {v: holder_of(servers, v).store.find_volume(v).garbage_ratio()
+              for v in vids}
+    if any((ratios[v] > 0.3) != (v in victims) for v in vids):
+        raise AssertionError(f"garbage ratios {ratios}, victims {victims}")
+    # the heartbeat carries no garbage; the check RPC reads it live
+    text, vac_secs = launches.run("maintenance_vacuum", sh.run_command,
+                                  "volume.vacuum -garbageThreshold=0.3",
+                                  none=True)
+    reclaimed = 0
+    for v in vids:
+        url, st0 = before[v]
+        st1 = file_status(url, v)
+        compacted = v in victims
+        if st1.compaction_revision != st0.compaction_revision + compacted \
+                or (st1.dat_file_size < st0.dat_file_size) != compacted:
+            raise AssertionError(
+                f"volume {v}: revision {st0.compaction_revision} -> "
+                f"{st1.compaction_revision}, .dat {st0.dat_file_size} -> "
+                f"{st1.dat_file_size}; compacted should be {compacted}")
+        reclaimed += st0.dat_file_size - st1.dat_file_size
+    alive = {f: r for f, r in blobs.items() if f not in deleted}
+    picks = rng.choice(len(alive), size=min(MAINTENANCE_SAMPLE, len(alive)),
+                       replace=False)
+    names = sorted(alive)
+    sample = {names[i]: alive[names[i]] for i in sorted(picks.tolist())}
+    read_back(servers, sample, buf)
+    gone = [f for f in deleted
+            if http_status(f"{holder_of(servers, parse_fid(f).volume_id).url}"
+                           f"/{f}") != 404]
+    if gone:
+        raise AssertionError(f"{len(gone)} deleted needles still answer")
+    out["vacuum"] = dict(deleted=len(deleted), delete_seconds=delete_secs,
+                         seconds=vac_secs, reclaimed_bytes=reclaimed,
+                         volumes=victims, ratios=ratios)
+    log(f"  (i) BatchDelete of {len(deleted)} needles of volumes {victims} "
+        f"(the last on -index kv) in {delete_secs:.3f} s; garbage "
+        f"{[round(ratios[v], 4) for v in victims]}; volume.vacuum "
+        f"-garbageThreshold=0.3: {vac_secs:.3f} s, {reclaimed} B "
+        f"reclaimed; only those two compacted (revision + 1, .dat shrank); "
+        f"{len(sample)} sampled survivors byte-identical over HTTP, every "
+        f"deleted needle 404 [{card}]")
+
+    # (j) move, incremental backup, memory tier
+    mv = victims[1]
+    src = holder_of(servers, mv)
+    dst = min((vs for vs in servers if vs is not src),
+              key=lambda vs: len(vs.store.locations[0].volumes))
+    src.store.find_volume(mv).sync()
+    want = sha256_file(src.store.find_volume(mv).dat_path)
+    _, move_secs = launches.run(
+        "maintenance_move", sh.run_command,
+        f"volume.move -volumeId={mv} -source={src.url} -target={dst.url}",
+        none=True)
+    if sha256_file(dst.store.find_volume(mv).dat_path) != want:
+        raise AssertionError(f"volume {mv}: .dat changed in the move")
+    wait_until(lambda: [n.url for n in master.topo.lookup(mv, "smoke")]
+               == [dst.url], 30, "the master seeing the move")
+    # the backup: a full copy now, the new needles by VolumeIncrementalCopy
+    bv_id = victims[0]
+    owner = holder_of(servers, bv_id)
+    v = owner.store.find_volume(bv_id)
+    v.sync()
+    bdir = os.path.join(workdir, "backup")
+    os.makedirs(bdir)
+    for ext in (".dat", ".idx"):
+        shutil.copy(v.file_name() + ext,
+                    os.path.join(bdir, f"smoke_{bv_id}{ext}"))
+    new = {}
+    for i in range(TAIL_NEEDLES):
+        fid = f"{bv_id},{0x7E000000 + i:x}{int(rng.integers(1, 1 << 32)):08x}"
+        off = int(rng.integers(0, len(buf) - 65536))
+        size = int(rng.integers(1, 65536))
+        operations.upload_data(f"{owner.url}/{fid}", buf[off:off + size])
+        new[fid] = (off, size)
+    v.sync()
+    bvol = Volume(bdir, "smoke", bv_id, create_if_missing=False)
+    try:
+        t0 = time.perf_counter()
+        shipped = volume_backup.incremental_backup(bvol,
+                                                   volume_stub(owner.url))
+        backup_secs = time.perf_counter() - t0
+    finally:
+        bvol.close()
+    for ext in (".dat", ".idx"):
+        if sha256_file(os.path.join(bdir, f"smoke_{bv_id}{ext}")) != \
+                sha256_file(v.file_name() + ext):
+            raise AssertionError(f"backup of volume {bv_id}: {ext} differs")
+    alive.update(new)
+    by_vid[bv_id].update(new)
+    # the memory tier: out, read, back
+    tv = next(x for x in vids if x not in victims)
+    tholder = holder_of(servers, tv)
+    tvol = tholder.store.find_volume(tv)
+    tvol.sync()
+    want = sha256_file(tvol.dat_path)
+    t0 = time.perf_counter()
+    text = sh.run_command(f"volume.tier.upload -volumeId={tv} "
+                          f"-dest={TIER_BACKEND}")
+    up_secs = time.perf_counter() - t0
+    if not tvol.is_remote or os.path.exists(tvol.dat_path):
+        raise AssertionError(f"volume.tier.upload:\n{text}")
+    tsample = {f: r for f, r in sample.items()
+               if parse_fid(f).volume_id == tv}
+    tier_read = read_back(servers, tsample, buf)
+    t0 = time.perf_counter()
+    text = sh.run_command(f"volume.tier.download -volumeId={tv}")
+    down_secs = time.perf_counter() - t0
+    if tvol.is_remote or sha256_file(tvol.dat_path) != want:
+        raise AssertionError(f"volume.tier.download:\n{text}")
+    out["move"] = dict(seconds=move_secs,
+                       bytes=os.path.getsize(dst.store.find_volume(mv)
+                                             .dat_path))
+    out["backup"] = dict(seconds=backup_secs, bytes=shipped,
+                         needles=TAIL_NEEDLES)
+    out["tier"] = dict(upload_seconds=up_secs, download_seconds=down_secs,
+                       bytes=os.path.getsize(tvol.dat_path),
+                       read_seconds=tier_read, reads=len(tsample))
+    log(f"  (j) volume.move of volume {mv} ({out['move']['bytes']} B): "
+        f"{move_secs:.3f} s, .dat hash unchanged; {TAIL_NEEDLES} new "
+        f"needles into volume {bv_id}, VolumeIncrementalCopy of {shipped} "
+        f"B in {backup_secs:.3f} s, the backup's .dat and .idx hash as the "
+        f"source's; volume.tier.upload of volume {tv} "
+        f"({out['tier']['bytes']} B) to {TIER_BACKEND} {up_secs:.3f} s, "
+        f"{len(tsample)} reads through the tier {tier_read:.3f} s, "
+        f"volume.tier.download {down_secs:.3f} s, .dat hash unchanged "
+        f"[{card}]")
+
+    # (k) the unattended encode: the cron's ec.encode and ec.rebuild
+    snap = os.path.join(workdir, "snap9")
+    os.makedirs(snap)
+    dats = {}
+    for x in vids:
+        vol = holder_of(servers, x).store.find_volume(x)
+        vol.sync()
+        dats[x] = os.path.join(snap, f"{x}.dat")
+        os.link(vol.dat_path, dats[x])
+    dat_bytes = sum(os.path.getsize(p) for p in dats.values())
+    passes, failures = master.maintenance_passes, master.maintenance_failures
+
+    def cron():
+        master.run_maintenance_now()
+        wait_until(lambda: master.maintenance_passes > passes, 600,
+                   "the maintenance pass")
+        wait_until(lambda: all(master.topo.lookup_ec(x) and
+                               not master.topo.lookup(x) for x in vids),
+                   60, "every smoke volume as EC in the topology")
+
+    _, cron_secs = launches.run("maintenance_cron_encode", cron)
+    if master.maintenance_failures != failures:
+        raise AssertionError(f"{master.maintenance_failures - failures} "
+                             "maintenance scripts failed")
+    device = "cuda" if backend == "cuda" else "cpu"
+    hashes = {}
+    for x in vids:
+        paths = shard_paths_of(servers, "smoke", x)
+        check_stripes(dats[x], paths)
+        link = os.path.join(snap, f"linked_{x}")
+        for sid, p in enumerate(paths):
+            os.symlink(p, f"{link}.ec{sid:02d}")
+        check_parity_spans(link, os.path.getsize(paths[0]), rng, 8,
+                           1 << 20, device)
+        if x in (vids[0], vids[-1]):   # (l)'s and (m)'s volumes
+            hashes[x] = [sha256_file(p) for p in paths]
+    read_back(servers, sample, buf)
+    out["cron_encode"] = dict(
+        seconds=cron_secs, dat_bytes=dat_bytes,
+        GBps=dat_bytes / cron_secs / 1e9,
+        launches=launches.per_phase["maintenance_cron_encode"])
+    log(f"  (k) master.run_maintenance_now(): the cron's lock, ec.encode, "
+        f"ec.rebuild, unlock took {cron_secs:.3f} s = "
+        f"{dat_bytes / cron_secs / 1e9:.3f} GB/s of vacuumed .dat, "
+        f"{launches.per_phase['maintenance_cron_encode']} gf_linear "
+        f"launches, 0 scripts failed; data shards == .dat stripes, sampled "
+        f"parity == gf_linear_plain; {len(sample)} sampled needles "
+        f"byte-identical through the EC path [{card}]")
+
+    # (l) scrub. A pass verifies the stripes of the EC volumes whose ten
+    # data shards a server holds: gather every shard of one volume on one
+    # server first (copies, removed after)
+    sv = vids[0]
+    gather = max(servers, key=lambda vs: vs.store.find_ec_volume(sv)
+                 .shard_bits.count if vs.store.find_ec_volume(sv) else -1)
+    have = set(gather.store.find_ec_volume(sv).shard_bits.shard_ids)
+    copied = []
+    for vs in servers:
+        ecv = vs.store.find_ec_volume(sv)
+        if vs is gather or ecv is None:
+            continue
+        sids = [i for i in ecv.shard_bits.shard_ids if i not in have]
+        if not sids:
+            continue
+        stub = volume_stub(gather.url)
+        stub.VolumeEcShardsCopy(volume_server_pb2.VolumeEcShardsCopyRequest(
+            volume_id=sv, collection="smoke", shard_ids=sids,
+            source_data_node=vs.url))
+        stub.VolumeEcShardsMount(volume_server_pb2.VolumeEcShardsMountRequest(
+            volume_id=sv, collection="smoke", shard_ids=sids))
+        have.update(sids)
+        copied += sids
+    if len(have) != 14:
+        raise AssertionError(f"volume {sv}: gathered shards {sorted(have)}")
+    before_scrub = {vs.url: vs.scrub.status() for vs in servers}
+
+    def idle(vs, passes_before):
+        st = vs.scrub.status()
+        return st["passes_completed"] > passes_before and \
+            st["state"] != "running"
+
+    def scrub_all():
+        accepted = master.scrub_all_now()
+        if sorted(accepted) != sorted(vs.url for vs in servers):
+            raise AssertionError(f"scrub_all_now: {accepted}")
+        wait_until(lambda: all(idle(vs, before_scrub[vs.url][
+            "passes_completed"]) for vs in servers), 600,
+            "every server's scrub pass")
+
+    _, scrub_secs = launches.run("maintenance_scrub_all", scrub_all)
+    for vs in servers:
+        st = vs.scrub.status()
+        if st["corruptions_found"] != \
+                before_scrub[vs.url]["corruptions_found"]:
+            raise AssertionError(f"{vs.url}: scrub found {st}")
+    stripes = sum(vs.scrub.status()["stripes_verified"] -
+                  before_scrub[vs.url]["stripes_verified"] for vs in servers)
+    base = gather.store.find_ec_volume(sv).base_name
+    psid = next((i for i in (10, 11, 12, 13) if i not in copied), 13)
+    shard = f"{base}.ec{psid:02d}"
+    if sha256_file(shard) != hashes[sv][psid]:
+        raise AssertionError(f"{shard} differs from (k)'s")
+    flip_byte(shard, os.path.getsize(shard) // 3)
+    st0 = gather.scrub.status()
+
+    def targeted():
+        text = sh.run_command(f"volume.scrub -node={gather.url} "
+                              f"-volumeId={sv}")
+        if "scrub started" not in text:
+            raise AssertionError(f"volume.scrub:\n{text}")
+        wait_until(lambda: idle(gather, st0["passes_completed"]), 600,
+                   "the targeted scrub pass")
+
+    _, target_secs = launches.run("maintenance_scrub_targeted", targeted)
+    st1 = gather.scrub.status()
+    found = st1["corruptions_found"] - st0["corruptions_found"]
+    repaired = st1["corruptions_repaired"] - st0["corruptions_repaired"]
+    restored = sha256_file(shard) == hashes[sv][psid]
+    if (found, repaired) != (1, 1) or not restored:
+        raise AssertionError(f"targeted scrub: found {found}, repaired "
+                             f"{repaired}, shard restored {restored}")
+    stub = volume_stub(gather.url)
+    stub.VolumeEcShardsUnmount(volume_server_pb2.VolumeEcShardsUnmountRequest(
+        volume_id=sv, shard_ids=copied))
+    stub.VolumeEcShardsDelete(volume_server_pb2.VolumeEcShardsDeleteRequest(
+        volume_id=sv, collection="smoke", shard_ids=copied))
+    out["scrub"] = dict(
+        all_seconds=scrub_secs, stripes=stripes,
+        all_launches=launches.per_phase["maintenance_scrub_all"],
+        targeted_seconds=target_secs, found=found, repaired=repaired,
+        targeted_launches=launches.per_phase["maintenance_scrub_targeted"])
+    log(f"  (l) scrub_all_now(): {len(servers)} passes in "
+        f"{scrub_secs:.3f} s, {stripes} stripes verified, nothing found, "
+        f"{launches.per_phase['maintenance_scrub_all']} gf_linear launches "
+        f"(every shard of volume {sv} gathered on {gather.url} first); one "
+        f"byte of .ec{psid:02d} flipped, volume.scrub -volumeId={sv}: found "
+        f"1, repaired 1 in {target_secs:.3f} s, "
+        f"{launches.per_phase['maintenance_scrub_targeted']} gf_linear "
+        f"launches, the shard hashes as in (k) [{card}]")
+
+    # (m) the EC shards of one volume tiered on every holder, read, back
+    ev = vids[-1]
+    esample = {f: r for f, r in sample.items()
+               if parse_fid(f).volume_id == ev}
+    t0 = time.perf_counter()
+    text = sh.run_command(f"volume.tier.upload -volumeId={ev} "
+                          f"-dest={TIER_BACKEND}")
+    eup = time.perf_counter() - t0
+    remote = [s for vs in servers if vs.store.find_ec_volume(ev)
+              for s in vs.store.find_ec_volume(ev).shards.values()]
+    if len(remote) != 14 or not all(s.is_remote for s in remote):
+        raise AssertionError(f"EC tier upload:\n{text}")
+    _, eread = launches.run("maintenance_ec_tier_read", read_back, servers,
+                            esample, buf, none=True)
+    t0 = time.perf_counter()
+    text = sh.run_command(f"volume.tier.download -volumeId={ev}")
+    edown = time.perf_counter() - t0
+    if [sha256_file(p) for p in shard_paths_of(servers, "smoke", ev)] != \
+            hashes[ev]:
+        raise AssertionError(f"EC tier download:\n{text}")
+    out["ec_tier"] = dict(upload_seconds=eup, download_seconds=edown,
+                          read_seconds=eread, reads=len(esample))
+    log(f"  (m) volume.tier.upload of volume {ev}'s 14 shards on their "
+        f"holders {eup:.3f} s; {len(esample)} reads through the tier "
+        f"{eread:.3f} s, byte-identical; volume.tier.download "
+        f"{edown:.3f} s, shard hashes as in (k) [{card}]")
+
+    # (n) collections
+    from seaweedfs_tpu_torch.pb import master_pb2, master_stub
+    if "collection: smoke" not in sh.run_command("collection.list"):
+        raise AssertionError("collection.list shows no smoke")
+    stats = master_stub(master.url).Statistics(master_pb2.StatisticsRequest())
+    text = sh.run_command("cluster.status")
+    if f"used bytes: {stats.used_size}\n" not in text or \
+            f"files: {stats.file_count}\n" not in text:
+        raise AssertionError(f"cluster.status:\n{text}\nagainst {stats}")
+    _, col_secs = launches.run("maintenance_collection_delete",
+                               sh.run_command,
+                               "collection.delete -collection=smoke",
+                               none=True)
+    left = [n for vs in servers
+            for n in os.listdir(vs.store.locations[0].directory)
+            if n.startswith("smoke_")]
+    if left:
+        raise AssertionError(f"collection.delete left {left[:10]}")
+    wait_until(lambda: not any(master.topo.lookup(x, "smoke") or
+                               master.topo.lookup_ec(x) for x in vids),
+               30, "no smoke volume in the topology")
+    out["collections"] = dict(delete_seconds=col_secs)
+    log(f"  (n) collection.list shows smoke; cluster.status matches "
+        f"Statistics; collection.delete: {col_secs:.3f} s, no smoke file "
+        f"on any server and no smoke volume in the topology [{card}]")
     return out
 
 
@@ -2091,7 +2557,8 @@ def main() -> int:
         scrub_mesh = phase_scrub_mesh(workdir, ctx, args.seed, "cuda")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log("phase 8: the service path (master, volume servers, shell, CLI)")
+    log("phase 8: the service path (master, volume servers, shell, CLI), "
+        "and phase 9 on its cluster")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_service_")
     try:
         service = phase_service(workdir, args.seed, "cuda", card=card,

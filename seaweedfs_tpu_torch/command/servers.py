@@ -6,6 +6,11 @@ weed/command/master.go:29-46 and volume.go:65-90) for the flags the port
 carries. ``-ec.encoder`` takes ``cuda`` (the default) or ``cpu``;
 any other name is refused. Each subcommand blocks until SIGINT or
 SIGTERM, then stops its server.
+
+Both read master.toml (``util/config.py``: the working directory, then
+``$HOME/.seaweedfs``): the master its ``master.maintenance.scripts`` and
+``sleep_minutes``, the volume server its ``[storage.backend.<scheme>.
+<id>]`` tier targets.
 """
 
 from __future__ import annotations
@@ -54,6 +59,17 @@ def _master_parser() -> argparse.ArgumentParser:
                    type=int, default=30 * 1000)
     p.add_argument("-pulseSeconds", dest="pulse_seconds", type=float,
                    default=5.0)
+    p.add_argument("-garbageThreshold", dest="garbage_threshold",
+                   type=float, default=0.3,
+                   help="vacuum volumes whose garbage ratio reaches this")
+    p.add_argument("-scrub.intervalSeconds", dest="scrub_interval_s",
+                   type=float, default=0.0,
+                   help="open one scrub pass per volume server every "
+                        "N seconds, staggered across the servers "
+                        "(0 = disabled)")
+    p.add_argument("-scrubMBps", dest="scrub_throttle_mbps", type=float,
+                   default=0.0,
+                   help="IO budget handed to each scheduled scrub")
     return p
 
 
@@ -61,12 +77,21 @@ def _master_parser() -> argparse.ArgumentParser:
 def run_master(args) -> int:
     opts = _master_parser().parse_args(args)
     from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.util import config
     if opts.mdir:
         os.makedirs(opts.mdir, exist_ok=True)
+    conf = config.load_configuration("master")
+    scripts = conf.get("master.maintenance.scripts") or []
+    sleep_minutes = conf.get("master.maintenance.sleep_minutes", 17)
     return _serve_until_signalled(MasterServer(
         ip=opts.ip, port=opts.port, meta_dir=opts.mdir,
         volume_size_limit_mb=opts.volume_size_limit_mb,
-        pulse_seconds=opts.pulse_seconds))
+        pulse_seconds=opts.pulse_seconds,
+        garbage_threshold=opts.garbage_threshold,
+        maintenance_scripts=list(scripts),
+        maintenance_interval_s=float(sleep_minutes) * 60,
+        scrub_interval_s=opts.scrub_interval_s,
+        scrub_throttle_mbps=opts.scrub_throttle_mbps))
 
 
 def _volume_parser() -> argparse.ArgumentParser:
@@ -117,6 +142,10 @@ def _volume_parser() -> argparse.ArgumentParser:
                    default=10.0,
                    help="floor for the hedge delay (the tracked p95 "
                         "takes over once measured)")
+    p.add_argument("-compactionMBps", dest="compaction_mbps", type=float,
+                   default=0.0,
+                   help="pace of vacuum scans and volume file copies "
+                        "(0 = unthrottled)")
     return p
 
 
@@ -124,6 +153,7 @@ def _volume_parser() -> argparse.ArgumentParser:
 def run_volume(args) -> int:
     opts = _volume_parser().parse_args(args)
     from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.util import config
     dirs = _split_dirs(opts.dir)
     maxes = [int(x) for x in str(opts.max).split(",")]
     if len(maxes) == 1:
@@ -135,4 +165,7 @@ def run_volume(args) -> int:
         ec_mesh=opts.ec_mesh, needle_map_kind=opts.needle_map_kind,
         cache_size_mb=opts.cache_size_mb, cache_dir=opts.cache_dir or None,
         hedge_reads=opts.resilience_hedge,
-        hedge_delay_ms=opts.resilience_hedge_delay_ms))
+        hedge_delay_ms=opts.resilience_hedge_delay_ms,
+        compaction_mbps=opts.compaction_mbps,
+        storage_backends=config.storage_backend_conf(
+            config.load_configuration("master"))))

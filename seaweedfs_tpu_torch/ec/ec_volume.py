@@ -76,28 +76,89 @@ def _get_recover_pool() -> ThreadPoolExecutor:
 
 
 class EcVolumeShard:
-    """One mounted local .ecNN shard (reference ec_shard.go:16-95)."""
+    """One mounted .ecNN shard (reference ec_shard.go:16-95).
+
+    A shard is local (a file, read with pread) or remote: its bytes were
+    moved to an object store (``storage/volume_tier``, recorded in the
+    ``<base>.ectier`` sidecar) and reads are ranged reads of it. A remote
+    shard stays mounted and in the heartbeat, so needle reads, scrub,
+    remote shard reads and reconstructions read it like a local one."""
 
     def __init__(self, directory: str, collection: str, vid: int,
-                 shard_id: int):
+                 shard_id: int, remote=None):
         self.collection = collection
         self.volume_id = vid
         self.shard_id = shard_id
         name = f"{collection}_{vid}" if collection else str(vid)
         self.path = shard_file_name(os.path.join(directory, name), shard_id)
-        self._fd = os.open(self.path, os.O_RDONLY)
-        self.size = os.fstat(self._fd).st_size
+        self._lock = threading.Lock()
+        # read_at peeks both lock-free; a swap sets the new handle before
+        # it clears the old one, so a read finds one of them
+        self._remote = None  # guarded_by(self._lock, writes)
+        self._fd = -1  # guarded_by(self._lock, writes)
+        if remote is not None:
+            storage, key, size = remote
+            self._remote = (storage, key)
+            self.size = size
+        else:
+            self._fd = os.open(self.path, os.O_RDONLY)
+            self.size = os.fstat(self._fd).st_size
+
+    @property
+    def is_remote(self) -> bool:
+        return self._remote is not None
 
     def read_at(self, offset: int, length: int) -> bytes:
         fd = self._fd
-        if fd < 0:
+        if fd >= 0:
+            try:
+                return os.pread(fd, length, offset)
+            except OSError:
+                # swapped to the backend (and the file closed) mid-read
+                if self._remote is None:
+                    raise
+        remote = self._remote
+        if remote is None:
             raise ValueError(f"shard {self.path} is closed")
-        return os.pread(fd, length, offset)
+        storage, key = remote
+        try:
+            return storage.read_range(key, offset, length)
+        except Exception:
+            # swapped back to a local file (and the object deleted)
+            # between the peek and the read: read the file, if so
+            fd = self._fd
+            if fd < 0:
+                raise
+            return os.pread(fd, length, offset)
 
-    def close(self) -> None:
-        fd, self._fd = self._fd, -1
+    def swap_to_remote(self, storage, key: str, size: int) -> None:
+        """Read from the backend from now on (the tier upload's handle
+        swap; the caller removes the local file afterwards)."""
+        with self._lock:
+            self._remote = (storage, key)
+            self.size = size
+            fd, self._fd = self._fd, -1
         if fd >= 0:
             os.close(fd)
+
+    def swap_to_local(self) -> None:
+        """Back to the local file (the tier download put it back)."""
+        fd = os.open(self.path, os.O_RDONLY)
+        with self._lock:
+            self._fd = fd
+            self.size = os.fstat(fd).st_size
+            self._remote = None
+
+    def close(self) -> None:
+        with self._lock:
+            fd, self._fd = self._fd, -1
+        if fd >= 0:
+            os.close(fd)
+
+    def destroy(self) -> None:
+        self.close()
+        if os.path.exists(self.path):
+            os.remove(self.path)
 
 
 class EcVolume:
@@ -165,8 +226,24 @@ class EcVolume:
         with self._lock:
             if shard_id not in self.shards:
                 self.shards[shard_id] = EcVolumeShard(
-                    self.directory, self.collection, self.volume_id, shard_id)
+                    self.directory, self.collection, self.volume_id,
+                    shard_id, remote=self._remote_info(shard_id))
             return self.shards[shard_id]
+
+    def _remote_info(self, shard_id: int):
+        """(storage, key, size) of a shard this server moved to a backend
+        (the ``<base>.ectier`` sidecar), else None: a restart remounts
+        tiered shards without their local files."""
+        if os.path.exists(shard_file_name(self.base_name, shard_id)):
+            return None             # a local file wins
+        from seaweedfs_tpu_torch.storage import backend as bk
+        info = bk.read_ec_tier_info(self.base_name)
+        if info is None:
+            return None
+        rec = info["shards"].get(shard_id)
+        if rec is None:
+            return None
+        return bk.get_backend(info["backend"]), rec["key"], rec["size"]
 
     def unmount_shard(self, shard_id: int) -> bool:
         with self._lock:
@@ -385,6 +462,20 @@ class EcVolume:
             self.shards.clear()
             self._ecx.close()
             self._ecj.close()
+
+    def destroy(self) -> None:
+        """Remove this volume's local EC files: its mounted shards, the
+        .ecx/.ecj and the .ectier sidecar."""
+        with self._lock:
+            for s in list(self.shards.values()):
+                s.destroy()
+            self.shards.clear()
+            self._ecx.close()
+            self._ecj.close()
+            for ext in (".ecx", ".ecj", ".ectier"):
+                p = self.base_name + ext
+                if os.path.exists(p):
+                    os.remove(p)
 
     def file_count(self) -> int:
         return int((self._sizes >= 0).sum())

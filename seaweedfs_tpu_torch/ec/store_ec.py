@@ -288,6 +288,22 @@ def delete_ec_needle(store: Store, vid: int, n: Needle,
         cache.invalidate(vid, n.id, reason="delete")
 
 
+def scrub_ec_volume(store: Store, vid: int, backend: str = "cuda",
+                    mbps: float = 0.0, on_repair=None):
+    """Targeted scrub of ONE mounted EC volume: needle sweep, stripe
+    verify on the card (``backend="cuda"``) and, where damaged,
+    quarantine and reconstruction; the store-level form of the daemon's
+    whole-store pass. Returns the scrub PassResult."""
+    from seaweedfs_tpu_torch.scrub import ScrubDaemon
+    if store.find_ec_volume(vid) is None:
+        raise EcShardNotFound(f"ec volume {vid} not mounted")
+    # export_lag=False: a one-off pass must not take the process-wide
+    # scan-lag gauge from the server's own daemon
+    daemon = ScrubDaemon(store, backend=backend, mbps=mbps,
+                         export_lag=False, on_repair=on_repair)
+    return daemon.run_pass(volume_ids=[vid])
+
+
 def ec_shards_to_volume(store: Store, vid: int, collection: str = "",
                         backend: str = "cuda",
                         large_block: int = encoder.LARGE_BLOCK_SIZE,

@@ -187,6 +187,37 @@ LookupEcVolumeResponse.EcShardIdLocation = message("EcShardIdLocation", [
     ("locations", 2, "message", REPEATED, "Location"),
 ])
 
+# -- statistics, collections, vacuum -------------------------------------------
+
+StatisticsRequest = message("StatisticsRequest", [
+    ("replication", 1, "string"),
+    ("collection", 2, "string"),
+    ("ttl", 3, "string"),
+])
+StatisticsResponse = message("StatisticsResponse", [
+    ("total_size", 4, "uint64"),
+    ("used_size", 5, "uint64"),
+    ("file_count", 6, "uint64"),
+])
+
+Collection = message("Collection", [("name", 1, "string")])
+CollectionListRequest = message("CollectionListRequest", [
+    ("include_normal_volumes", 1, "bool"),
+    ("include_ec_volumes", 2, "bool"),
+])
+CollectionListResponse = message("CollectionListResponse", [
+    ("collections", 1, "message", REPEATED, "Collection"),
+])
+CollectionDeleteRequest = message("CollectionDeleteRequest", [
+    ("name", 1, "string"),
+])
+CollectionDeleteResponse = message("CollectionDeleteResponse", [])
+
+VacuumVolumeRequest = message("VacuumVolumeRequest", [
+    ("garbage_threshold", 1, "float"),
+])
+VacuumVolumeResponse = message("VacuumVolumeResponse", [])
+
 # -- config / admin lock -------------------------------------------------------
 
 GetMasterConfigurationRequest = message("GetMasterConfigurationRequest", [])
@@ -225,7 +256,14 @@ SERVICES = {
         ("LookupVolume", LookupVolumeRequest, LookupVolumeResponse,
          False, False),
         ("Assign", AssignRequest, AssignResponse, False, False),
+        ("Statistics", StatisticsRequest, StatisticsResponse, False, False),
+        ("CollectionList", CollectionListRequest, CollectionListResponse,
+         False, False),
+        ("CollectionDelete", CollectionDeleteRequest,
+         CollectionDeleteResponse, False, False),
         ("VolumeList", VolumeListRequest, VolumeListResponse, False, False),
+        ("VacuumVolume", VacuumVolumeRequest, VacuumVolumeResponse,
+         False, False),
         ("LookupEcVolume", LookupEcVolumeRequest, LookupEcVolumeResponse,
          False, False),
         ("GetMasterConfiguration", GetMasterConfigurationRequest,

@@ -67,6 +67,158 @@ CopyFileResponse = message("CopyFileResponse", [
     ("file_content", 1, "bytes"),
 ])
 
+VolumeCopyRequest = message("VolumeCopyRequest", [
+    ("volume_id", 1, "uint32"),
+    ("collection", 2, "string"),
+    ("replication", 3, "string"),
+    ("ttl", 4, "string"),
+    ("source_data_node", 5, "string"),
+])
+VolumeCopyResponse = message("VolumeCopyResponse", [
+    ("last_append_at_ns", 1, "uint64"),
+])
+
+# -- vacuum --------------------------------------------------------------------
+
+VacuumVolumeCheckRequest = message("VacuumVolumeCheckRequest", _VID)
+VacuumVolumeCheckResponse = message("VacuumVolumeCheckResponse", [
+    ("garbage_ratio", 1, "double"),
+])
+VacuumVolumeCompactRequest = message("VacuumVolumeCompactRequest", [
+    ("volume_id", 1, "uint32"),
+    ("preallocate", 2, "int64"),
+])
+VacuumVolumeCompactResponse = _empty("VacuumVolumeCompactResponse")
+VacuumVolumeCommitRequest = message("VacuumVolumeCommitRequest", _VID)
+VacuumVolumeCommitResponse = message("VacuumVolumeCommitResponse", [
+    ("is_read_only", 1, "bool"),
+])
+VacuumVolumeCleanupRequest = message("VacuumVolumeCleanupRequest", _VID)
+VacuumVolumeCleanupResponse = _empty("VacuumVolumeCleanupResponse")
+
+# -- collection and needle admin -----------------------------------------------
+
+DeleteCollectionRequest = message("DeleteCollectionRequest", [
+    ("collection", 1, "string"),
+])
+DeleteCollectionResponse = _empty("DeleteCollectionResponse")
+
+BatchDeleteRequest = message("BatchDeleteRequest", [
+    ("file_ids", 1, "string", REPEATED),
+    ("skip_cookie_check", 2, "bool"),
+])
+DeleteResult = message("DeleteResult", [
+    ("file_id", 1, "string"),
+    ("status", 2, "int32"),
+    ("error", 3, "string"),
+    ("size", 4, "uint32"),
+    ("version", 5, "uint32"),
+])
+BatchDeleteResponse = message("BatchDeleteResponse", [
+    ("results", 1, "message", REPEATED, "DeleteResult"),
+])
+
+VolumeServerLeaveRequest = _empty("VolumeServerLeaveRequest")
+VolumeServerLeaveResponse = _empty("VolumeServerLeaveResponse")
+
+VolumeNeedleStatusRequest = message("VolumeNeedleStatusRequest", [
+    ("volume_id", 1, "uint32"),
+    ("needle_id", 2, "uint64"),
+])
+VolumeNeedleStatusResponse = message("VolumeNeedleStatusResponse", [
+    ("needle_id", 1, "uint64"),
+    ("cookie", 2, "uint32"),
+    ("size", 3, "uint32"),
+    ("last_modified", 4, "uint64"),
+    ("crc", 5, "uint32"),
+    ("ttl", 6, "string"),
+])
+
+VolumeConfigureRequest = message("VolumeConfigureRequest", [
+    ("volume_id", 1, "uint32"),
+    ("replication", 2, "string"),
+])
+VolumeConfigureResponse = message("VolumeConfigureResponse", [
+    ("error", 1, "string"),
+])
+
+QueryRequest = message("QueryRequest", [
+    ("from_file_ids", 1, "string", REPEATED),
+    ("filter", 2, "message", SINGLE, "Filter"),
+    ("selections", 3, "string", REPEATED),
+])
+QueryRequest.Filter = message("Filter", [
+    ("field", 1, "string"),
+    ("operand", 2, "string"),
+    ("value", 3, "string"),
+])
+QueriedStripe = message("QueriedStripe", [
+    ("records", 1, "bytes"),
+])
+
+# -- sync status, incremental copy and tail ------------------------------------
+
+VolumeSyncStatusRequest = message("VolumeSyncStatusRequest", _VID)
+VolumeSyncStatusResponse = message("VolumeSyncStatusResponse", [
+    ("volume_id", 1, "uint32"),
+    ("collection", 2, "string"),
+    ("replication", 4, "string"),
+    ("ttl", 5, "string"),
+    ("tail_offset", 6, "uint64"),
+    ("compact_revision", 7, "uint32"),
+    ("idx_file_size", 8, "uint64"),
+])
+VolumeIncrementalCopyRequest = message("VolumeIncrementalCopyRequest", [
+    ("volume_id", 1, "uint32"),
+    ("since_ns", 2, "uint64"),
+])
+VolumeIncrementalCopyResponse = message("VolumeIncrementalCopyResponse", [
+    ("file_content", 1, "bytes"),
+])
+VolumeTailSenderRequest = message("VolumeTailSenderRequest", [
+    ("volume_id", 1, "uint32"),
+    ("since_ns", 2, "uint64"),
+    ("idle_timeout_seconds", 3, "uint32"),
+])
+VolumeTailSenderResponse = message("VolumeTailSenderResponse", [
+    ("needle_header", 1, "bytes"),
+    ("needle_body", 2, "bytes"),
+    ("is_last_chunk", 3, "bool"),
+])
+VolumeTailReceiverRequest = message("VolumeTailReceiverRequest", [
+    ("volume_id", 1, "uint32"),
+    ("since_ns", 2, "uint64"),
+    ("idle_timeout_seconds", 3, "uint32"),
+    ("source_volume_server", 4, "string"),
+])
+VolumeTailReceiverResponse = _empty("VolumeTailReceiverResponse")
+
+# -- tiers ---------------------------------------------------------------------
+
+VolumeTierMoveDatToRemoteRequest = message(
+    "VolumeTierMoveDatToRemoteRequest", [
+        ("volume_id", 1, "uint32"),
+        ("collection", 2, "string"),
+        ("destination_backend_name", 3, "string"),
+        ("keep_local_dat_file", 4, "bool"),
+    ])
+VolumeTierMoveDatToRemoteResponse = message(
+    "VolumeTierMoveDatToRemoteResponse", [
+        ("processed", 1, "int64"),
+        ("processed_percentage", 2, "float"),
+    ])
+VolumeTierMoveDatFromRemoteRequest = message(
+    "VolumeTierMoveDatFromRemoteRequest", [
+        ("volume_id", 1, "uint32"),
+        ("collection", 2, "string"),
+        ("keep_remote_dat_file", 3, "bool"),
+    ])
+VolumeTierMoveDatFromRemoteResponse = message(
+    "VolumeTierMoveDatFromRemoteResponse", [
+        ("processed", 1, "int64"),
+        ("processed_percentage", 2, "float"),
+    ])
+
 # -- erasure coding ------------------------------------------------------------
 
 VolumeEcShardsGenerateRequest = message("VolumeEcShardsGenerateRequest", [
@@ -198,6 +350,12 @@ def _unary(name):
     return (name, g[f"{name}Request"], g[f"{name}Response"], False, False)
 
 
+def _server_streaming(name, response=None):
+    g = globals()
+    return (name, g[f"{name}Request"], response or g[f"{name}Response"],
+            False, True)
+
+
 # service -> [(method, request, response, client streaming, server
 # streaming)]; only the methods the port serves
 SERVICES = {
@@ -209,7 +367,24 @@ SERVICES = {
         _unary("VolumeMarkReadonly"),
         _unary("VolumeMarkWritable"),
         _unary("ReadVolumeFileStatus"),
-        ("CopyFile", CopyFileRequest, CopyFileResponse, False, True),
+        _server_streaming("CopyFile"),
+        _unary("VolumeCopy"),
+        _unary("VacuumVolumeCheck"),
+        _unary("VacuumVolumeCompact"),
+        _unary("VacuumVolumeCommit"),
+        _unary("VacuumVolumeCleanup"),
+        _unary("DeleteCollection"),
+        _unary("BatchDelete"),
+        _unary("VolumeServerLeave"),
+        _unary("VolumeNeedleStatus"),
+        _unary("VolumeConfigure"),
+        _server_streaming("Query", QueriedStripe),
+        _unary("VolumeSyncStatus"),
+        _server_streaming("VolumeIncrementalCopy"),
+        _server_streaming("VolumeTailSender"),
+        _unary("VolumeTailReceiver"),
+        _server_streaming("VolumeTierMoveDatToRemote"),
+        _server_streaming("VolumeTierMoveDatFromRemote"),
         _unary("VolumeEcShardsGenerate"),
         _unary("VolumeEcShardsRebuild"),
         _unary("VolumeEcShardsCopy"),

@@ -336,8 +336,10 @@ class ScrubDaemon:
             d.first_mismatch = dict(vr.first_mismatch)
             d.parity_checked = list(vr.parity_checked)
             # a shard file gone while this server still has it mounted is
-            # local damage; shards on OTHER servers are theirs to scrub
-            d.missing = [s for s in vr.missing if s in ecv.shards]
+            # local damage; shards on OTHER servers are theirs to scrub,
+            # and a tiered shard's bytes are the backend's
+            d.missing = [s for s in vr.missing if s in ecv.shards
+                         and not ecv.shards[s].is_remote]
             res.stripes_verified += vr.spans
             res.bytes_scanned += vr.bytes_verified
             ScrubStripesVerifiedCounter.inc(vr.spans)

@@ -1,18 +1,28 @@
 """Master server: the cluster's control plane, one master.
 
-Owns the Topology, assigns file ids, grows volumes and feeds clients a
-live vid -> location view over the KeepConnected stream. The port of
-``seaweedfs_tpu.server.master`` for a single master: the max volume id
-and the file-id sequence survive a restart from ``-mdir`` (a state file
-written before a grown volume id is used, and at stop), as the JAX
-package's single-node raft log gives. Left out: raft with peers, vacuum,
-the maintenance and scrub-stagger loops, lifecycle, heat and QoS views,
-and replication other than ``000`` (a write or grow that asks for it is
-refused).
+Owns the Topology, assigns file ids, grows volumes, drives vacuum and
+feeds clients a live vid -> location view over the KeepConnected stream.
+The port of ``seaweedfs_tpu.server.master`` for a single master: the max
+volume id and the file-id sequence survive a restart from ``-mdir`` (a
+state file written before a grown volume id is used, and at stop), as
+the JAX package's single-node raft log gives.
+
+Two optional loops do the cluster's upkeep with no operator: the
+maintenance cron runs master.toml's ``master.maintenance.scripts``
+through the shell every ``sleep_minutes`` (reference
+master_server.go:187-263), and the scrub scheduler opens one scrub pass
+on every volume server per ``-scrub.intervalSeconds``, staggered over
+the window. Neither thread exists unless its scripts or interval are
+set. Both run only on the leader; with one master that is always this
+one, and the checks stay calls so that raft with peers can slot in.
+
+Left out: raft with peers, lifecycle, heat and QoS views, ``/status``
+and the UI, and replication other than ``000`` (a write or grow that
+asks for it is refused).
 
 Reference: weed/server/master_server.go, master_grpc_server.go
 (SendHeartbeat :20-176, KeepConnected :178-233),
-master_server_handlers*.go.
+master_server_handlers*.go, topology/topology_vacuum.go.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 from urllib.parse import parse_qs
 
 from seaweedfs_tpu_torch import rpc
@@ -88,14 +98,33 @@ class AdminLock:
                 self._ts_ns = 0
 
 
+def plan_scrub_stagger(urls: List[str],
+                       interval_s: float) -> List[tuple]:
+    """Spread one scrub window over the servers: [(url, wait_before_s)].
+
+    Server i starts interval_s / n after server i - 1, so every server
+    is covered once per interval and at most one starts its scan at any
+    moment."""
+    if not urls:
+        return []
+    gap = interval_s / len(urls)
+    return [(url, 0.0 if i == 0 else gap) for i, url in enumerate(urls)]
+
+
 class MasterServer:
     def __init__(self, ip: str = "127.0.0.1", port: int = 9333,
                  meta_dir: Optional[str] = None,
                  volume_size_limit_mb: int = 30 * 1024,
-                 pulse_seconds: float = 5.0):
+                 pulse_seconds: float = 5.0,
+                 garbage_threshold: float = 0.3,
+                 maintenance_scripts: Optional[List[str]] = None,
+                 maintenance_interval_s: float = 17 * 60,
+                 scrub_interval_s: float = 0.0,
+                 scrub_throttle_mbps: float = 0.0):
         self.ip = ip
         self.port = port
         self.meta_dir = meta_dir
+        self.garbage_threshold = garbage_threshold
         state = self._load_state()
         self.topo = Topology(
             volume_size_limit=volume_size_limit_mb << 20,
@@ -117,6 +146,20 @@ class MasterServer:
         self._sub_seq = 0  # guarded_by(self._sub_lock)
         self._sub_lock = threading.Lock()
         self._stopping = False
+        # the maintenance cron (master.toml master.maintenance.scripts,
+        # every sleep_minutes): no thread unless scripts are set
+        self.maintenance_scripts = list(maintenance_scripts or [])
+        self.maintenance_interval_s = maintenance_interval_s
+        self._maint_thread: Optional[threading.Thread] = None
+        self._maint_wake = threading.Event()
+        # passes finished, and scripts that failed; read by tests and ops
+        self.maintenance_passes = 0
+        self.maintenance_failures = 0
+        # the scrub scheduler (0 = no thread)
+        self.scrub_interval_s = scrub_interval_s
+        self.scrub_throttle_mbps = scrub_throttle_mbps
+        self._scrub_thread: Optional[threading.Thread] = None
+        self._scrub_wake = threading.Event()
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -137,18 +180,172 @@ class MasterServer:
             target=self._http_server.serve_forever, name="master-http",
             daemon=True)
         self._http_thread.start()
+        if self.maintenance_scripts:
+            # lint: thread-ok(maintenance cron daemon; no request context)
+            self._maint_thread = threading.Thread(
+                target=self._maintenance_loop, name="master-maintenance",
+                daemon=True)
+            self._maint_thread.start()
+        if self.scrub_interval_s > 0:
+            # lint: thread-ok(scrub scheduler daemon; no request context)
+            self._scrub_thread = threading.Thread(
+                target=self._scrub_loop, name="master-scrub", daemon=True)
+            self._scrub_thread.start()
         log.info("master %s started (rpc :%d)", self.url,
                  self.port + rpc.GRPC_PORT_OFFSET)
 
     def stop(self) -> None:
         log.info("master %s stopping", self.url)
         self._stopping = True
+        self._maint_wake.set()
+        self._scrub_wake.set()
+        for th in (self._maint_thread, self._scrub_thread):
+            if th is not None:
+                th.join(timeout=30)
         self._save_state()
         if self._http_server:
             self._http_server.shutdown()
             self._http_server.server_close()
         if self._grpc_server:
             self._grpc_server.stop()
+
+    @property
+    def is_leader(self) -> bool:
+        """One master leads alone; raft with peers replaces this."""
+        return True
+
+    # -- maintenance cron ----------------------------------------------------
+
+    def _maintenance_loop(self) -> None:
+        """Leader only: run the configured shell scripts every interval,
+        so EC encode and rebuild (and vacuum, when scripted) happen with
+        no operator (reference master_server.go:187-263). A script that
+        fails is logged and counted; the pass goes on with the next."""
+        while not self._stopping:
+            self._maint_wake.wait(timeout=self.maintenance_interval_s)
+            self._maint_wake.clear()
+            if self._stopping:
+                return
+            if self.is_leader:
+                self._run_maintenance_pass()
+            self.maintenance_passes += 1
+
+    def _run_maintenance_pass(self) -> None:
+        from seaweedfs_tpu_torch.shell import CommandError, Shell
+        sh = Shell(self.url)
+        for script in self.maintenance_scripts:
+            if self._stopping:
+                return
+            if not self.is_leader:
+                log.info("maintenance: lost leadership mid-pass; "
+                         "leaving the remaining scripts")
+                return
+            try:
+                out = sh.run_command(script)
+                if out.strip():
+                    log.info("maintenance %r:\n%s", script, out.strip())
+            except CommandError as e:
+                self.maintenance_failures += 1
+                log.warning("maintenance %r failed: %s", script, e)
+            except Exception:  # noqa: BLE001 - the cron outlives a script
+                self.maintenance_failures += 1
+                log.exception("maintenance %r crashed", script)
+
+    def run_maintenance_now(self) -> None:
+        """Start one cron pass now (maintenance_passes counts it when it
+        ends)."""
+        self._maint_wake.set()
+
+    # -- scrub scheduler -----------------------------------------------------
+
+    def _scrub_loop(self) -> None:
+        """Leader only: once per scrub_interval_s, start a scrub pass on
+        every volume server, staggered across the window. The stagger
+        waits are spent inside the window, so each server's period is the
+        interval, not the interval plus the stagger."""
+        while not self._stopping:
+            cycle_start = time.monotonic()
+            if self.is_leader:
+                urls = sorted(n.url for n in self.topo.nodes())
+                for url, wait in plan_scrub_stagger(urls,
+                                                    self.scrub_interval_s):
+                    if wait > 0:
+                        self._scrub_wake.wait(timeout=wait)
+                        self._scrub_wake.clear()
+                    if self._stopping or not self.is_leader:
+                        break
+                    self._start_scrub_on(url)
+            if self._stopping:
+                return
+            remainder = self.scrub_interval_s - \
+                (time.monotonic() - cycle_start)
+            if remainder > 0:
+                self._scrub_wake.wait(timeout=remainder)
+                self._scrub_wake.clear()
+
+    def _start_scrub_on(self, url: str) -> bool:
+        try:
+            resp = volume_stub(url).VolumeScrubStart(
+                volume_server_pb2.VolumeScrubStartRequest(
+                    throttle_mbps=self.scrub_throttle_mbps))
+        except rpc.RpcError as e:
+            log.warning("scrub start on %s failed: %s", url, e.code().name)
+            return False
+        if resp.started:
+            log.info("scrub window opened on %s", url)
+        return resp.started
+
+    def scrub_all_now(self) -> List[str]:
+        """Start a scrub pass on every volume server now, without the
+        stagger. Returns the urls that accepted."""
+        return [n.url for n in self.topo.nodes()
+                if self._start_scrub_on(n.url)]
+
+    # -- vacuum across the cluster -----------------------------------------
+
+    def vacuum(self, garbage_threshold: Optional[float] = None) -> List[int]:
+        """Compact every writable volume whose garbage ratio is at least
+        the threshold, on all its replicas (reference
+        topology/topology_vacuum.go:17-201). Returns the compacted ids."""
+        threshold = garbage_threshold or self.garbage_threshold
+        compacted = []
+        seen: Set[int] = set()
+        for node in self.topo.nodes():
+            for vid, info in list(node.volumes.items()):
+                if vid in seen or info.read_only:
+                    continue
+                seen.add(vid)
+                replicas = self.topo.lookup(vid, info.collection) or [node]
+                try:
+                    if self._vacuum_one(vid, replicas, threshold):
+                        compacted.append(vid)
+                except rpc.RpcError as e:
+                    # failed mid-compaction: clean up on every replica
+                    log.warning("vacuum of volume %d failed: %s", vid, e)
+                    for r in replicas:
+                        try:
+                            volume_stub(r.url).VacuumVolumeCleanup(
+                                volume_server_pb2.VacuumVolumeCleanupRequest(
+                                    volume_id=vid))
+                        except rpc.RpcError as ce:
+                            log.warning("vacuum cleanup of volume %d on "
+                                        "%s failed: %s", vid, r.url, ce)
+        return compacted
+
+    def _vacuum_one(self, vid: int, replicas, threshold: float) -> bool:
+        stubs = [volume_stub(r.url) for r in replicas]
+        checks = [s.VacuumVolumeCheck(
+            volume_server_pb2.VacuumVolumeCheckRequest(volume_id=vid))
+            for s in stubs]
+        if not checks or min(c.garbage_ratio for c in checks) < threshold:
+            return False
+        for s in stubs:
+            s.VacuumVolumeCompact(volume_server_pb2.VacuumVolumeCompactRequest(
+                volume_id=vid))
+        for s in stubs:
+            s.VacuumVolumeCommit(volume_server_pb2.VacuumVolumeCommitRequest(
+                volume_id=vid))
+        return True
 
     # -- persistent state ----------------------------------------------------
 
@@ -384,6 +581,49 @@ class MasterServer:
             grown.append(vid)
         return grown
 
+    def Statistics(self, request, context):
+        used = file_count = 0
+        for node in self.topo.nodes():
+            for v in node.volumes.values():
+                if request.collection and v.collection != request.collection:
+                    continue
+                used += v.size
+                file_count += v.file_count
+        total = sum(n.max_volumes for n in self.topo.nodes()) \
+            * self.topo.volume_size_limit
+        return master_pb2.StatisticsResponse(
+            total_size=total, used_size=used, file_count=file_count)
+
+    def CollectionList(self, request, context):
+        names: Set[str] = set()
+        if request.include_normal_volumes or not request.include_ec_volumes:
+            for (col, _, _), vl in self.topo.layouts.items():
+                # a layout whose volumes are all gone names no collection
+                # (the JAX master tests the bound method, always true)
+                if vl.volume_ids():
+                    names.add(col)
+        if request.include_ec_volumes:
+            names.update(self.topo.ec_collections.values())
+        names.discard("")
+        return master_pb2.CollectionListResponse(
+            collections=[master_pb2.Collection(name=n) for n in sorted(names)])
+
+    def CollectionDelete(self, request, context):
+        for node in self.topo.nodes():
+            try:
+                volume_stub(node.url).DeleteCollection(
+                    volume_server_pb2.DeleteCollectionRequest(
+                        collection=request.name))
+            except rpc.RpcError as e:
+                # a server that is down converges at its next heartbeat
+                log.warning("collection delete on %s failed: %s",
+                            node.url, e)
+        return master_pb2.CollectionDeleteResponse()
+
+    def VacuumVolume(self, request, context):
+        self.vacuum(request.garbage_threshold or self.garbage_threshold)
+        return master_pb2.VacuumVolumeResponse()
+
     def VolumeList(self, request, context):
         return master_pb2.VolumeListResponse(
             topology_info=convert.topology_to_pb(self.topo.to_map()),
@@ -513,6 +753,10 @@ def _make_http_handler(ms: MasterServer):
                             "Version": "seaweedfs-tpu-torch"})
             elif upath == "/vol/grow":
                 self._json(ms.http_grow(params))
+            elif upath == "/vol/vacuum":
+                t = params.get("garbageThreshold", [""])[0]
+                self._json({"compacted": ms.vacuum(float(t) if t
+                                                   else None)})
             elif upath == "/cluster/status":
                 self._json(ms.http_cluster_status())
             else:

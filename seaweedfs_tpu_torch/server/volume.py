@@ -17,11 +17,17 @@ invalidates what it changes. With ``hedge_reads`` a remote shard read
 with more than one holder hedges to the next after the tracked p95
 (``resilience/hedge.py``). Both are None unless asked for.
 
-Left out (each queued in ROADMAP.md): replica fan-out (placements other than
-``000``), vacuum, volume copy/tail/backup, tiers, the breaker, heat, QoS,
-the async core's sendfile path, image resizing, query and chunk manifests
-(an upload with ``cm=true``, and a read or delete of a needle flagged as
-one, is refused with 400).
+The maintenance surface: vacuum (check, compact, commit, cleanup, paced
+by ``compaction_mbps``), whole-volume copy, sync status, incremental
+copy and tail streams, tiers (a sealed volume's .dat, or this server's
+EC shards, to a configured backend and back), collection delete, batch
+delete, needle status, configure, leave, and the JSON Query scan.
+
+Left out (each queued in ROADMAP.md): replica fan-out (placements other
+than ``000``), the breaker, heat, QoS, the async core's sendfile path,
+image resizing, the ``/ui``, ``/debug/*`` and ``/qos/status`` pages, and
+chunk manifests (an upload with ``cm=true``, and a read or delete of a
+needle flagged as one, is refused with 400).
 
 Reference: weed/server/volume_server.go, volume_server_handlers_*.go,
 volume_grpc_*.go, volume_grpc_client_to_master.go.
@@ -55,6 +61,10 @@ from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
 from seaweedfs_tpu_torch.scrub import ScrubDaemon
 from seaweedfs_tpu_torch.server import convert
 from seaweedfs_tpu_torch.stats.metrics import ScrubCorruptionsFoundCounter
+from seaweedfs_tpu_torch.storage import types as t
+from seaweedfs_tpu_torch.storage import vacuum as vacuum_mod
+from seaweedfs_tpu_torch.storage import volume_backup, volume_tier
+from seaweedfs_tpu_torch.storage.backend import BackendError
 from seaweedfs_tpu_torch.storage.needle import (FLAG_IS_COMPRESSED,
                                                 CookieMismatch,
                                                 DataCorruptionError, Needle,
@@ -62,6 +72,7 @@ from seaweedfs_tpu_torch.storage.needle import (FLAG_IS_COMPRESSED,
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.superblock import TTL
 from seaweedfs_tpu_torch.storage.volume import VolumeError
+from seaweedfs_tpu_torch.util.throttler import Throttler
 from seaweedfs_tpu_torch.util import wlog
 from seaweedfs_tpu_torch.util.http_server import (FastHandler,
                                                   make_http_server)
@@ -77,6 +88,8 @@ EC_REFRESH_PARTIAL_S = 7 * 60.0
 EC_REFRESH_FULL_S = 37 * 60.0
 # the deadline on one remote shard interval read
 REMOTE_READ_TIMEOUT_S = 15.0
+# how often a tail stream looks for new needles
+TAIL_POLL_S = 1.0
 # what a request for a chunk manifest gets until the client libraries
 # that write and resolve them are ported
 CHUNK_MANIFEST_REFUSAL = ("chunk manifests are not served by this port: "
@@ -101,8 +114,19 @@ class VolumeServer:
                  pulse_seconds: float = 5.0, ec_encoder: str = "cuda",
                  ec_mesh: bool = False, needle_map_kind: str = "memory",
                  cache_size_mb: int = 0, cache_dir: Optional[str] = None,
-                 hedge_reads: bool = False, hedge_delay_ms: float = 10.0):
+                 hedge_reads: bool = False, hedge_delay_ms: float = 10.0,
+                 compaction_mbps: float = 0.0,
+                 storage_backends: Optional[dict] = None):
         self.ec_encoder = check_encoder(ec_encoder)
+        if storage_backends:
+            # tier targets (master.toml [storage.backend.<scheme>.<id>]);
+            # an unknown scheme, or s3, fails the start
+            from seaweedfs_tpu_torch.storage import backend as _bk
+            _bk.load_configuration(storage_backends)
+        # -compactionMBps: the pace of vacuum scans and file copies
+        self.compaction_mbps = compaction_mbps
+        # vid -> the compaction VacuumVolumeCommit finishes
+        self.compact_states: Dict[int, vacuum_mod.CompactState] = {}
         self.master_url = master_url
         # the master this server last heartbeated successfully
         self.current_master = master_url.split(",")[0].strip()
@@ -307,11 +331,22 @@ class VolumeServer:
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeUnmountResponse()
 
-    def ReadVolumeFileStatus(self, request, context):
-        v = self.store.find_volume(request.volume_id)
+    def DeleteCollection(self, request, context):
+        for vid in self.store.delete_collection(request.collection):
+            self.compact_states.pop(vid, None)
+            self._invalidate_volume_cache(vid, "rebuild")
+        self.trigger_heartbeat()
+        return volume_server_pb2.DeleteCollectionResponse()
+
+    def _volume_or_abort(self, context, vid: int):
+        v = self.store.find_volume(vid)
         if v is None:
             context.abort(rpc.StatusCode.NOT_FOUND,
-                          f"volume {request.volume_id} not found")
+                          f"volume {vid} not found")
+        return v
+
+    def ReadVolumeFileStatus(self, request, context):
+        v = self._volume_or_abort(context, request.volume_id)
         base = v.file_name()
         return volume_server_pb2.ReadVolumeFileStatusResponse(
             volume_id=v.id,
@@ -322,6 +357,152 @@ class VolumeServer:
             file_count=v.file_count,
             compaction_revision=v.super_block.compaction_revision,
             collection=v.collection)
+
+    # -- rpc: vacuum ---------------------------------------------------------
+
+    def VacuumVolumeCheck(self, request, context):
+        v = self._volume_or_abort(context, request.volume_id)
+        return volume_server_pb2.VacuumVolumeCheckResponse(
+            garbage_ratio=v.garbage_ratio())
+
+    def VacuumVolumeCompact(self, request, context):
+        v = self._volume_or_abort(context, request.volume_id)
+        try:
+            self.compact_states[v.id] = vacuum_mod.compact(
+                v, preallocate=request.preallocate,
+                compaction_mbps=self.compaction_mbps)
+        except VolumeError as e:   # a tiered volume has no local .dat
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION, str(e))
+        return volume_server_pb2.VacuumVolumeCompactResponse()
+
+    def VacuumVolumeCommit(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        state = self.compact_states.pop(request.volume_id, None)
+        if v is None or state is None:
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION,
+                          f"volume {request.volume_id}: no pending "
+                          "compaction")
+        vacuum_mod.commit_compact(v, state)
+        # every needle moved: no entry of the volume may outlive it
+        self._invalidate_volume_cache(v.id, "rebuild")
+        self.trigger_heartbeat()
+        return volume_server_pb2.VacuumVolumeCommitResponse(
+            is_read_only=v.read_only)
+
+    def VacuumVolumeCleanup(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        self.compact_states.pop(request.volume_id, None)
+        if v is not None:
+            for ext in (".cpd", ".cpx"):
+                p = v.file_name() + ext
+                if os.path.exists(p):
+                    os.remove(p)
+        return volume_server_pb2.VacuumVolumeCleanupResponse()
+
+    # -- rpc: needle and volume admin ----------------------------------------
+
+    def BatchDelete(self, request, context):
+        results = []
+        for fid in request.file_ids:
+            try:
+                f = parse_fid(fid)
+            except ValueError as e:
+                results.append(volume_server_pb2.DeleteResult(
+                    file_id=fid, status=400, error=str(e)))
+                continue
+            n = Needle(id=f.key, cookie=f.cookie)
+            try:
+                if not request.skip_cookie_check:
+                    got = self.read_needle(f.volume_id, n)
+                    if got.cookie != f.cookie:
+                        raise CookieMismatch(f"cookie mismatch on {fid}")
+                    if got.is_chunk_manifest:
+                        # its chunks would go first; refused like the
+                        # reference (volume_grpc_batch_delete.go:62-69)
+                        results.append(volume_server_pb2.DeleteResult(
+                            file_id=fid, status=406,
+                            error="ChunkManifest: not allowed in batch "
+                                  "delete mode."))
+                        continue
+                size = self.delete_needle(f.volume_id, n)
+                results.append(volume_server_pb2.DeleteResult(
+                    file_id=fid, status=202, size=size))
+            except CookieMismatch as e:
+                results.append(volume_server_pb2.DeleteResult(
+                    file_id=fid, status=403, error=str(e)))
+            except (NeedleError, EcShardNotFound, VolumeError) as e:
+                results.append(volume_server_pb2.DeleteResult(
+                    file_id=fid, status=404, error=str(e)))
+        return volume_server_pb2.BatchDeleteResponse(results=results)
+
+    def VolumeServerLeave(self, request, context):
+        """Stop heartbeating, so the master forgets this server; the
+        process serves on until it is stopped."""
+        self._stopping = True
+        self._hb_wake.set()
+        if self._hb_call is not None:
+            self._hb_call.cancel()
+        return volume_server_pb2.VolumeServerLeaveResponse()
+
+    def VolumeNeedleStatus(self, request, context):
+        """One needle's metadata without its data (reference
+        volume_grpc_query.go VolumeNeedleStatus)."""
+        v = self._volume_or_abort(context, request.volume_id)
+        nv = v.nm.get(request.needle_id)
+        if nv is None or not t.size_is_valid(nv.size):
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"needle {request.needle_id} not found")
+        try:
+            # cookie 0 skips the cookie check: an admin probe
+            got = v.read_needle(Needle(id=request.needle_id, cookie=0))
+        except NeedleError as e:   # expired, torn or CRC-bad
+            context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeNeedleStatusResponse(
+            needle_id=request.needle_id, cookie=got.cookie, size=nv.size,
+            last_modified=got.append_at_ns // 1_000_000_000,
+            crc=got.checksum, ttl=str(v.ttl))
+
+    def VolumeConfigure(self, request, context):
+        """Rewrite a volume's replica placement in its superblock
+        (reference volume_grpc_admin.go:104). The port writes one copy
+        only, so a placement other than 000 is refused."""
+        from seaweedfs_tpu_torch.server.master import (
+            UnsupportedReplication, check_replication)
+        try:
+            check_replication(request.replication)
+            found = self.store.configure_volume(request.volume_id,
+                                                request.replication)
+        except (UnsupportedReplication, ValueError, VolumeError) as e:
+            return volume_server_pb2.VolumeConfigureResponse(error=str(e))
+        if not found:
+            context.abort(rpc.StatusCode.NOT_FOUND,
+                          f"volume {request.volume_id} not found")
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeConfigureResponse()
+
+    def Query(self, request, context):
+        """Scan stored JSON documents: filter and project, one stripe per
+        file id (reference volume_grpc_query.go:12-76)."""
+        from seaweedfs_tpu_torch.query import Query as JQuery
+        from seaweedfs_tpu_torch.query import query_json_lines
+        q = JQuery(field=request.filter.field, op=request.filter.operand,
+                   value=request.filter.value)
+        for fid in request.from_file_ids:
+            try:
+                f = parse_fid(fid)
+            except ValueError as e:
+                context.abort(rpc.StatusCode.INVALID_ARGUMENT, str(e))
+            try:
+                got = self.read_needle(f.volume_id,
+                                       Needle(id=f.key, cookie=f.cookie))
+            except (NeedleError, EcShardNotFound) as e:
+                context.abort(rpc.StatusCode.NOT_FOUND, f"{fid}: {e}")
+            data = gzip.decompress(got.data) if got.is_compressed \
+                else got.data
+            yield volume_server_pb2.QueriedStripe(records=b"".join(
+                json.dumps(rec).encode() + b"\n"
+                for rec in query_json_lines(
+                    data, list(request.selections), q)))
 
     # -- rpc: file copy ------------------------------------------------------
 
@@ -334,6 +515,7 @@ class VolumeServer:
                           f"no file for vid={request.volume_id} "
                           f"ext={request.ext}")
         stop = request.stop_offset or os.path.getsize(path)
+        throttler = Throttler(self.compaction_mbps)
         with open(path, "rb") as f:
             sent = 0
             while sent < stop:
@@ -341,6 +523,7 @@ class VolumeServer:
                 if not chunk:
                     break
                 sent += len(chunk)
+                throttler.maybe_slowdown(len(chunk))
                 yield volume_server_pb2.CopyFileResponse(file_content=chunk)
 
     def _file_path_for_copy(self, request) -> Optional[str]:
@@ -363,6 +546,162 @@ class VolumeServer:
                     ignore_source_file_not_found=ignore_missing)):
                 f.write(resp.file_content)
         os.replace(tmp, dest_path)
+
+    def VolumeCopy(self, request, context):
+        """Pull a whole volume (.idx, then .dat) from source_data_node and
+        mount it (reference volume_grpc_copy.go)."""
+        vid = request.volume_id
+        if self.store.find_volume(vid) is not None:
+            context.abort(rpc.StatusCode.ALREADY_EXISTS,
+                          f"volume {vid} already exists")
+        src = volume_stub(request.source_data_node)
+        status = src.ReadVolumeFileStatus(
+            volume_server_pb2.ReadVolumeFileStatusRequest(volume_id=vid))
+        loc = next((l for l in self.store.locations if l.has_free_slot()),
+                   None)
+        if loc is None:
+            context.abort(rpc.StatusCode.RESOURCE_EXHAUSTED, "no free slot")
+        base = store_ec._base_name(loc.directory, status.collection, vid)
+        try:
+            for ext in (".idx", ".dat"):
+                self._pull_file(src, vid, ext, base + ext,
+                                collection=status.collection)
+        except rpc.RpcError:
+            for ext in (".idx", ".dat"):
+                if os.path.exists(base + ext):
+                    os.remove(base + ext)
+            raise
+        v = loc.add_volume(vid, status.collection)
+        self.trigger_heartbeat()
+        return volume_server_pb2.VolumeCopyResponse(
+            last_append_at_ns=v.last_append_at_ns)
+
+    # -- rpc: sync status, incremental copy, tail ----------------------------
+
+    def VolumeSyncStatus(self, request, context):
+        """The follower's handshake (reference volume_backup.go:19-33)."""
+        v = self._volume_or_abort(context, request.volume_id)
+        return volume_server_pb2.VolumeSyncStatusResponse(
+            **volume_backup.sync_status(v))
+
+    def VolumeIncrementalCopy(self, request, context):
+        """Stream the raw .dat bytes appended after since_ns (reference
+        volume_grpc_copy_incremental.go)."""
+        v = self._volume_or_abort(context, request.volume_id)
+        offset, is_last = volume_backup.binary_search_by_append_at_ns(
+            v, request.since_ns)
+        if is_last:
+            return
+        for chunk in volume_backup.read_dat_range(v, offset):
+            yield volume_server_pb2.VolumeIncrementalCopyResponse(
+                file_content=chunk)
+
+    def VolumeTailSender(self, request, context):
+        """Stream the needles appended after since_ns, and keep following
+        until the tail stays quiet for idle_timeout_seconds (0 follows
+        until the client hangs up; reference volume_grpc_tail.go:17-64)."""
+        v = self._volume_or_abort(context, request.volume_id)
+        last_ns = request.since_ns
+        draining = request.idle_timeout_seconds
+        while True:
+            if not context.is_active():
+                return
+            progressed = False
+            offset, is_last = volume_backup.binary_search_by_append_at_ns(
+                v, last_ns)
+            if not is_last:
+                for _, n in volume_backup.scan_dat_from(v, offset):
+                    blob = n.to_bytes(v.version)
+                    yield volume_server_pb2.VolumeTailSenderResponse(
+                        needle_header=blob[:t.NEEDLE_HEADER_SIZE],
+                        needle_body=blob[t.NEEDLE_HEADER_SIZE:])
+                    if n.append_at_ns > last_ns:
+                        last_ns = n.append_at_ns
+                        progressed = True
+            if request.idle_timeout_seconds == 0:
+                time.sleep(TAIL_POLL_S)
+                continue
+            if progressed:
+                draining = request.idle_timeout_seconds
+            else:
+                draining -= 1
+                if draining <= 0:
+                    yield volume_server_pb2.VolumeTailSenderResponse(
+                        is_last_chunk=True)
+                    return
+            time.sleep(TAIL_POLL_S)
+
+    def VolumeTailReceiver(self, request, context):
+        """Pull a tail stream from source_volume_server and replay it into
+        the local volume (reference volume_grpc_tail.go:80-94)."""
+        v = self._volume_or_abort(context, request.volume_id)
+        src = volume_stub(request.source_volume_server)
+        for resp in src.VolumeTailSender(
+                volume_server_pb2.VolumeTailSenderRequest(
+                    volume_id=request.volume_id, since_ns=request.since_ns,
+                    idle_timeout_seconds=request.idle_timeout_seconds)):
+            if resp.is_last_chunk:
+                break
+            blob = bytes(resp.needle_header) + bytes(resp.needle_body)
+            n = Needle.from_bytes(blob, v.version, check_crc=False)
+            if len(n.data) == 0:
+                v.delete_needle(n)
+            else:
+                v.write_needle(n)
+            self._invalidate_needle_cache(v.id, n.id, "overwrite")
+        return volume_server_pb2.VolumeTailReceiverResponse()
+
+    # -- rpc: tiers ----------------------------------------------------------
+
+    def VolumeTierMoveDatToRemote(self, request, context):
+        """Move a sealed volume's .dat to the named backend (reference
+        volume_grpc_tier_upload.go); for an EC vid, this server's .ecNN
+        files. The .idx/.ecx stay local."""
+        v = self.store.find_volume(request.volume_id)
+        try:
+            if v is None:
+                ecv = self.store.find_ec_volume(request.volume_id)
+                if ecv is None:
+                    context.abort(rpc.StatusCode.NOT_FOUND,
+                                  f"volume {request.volume_id} not found")
+                total = volume_tier.move_ec_shards_to_remote(
+                    ecv, request.destination_backend_name,
+                    keep_local=request.keep_local_dat_file, owner=self.url)
+                pct = 100.0
+                # reads go to the backend from now on, also the cached
+                self._invalidate_volume_cache(ecv.volume_id, "rebuild")
+            else:
+                size = max(v.content_size, 1)
+                total = volume_tier.move_dat_to_remote(
+                    v, request.destination_backend_name,
+                    keep_local=request.keep_local_dat_file, owner=self.url)
+                pct = 100.0 * total / size
+        except (VolumeError, BackendError) as e:
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION, str(e))
+        self.trigger_heartbeat()
+        yield volume_server_pb2.VolumeTierMoveDatToRemoteResponse(
+            processed=total, processed_percentage=pct)
+
+    def VolumeTierMoveDatFromRemote(self, request, context):
+        """Bring a tiered volume's .dat, or this server's tiered EC
+        shards, back to local disk (reference
+        volume_grpc_tier_download.go)."""
+        v = self.store.find_volume(request.volume_id)
+        try:
+            if v is None:
+                ecv = self.store.find_ec_volume(request.volume_id)
+                if ecv is None:
+                    context.abort(rpc.StatusCode.NOT_FOUND,
+                                  f"volume {request.volume_id} not found")
+                total = volume_tier.move_ec_shards_from_remote(
+                    ecv, keep_remote=request.keep_remote_dat_file)
+            else:
+                total = volume_tier.move_dat_from_remote(
+                    v, keep_remote=request.keep_remote_dat_file)
+        except (VolumeError, BackendError) as e:
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION, str(e))
+        yield volume_server_pb2.VolumeTierMoveDatFromRemoteResponse(
+            processed=total, processed_percentage=100.0)
 
     # -- rpc: erasure coding -------------------------------------------------
 
@@ -403,6 +742,10 @@ class VolumeServer:
                                  mesh_cfg=self.ec_mesh_cfg)
         except NeedleError as e:
             context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        for vid in vids:
+            # a new EC incarnation: nothing cached of an earlier one (a
+            # decode, vacuum and re-encode moves every needle) may serve
+            self._invalidate_volume_cache(vid, "rebuild")
         return volume_server_pb2.VolumeEcShardsGenerateResponse()
 
     def VolumeEcShardsRebuild(self, request, context):
@@ -455,6 +798,8 @@ class VolumeServer:
                                      list(request.shard_ids))
         except EcShardNotFound as e:
             context.abort(rpc.StatusCode.NOT_FOUND, str(e))
+        # the shard set changed under any cached reconstructed spans
+        self._invalidate_volume_cache(request.volume_id, "rebuild")
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeEcShardsMountResponse()
 
@@ -586,6 +931,12 @@ class VolumeServer:
 
     def _invalidate_volume_cache(self, vid: int,
                                  reason: str = "scrub_repair") -> None:
+        """The vid's bytes or EC layout changed here: drop its cached
+        entries and its cached shard locations. A location map kept from
+        an earlier EC incarnation (decode, vacuum, encode again) names
+        holders that no longer have those shards, and with 14 entries it
+        would be trusted for 37 minutes."""
+        self._ec_locations.pop(vid, None)
         if self.read_cache is not None:
             self.read_cache.invalidate_volume(vid, reason)
 

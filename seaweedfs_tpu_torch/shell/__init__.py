@@ -27,10 +27,22 @@ def command(name: str, help_text: str = ""):
     return deco
 
 
-# registration side effects: the EC commands are the part the port
-# carries (the JAX package's fs.*, volume.*, s3.* and cluster.* families
-# are not ported)
+def refuse(name: str, arrives_with: str) -> None:
+    """Register a command the port does not carry yet: it answers with
+    an error naming the work it arrives with, never a weaker result."""
+    def fn(env, argv, out):
+        raise CommandError(f"{name} is not carried by this port: it "
+                           f"arrives with {arrives_with}")
+    COMMANDS[name] = fn
+    HELP[name] = f"(not ported: {arrives_with})"
+
+
+# registration side effects: the EC, volume, collection, cluster-status
+# and lock commands are the part the port carries (the JAX package's
+# fs.* and s3.* families are not ported)
 from seaweedfs_tpu_torch.shell import command_ec  # noqa: E402,F401
+from seaweedfs_tpu_torch.shell import command_misc  # noqa: E402,F401
+from seaweedfs_tpu_torch.shell import command_volume  # noqa: E402,F401
 
 
 class CommandError(Exception):

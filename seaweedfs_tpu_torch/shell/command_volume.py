@@ -1,0 +1,554 @@
+"""Volume ops-plane commands: list, balance, move, copy, evacuate,
+leave, scrub, vacuum, mark, delete, mount/unmount and the tier moves.
+
+The port of the part of ``seaweedfs_tpu.shell.command_volume`` that
+needs no replica fan-out, filer or lifecycle engine (reference
+weed/shell/command_volume_*.go). Balance and evacuation planning is pure
+over the TopologyInfo snapshot, testable on fabricated views.
+``volume.fix.replication`` and ``volume.configure.replication`` arrive
+with replication other than 000 (ROADMAP Queue 1 item 7),
+``volume.lifecycle`` with the lifecycle engine (item 11) and
+``volume.fsck`` with the filer (item 13): until then each answers with
+an error that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Dict, List, NamedTuple, Tuple
+
+from seaweedfs_tpu_torch import rpc
+from seaweedfs_tpu_torch.ec.shard_bits import ShardBits
+from seaweedfs_tpu_torch.pb import master_pb2, volume_server_pb2
+from seaweedfs_tpu_torch.shell import command, refuse
+from seaweedfs_tpu_torch.shell.command_env import CommandEnv
+
+
+class VolumeMove(NamedTuple):
+    vid: int
+    src: str
+    dst: str
+
+
+def plan_volume_balance(counts: Dict[str, List[int]],
+                        max_counts: Dict[str, int]) -> List[VolumeMove]:
+    """counts: url -> vids held. Move volumes from fullest to emptiest
+    (by used/max ratio) until within one volume of balance."""
+    urls = list(counts)
+    if len(urls) < 2:
+        return []
+    held = {u: list(v) for u, v in counts.items()}
+    moves: List[VolumeMove] = []
+
+    def ratio(u):
+        return len(held[u]) / max(1, max_counts.get(u, 8))
+
+    for _ in range(sum(len(v) for v in held.values())):
+        src = max(urls, key=ratio)
+        dst = min(urls, key=ratio)
+        if src == dst or len(held[src]) - len(held[dst]) <= 1:
+            break
+        movable = [v for v in held[src] if v not in held[dst]]
+        if not movable:
+            break
+        vid = movable[0]
+        held[src].remove(vid)
+        held[dst].append(vid)
+        moves.append(VolumeMove(vid, src, dst))
+    return moves
+
+
+@command("volume.list", "show the topology tree")
+def volume_list(env: CommandEnv, argv: List[str], out) -> None:
+    topo = env.topology()
+    out.write(f"Topology volumes:{topo.volume_count} "
+              f"max:{topo.max_volume_count} "
+              f"free:{topo.free_volume_count}\n")
+    for dc in topo.data_center_infos:
+        out.write(f"  DataCenter {dc.id}\n")
+        for rack in dc.rack_infos:
+            out.write(f"    Rack {rack.id}\n")
+            for dn in rack.data_node_infos:
+                out.write(f"      DataNode {dn.id} "
+                          f"volumes:{dn.volume_count} "
+                          f"max:{dn.max_volume_count}\n")
+                for vi in dn.volume_infos:
+                    out.write(f"        volume id:{vi.id} "
+                              f"size:{vi.size} "
+                              f"collection:{vi.collection!r} "
+                              f"files:{vi.file_count} "
+                              f"deleted:{vi.delete_count} "
+                              f"ro:{vi.read_only}\n")
+                for e in dn.ec_shard_infos:
+                    out.write(f"        ec volume id:{e.id} "
+                              f"collection:{e.collection!r} "
+                              f"shards:{ShardBits(e.ec_index_bits).shard_ids}\n")
+
+
+@command("volume.balance", "move volumes so servers are evenly loaded")
+def volume_balance(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="volume.balance")
+    p.add_argument("-collection", default="",
+                   help="restrict to one collection ('' = all)")
+    args = p.parse_args(argv)
+    env.acquire_lock()
+    try:
+        topo = env.topology()
+        counts: Dict[str, List[int]] = {}
+        max_counts: Dict[str, int] = {}
+        for _, _, dn in env.data_nodes(topo):
+            vids = [vi.id for vi in dn.volume_infos
+                    if not args.collection
+                    or vi.collection == args.collection]
+            counts[dn.id] = vids
+            max_counts[dn.id] = int(dn.max_volume_count)
+        readonly = _readonly_vids(env, topo)
+        for mv in plan_volume_balance(counts, max_counts):
+            _move_volume(env, mv, out, was_readonly=mv.vid in readonly)
+    finally:
+        env.release_lock()
+
+
+def _move_volume(env: CommandEnv, mv: VolumeMove, out,
+                 was_readonly: bool = False) -> None:
+    """freeze writes on src, copy to dst (pull from src), delete from
+    src, unfreeze on dst — the reference's volume.move ordering
+    (command_volume_move.go). Without the readonly fence a write landing
+    on src between copy and delete would be lost. A volume that was
+    sealed before the move stays sealed on the destination."""
+    env.volume_server(mv.src).VolumeMarkReadonly(
+        volume_server_pb2.VolumeMarkReadonlyRequest(volume_id=mv.vid))
+    try:
+        env.volume_server(mv.dst).VolumeCopy(
+            volume_server_pb2.VolumeCopyRequest(
+                volume_id=mv.vid, source_data_node=mv.src))
+    except Exception:
+        if not was_readonly:
+            # copy failed: unfreeze the source so it keeps serving writes
+            env.volume_server(mv.src).VolumeMarkWritable(
+                volume_server_pb2.VolumeMarkWritableRequest(
+                    volume_id=mv.vid))
+        raise
+    if was_readonly:
+        # seal the destination BEFORE the source copy disappears: a
+        # write sneaking in between VolumeDelete and a late re-mark
+        # would land on a volume that must stay sealed
+        env.volume_server(mv.dst).VolumeMarkReadonly(
+            volume_server_pb2.VolumeMarkReadonlyRequest(volume_id=mv.vid))
+    env.volume_server(mv.src).VolumeDelete(
+        volume_server_pb2.VolumeDeleteRequest(volume_id=mv.vid))
+    if not was_readonly:
+        env.volume_server(mv.dst).VolumeMarkWritable(
+            volume_server_pb2.VolumeMarkWritableRequest(volume_id=mv.vid))
+    out.write(f"volume {mv.vid}: moved {mv.src} -> {mv.dst}\n")
+
+
+def _readonly_vids(env: CommandEnv, topo=None) -> set:
+    """vids with any replica flagged readonly in the heartbeat view."""
+    topo = topo or env.topology()
+    return {vi.id for _, _, dn in env.data_nodes(topo)
+            for vi in dn.volume_infos if vi.read_only}
+
+
+@command("volume.move", "move one volume between servers")
+def volume_move(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="volume.move")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-source", required=True)
+    p.add_argument("-target", required=True)
+    args = p.parse_args(argv)
+    env.acquire_lock()
+    try:
+        _move_volume(env, VolumeMove(args.volumeId, args.source,
+                                     args.target), out,
+                     was_readonly=args.volumeId in _readonly_vids(env))
+    finally:
+        env.release_lock()
+
+
+def plan_server_evacuation(
+        counts: Dict[str, List[int]], max_counts: Dict[str, int],
+        server: str) -> Tuple[List[VolumeMove], List[int]]:
+    """Plan moving every volume off `server`. Each volume goes to the
+    least-loaded other node not already holding a replica of it
+    (reference command_volume_server_evacuate.go moveAwayOneNormalVolume).
+    Returns (moves, unmoveable_vids)."""
+    if server not in counts:
+        raise ValueError(f"{server} is not in this cluster")
+    held = {u: list(v) for u, v in counts.items()}
+    moves: List[VolumeMove] = []
+    stuck: List[int] = []
+    others = [u for u in counts if u != server]
+    for vid in list(held[server]):
+        candidates = [u for u in others
+                      if vid not in held[u]
+                      and len(held[u]) < max_counts.get(u, 8)]
+        if not candidates:
+            stuck.append(vid)
+            continue
+        dst = min(candidates,
+                  key=lambda u: len(held[u]) / max(1, max_counts.get(u, 8)))
+        held[server].remove(vid)
+        held[dst].append(vid)
+        moves.append(VolumeMove(vid, server, dst))
+    return moves, stuck
+
+
+def plan_ec_evacuation(nodes, server: str):
+    """Plan moving every EC shard off `server`: each shard to the other
+    node with the fewest total shards that doesn't hold that shard and
+    still has free slots (reference command_volume_server_evacuate.go
+    evacuateEcVolumes). Moves are grouped per (vid, dst) so the
+    executor copies the .ecx once and batches the 4 lifecycle RPCs."""
+    from seaweedfs_tpu_torch.shell.ec_common import ShardMove
+    by_url = {n.url: n for n in nodes}
+    if server not in by_url:
+        return [], []
+    this, others = by_url[server], [n for n in nodes if n.url != server]
+    loads = {n.url: n.shard_count() for n in others}
+    room = {n.url: max(n.free_slots, 0) for n in others}
+    grouped: Dict[Tuple[int, str], List[int]] = {}
+    stuck = []
+    for vid, bits in sorted(this.shards.items()):
+        for sid in bits.shard_ids:
+            candidates = [n for n in others
+                          if room[n.url] > 0
+                          and sid not in n.shards.get(vid, ShardBits(0)
+                                                      ).shard_ids]
+            if not candidates:
+                stuck.append((vid, sid))
+                continue
+            dst = min(candidates, key=lambda n: loads[n.url])
+            loads[dst.url] += 1
+            room[dst.url] -= 1
+            grouped.setdefault((vid, dst.url), []).append(sid)
+    moves = [ShardMove(vid, tuple(sids), server, dst)
+             for (vid, dst), sids in sorted(grouped.items())]
+    return moves, stuck
+
+
+@command("volume.copy", "copy a volume from one server to another")
+def volume_copy(env: CommandEnv, argv: List[str], out) -> None:
+    """Reference: weed/shell/command_volume_copy.go — a plain VolumeCopy
+    to the target (the source keeps its replica; use volume.move to
+    transfer ownership)."""
+    p = argparse.ArgumentParser(prog="volume.copy")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-source", required=True)
+    p.add_argument("-target", required=True)
+    args = p.parse_args(argv)
+    if args.source == args.target:
+        raise ValueError("source and target are the same node")
+    env.acquire_lock()
+    try:
+        # Fence writes on the source for the duration of the pull: a
+        # needle landing mid-copy would be missing from the new replica
+        # while the master serves both locations (same reasoning as
+        # _move_volume above). A volume that was already readonly
+        # (sealed, tiered) stays that way afterwards.
+        was_readonly = any(
+            vi.read_only
+            for _, _, dn in env.data_nodes(env.topology())
+            if dn.id == args.source
+            for vi in dn.volume_infos if vi.id == args.volumeId)
+        env.volume_server(args.source).VolumeMarkReadonly(
+            volume_server_pb2.VolumeMarkReadonlyRequest(
+                volume_id=args.volumeId))
+        try:
+            env.volume_server(args.target).VolumeCopy(
+                volume_server_pb2.VolumeCopyRequest(
+                    volume_id=args.volumeId,
+                    source_data_node=args.source))
+        finally:
+            if not was_readonly:
+                env.volume_server(args.source).VolumeMarkWritable(
+                    volume_server_pb2.VolumeMarkWritableRequest(
+                        volume_id=args.volumeId))
+        out.write(f"volume {args.volumeId}: copied {args.source} -> "
+                  f"{args.target}\n")
+    finally:
+        env.release_lock()
+
+
+@command("volumeServer.evacuate", "move all data off a volume server")
+def volume_server_evacuate(env: CommandEnv, argv: List[str], out) -> None:
+    """Reference: weed/shell/command_volume_server_evacuate.go — move
+    every normal volume and EC shard to other servers, typically before
+    a shutdown or upgrade."""
+    p = argparse.ArgumentParser(prog="volumeServer.evacuate")
+    p.add_argument("-node", required=True, help="<host:port> to drain")
+    p.add_argument("-skipNonMoveable", action="store_true")
+    p.add_argument("-force", action="store_true",
+                   help="actually apply the changes")
+    args = p.parse_args(argv)
+
+    def plan():
+        topo = env.topology()
+        counts: Dict[str, List[int]] = {}
+        max_counts: Dict[str, int] = {}
+        for _, _, dn in env.data_nodes(topo):
+            counts[dn.id] = [vi.id for vi in dn.volume_infos]
+            max_counts[dn.id] = int(dn.max_volume_count)
+        moves, stuck = plan_server_evacuation(counts, max_counts,
+                                              args.node)
+        ec_moves, ec_stuck = plan_ec_evacuation(
+            env.collect_ec_nodes(topo), args.node)
+        if (stuck or ec_stuck) and not args.skipNonMoveable:
+            items = [str(v) for v in stuck] + \
+                [f"{vid}.{sid}" for vid, sid in ec_stuck]
+            raise RuntimeError(
+                f"no destination for: {', '.join(items)} "
+                f"(use -skipNonMoveable to move the rest)")
+        return topo, moves, stuck, ec_moves, ec_stuck
+
+    if not args.force:
+        _, moves, stuck, ec_moves, ec_stuck = plan()
+        for mv in moves:
+            out.write(f"would move volume {mv.vid} {mv.src} -> {mv.dst}\n")
+        for mv in ec_moves:
+            out.write(f"would move shards {list(mv.shard_ids)} of "
+                      f"volume {mv.vid} {mv.src} -> {mv.dst}\n")
+        out.write("dry run; add -force to execute\n")
+        return
+    env.acquire_lock()
+    try:
+        # plan under the lock: another admin's move between snapshot and
+        # execution would make VolumeCopy abort mid-drain
+        from seaweedfs_tpu_torch.shell.command_ec import (_ec_collections,
+                                                    apply_shard_move)
+        topo, moves, stuck, ec_moves, ec_stuck = plan()
+        readonly = _readonly_vids(env, topo)
+        for mv in moves:
+            _move_volume(env, mv, out, was_readonly=mv.vid in readonly)
+        ec_collections = _ec_collections(env)
+        for mv in ec_moves:
+            apply_shard_move(env, mv, ec_collections.get(mv.vid, ""), out)
+        for vid in stuck:
+            out.write(f"skipped non-moveable volume {vid}\n")
+        for vid, sid in ec_stuck:
+            out.write(f"skipped non-moveable shard {vid}.{sid}\n")
+    finally:
+        env.release_lock()
+
+
+@command("volumeServer.leave", "ask a volume server to leave the cluster")
+def volume_server_leave(env: CommandEnv, argv: List[str], out) -> None:
+    """Reference: weed/shell/command_volume_server_leave.go — the server
+    stops heartbeating so the master forgets it; its process stays up
+    until stopped by the operator."""
+    p = argparse.ArgumentParser(prog="volumeServer.leave")
+    p.add_argument("-node", required=True, help="<host:port> to remove")
+    args = p.parse_args(argv)
+    env.volume_server(args.node).VolumeServerLeave(
+        volume_server_pb2.VolumeServerLeaveRequest())
+    out.write(f"{args.node}: asked to leave\n")
+
+
+@command("volume.scrub", "start/pause/inspect the background integrity "
+                         "scrub")
+def volume_scrub(env: CommandEnv, argv: List[str], out) -> None:
+    """Control the per-server scrub daemon (seaweedfs_tpu_torch/scrub/):
+    start a verification pass (the default), pause a running one, or
+    print each server's ledger. Without -node the action fans out to
+    every volume server in the topology."""
+    p = argparse.ArgumentParser(prog="volume.scrub")
+    p.add_argument("-node", default="",
+                   help="<host:port>; all volume servers when empty")
+    p.add_argument("-volumeId", type=int, default=0,
+                   help="restrict the pass to one volume id")
+    p.add_argument("-throttleMBps", type=float, default=0.0,
+                   help="IO budget for the pass (0 = server default)")
+    p.add_argument("-full", action="store_true",
+                   help="reset the ledger and rescan from scratch")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("-pause", action="store_true",
+                   help="hold the running pass at the next volume")
+    g.add_argument("-status", action="store_true",
+                   help="print the scrub ledger instead of starting")
+    args = p.parse_args(argv)
+    if args.node:
+        urls = [args.node]
+    else:
+        urls = sorted(dn.id for _, _, dn
+                      in env.data_nodes(env.topology()))
+    for url in urls:
+        stub = env.volume_server(url)
+        if args.status:
+            st = stub.VolumeScrubStatus(
+                volume_server_pb2.VolumeScrubStatusRequest())
+            out.write(
+                f"{url}: {st.state} passes:{st.passes_completed} "
+                f"scanned:{st.bytes_scanned}B "
+                f"needles:{st.needles_verified} "
+                f"stripes:{st.stripes_verified} "
+                f"found:{st.corruptions_found} "
+                f"repaired:{st.corruptions_repaired} "
+                f"unrecoverable:{st.unrecoverable} "
+                f"lag:{st.scan_lag_seconds:.0f}s\n")
+        elif args.pause:
+            r = stub.VolumeScrubPause(
+                volume_server_pb2.VolumeScrubPauseRequest())
+            out.write(f"{url}: "
+                      f"{'paused' if r.paused else 'no scrub running'}\n")
+        else:
+            r = stub.VolumeScrubStart(
+                volume_server_pb2.VolumeScrubStartRequest(
+                    volume_ids=[args.volumeId] if args.volumeId else [],
+                    throttle_mbps=args.throttleMBps,
+                    full=args.full))
+            out.write(f"{url}: "
+                      f"{'scrub started' if r.started else 'scrub already running'}\n")
+
+
+@command("volume.vacuum", "compact volumes above the garbage threshold")
+def volume_vacuum(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="volume.vacuum")
+    p.add_argument("-garbageThreshold", type=float, default=0.3)
+    args = p.parse_args(argv)
+    env.master.VacuumVolume(master_pb2.VacuumVolumeRequest(
+        garbage_threshold=args.garbageThreshold))
+    out.write("vacuum triggered\n")
+
+
+@command("volume.mark", "mark a volume readonly/writable")
+def volume_mark(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="volume.mark")
+    p.add_argument("-volumeId", type=int, required=True)
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("-readonly", action="store_true")
+    g.add_argument("-writable", action="store_true")
+    args = p.parse_args(argv)
+    for url in env.lookup(args.volumeId):
+        if args.readonly:
+            env.volume_server(url).VolumeMarkReadonly(
+                volume_server_pb2.VolumeMarkReadonlyRequest(
+                    volume_id=args.volumeId))
+        else:
+            env.volume_server(url).VolumeMarkWritable(
+                volume_server_pb2.VolumeMarkWritableRequest(
+                    volume_id=args.volumeId))
+        state = "readonly" if args.readonly else "writable"
+        out.write(f"volume {args.volumeId}: {state} on {url}\n")
+
+
+@command("volume.delete", "delete a volume from a server")
+def volume_delete(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="volume.delete")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", default="",
+                   help="server url; all holders when empty")
+    args = p.parse_args(argv)
+    urls = [args.node] if args.node else env.lookup(args.volumeId)
+    for url in urls:
+        env.volume_server(url).VolumeDelete(
+            volume_server_pb2.VolumeDeleteRequest(volume_id=args.volumeId))
+        out.write(f"volume {args.volumeId}: deleted from {url}\n")
+
+
+@command("volume.mount", "mount a volume from existing files")
+def volume_mount(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="volume.mount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", required=True)
+    args = p.parse_args(argv)
+    env.volume_server(args.node).VolumeMount(
+        volume_server_pb2.VolumeMountRequest(volume_id=args.volumeId))
+    out.write(f"volume {args.volumeId}: mounted on {args.node}\n")
+
+
+@command("volume.unmount", "unmount a volume (files stay)")
+def volume_unmount(env: CommandEnv, argv: List[str], out) -> None:
+    p = argparse.ArgumentParser(prog="volume.unmount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", required=True)
+    args = p.parse_args(argv)
+    env.volume_server(args.node).VolumeUnmount(
+        volume_server_pb2.VolumeUnmountRequest(volume_id=args.volumeId))
+    out.write(f"volume {args.volumeId}: unmounted on {args.node}\n")
+
+
+@command("volume.tier.upload", "move a sealed volume's .dat (or an EC "
+                               "volume's shards) to a storage backend")
+def volume_tier_upload(env: CommandEnv, argv: List[str], out) -> None:
+    """Reference: weed/shell/command_volume_tier_upload.go — mark the
+    volume readonly, then VolumeTierMoveDatToRemote on each holder.
+    For an erasure-coded vid the holders are its shard servers and
+    each moves its local .ecNN files (the lifecycle COLD leg).
+
+    Idempotent: a holder whose copy is already tiered is SKIPPED
+    instead of aborting the remaining-holder loop mid-way — a re-run
+    after a partial failure (or the lifecycle policy loop re-freezing
+    a volume it forgot across a master restart) finishes the stragglers
+    without erroring on the ones that made it."""
+    p = argparse.ArgumentParser(prog="volume.tier.upload")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-dest", required=True,
+                   help="backend name, e.g. s3.default / memory.test")
+    p.add_argument("-keepLocalDatFile", action="store_true")
+    args = p.parse_args(argv)
+    for url in env.lookup(args.volumeId):
+        try:
+            env.volume_server(url).VolumeMarkReadonly(
+                volume_server_pb2.VolumeMarkReadonlyRequest(
+                    volume_id=args.volumeId))
+        except rpc.RpcError as e:
+            # an EC vid has no normal volume to seal — its shards are
+            # sealed by construction; anything else is a real failure
+            if e.code() != rpc.StatusCode.NOT_FOUND:
+                raise
+        try:
+            for resp in env.volume_server(url).VolumeTierMoveDatToRemote(
+                    volume_server_pb2.VolumeTierMoveDatToRemoteRequest(
+                        volume_id=args.volumeId,
+                        destination_backend_name=args.dest,
+                        keep_local_dat_file=args.keepLocalDatFile)):
+                out.write(f"volume {args.volumeId} on {url}: "
+                          f"{resp.processed} bytes -> {args.dest} "
+                          f"({resp.processed_percentage:.0f}%)\n")
+        except rpc.RpcError as e:
+            if "already tiered" in (e.details() or ""):
+                out.write(f"volume {args.volumeId} on {url}: "
+                          f"already tiered, skipped\n")
+                continue
+            raise
+
+
+@command("volume.tier.download", "bring a cloud-tiered volume's .dat (or "
+                                 "EC shards) back to local disk")
+def volume_tier_download(env: CommandEnv, argv: List[str], out) -> None:
+    """Reference: weed/shell/command_volume_tier_download.go.
+
+    Idempotent over holders, mirroring volume.tier.upload: a holder
+    whose copy is already local is SKIPPED instead of aborting the
+    remaining-holder loop — a retry after a partial download failure
+    (the lifecycle engine re-runs the same command after backoff)
+    finishes the stragglers instead of wedging on the ones done."""
+    p = argparse.ArgumentParser(prog="volume.tier.download")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-keepRemoteDatFile", action="store_true")
+    args = p.parse_args(argv)
+    for url in env.lookup(args.volumeId):
+        try:
+            for resp in env.volume_server(url).VolumeTierMoveDatFromRemote(
+                    volume_server_pb2.VolumeTierMoveDatFromRemoteRequest(
+                        volume_id=args.volumeId,
+                        keep_remote_dat_file=args.keepRemoteDatFile)):
+                out.write(f"volume {args.volumeId} on {url}: "
+                          f"{resp.processed} bytes restored\n")
+        except rpc.RpcError as e:
+            if "not cloud-tiered" in (e.details() or ""):
+                out.write(f"volume {args.volumeId} on {url}: "
+                          f"already local, skipped\n")
+                continue
+            raise
+
+
+for _name, _item in (
+        ("volume.fix.replication",
+         "replication other than 000 (ROADMAP Queue 1 item 7)"),
+        ("volume.configure.replication",
+         "replication other than 000 (ROADMAP Queue 1 item 7)"),
+        ("volume.lifecycle",
+         "the heat-driven lifecycle engine (ROADMAP Queue 1 item 11)"),
+        ("volume.fsck", "the filer (ROADMAP Queue 1 item 13)")):
+    refuse(_name, _item)

@@ -1,7 +1,9 @@
 """DiskLocation: one storage directory holding volumes and EC shards.
 
 Reference: weed/storage/disk_location.go (volume discovery/load) and
-disk_location_ec.go (EC shard discovery, local shards only).
+disk_location_ec.go (EC shard discovery). A volume whose .dat was tiered
+is found by its ``.tier`` sidecar, and EC shards moved to a backend by
+the ``.ectier`` one.
 """
 
 from __future__ import annotations
@@ -16,12 +18,13 @@ from seaweedfs_tpu_torch.storage.volume import Volume, VolumeError
 
 log = logging.getLogger(__name__)
 
-_DAT_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.dat$")
+_DAT_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.(?:dat|tier)$")
 _EC_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.ec(?P<shard>\d\d)$")
 
 
 def parse_volume_filename(name: str):
-    """Return (collection, vid) for a .dat filename, else None."""
+    """Return (collection, vid) for a .dat (or .tier) filename, else
+    None."""
     m = _DAT_RE.match(name)
     if not m:
         return None
@@ -73,6 +76,10 @@ class DiskLocation:
         for name in sorted(os.listdir(self.directory)):
             parsed = parse_ec_shard_filename(name)
             if parsed is None:
+                if name.endswith(".ectier"):
+                    # tiered shards: their files are gone, the sidecar
+                    # names them (EcVolume mounts them remote)
+                    self._note_tiered_shards(name, found)
                 continue
             col, vid, shard = parsed
             found.setdefault(vid, (col, []))[1].append(shard)
@@ -86,6 +93,16 @@ class DiskLocation:
                 self.ec_volumes[vid] = ecv
             for s in shards:
                 ecv.mount_shard(s)
+
+    def _note_tiered_shards(self, name: str, found: Dict[int, tuple]) -> None:
+        from seaweedfs_tpu_torch.storage.backend import read_ec_tier_info
+        stem = name[:-len(".ectier")]
+        col, _, tail = stem.rpartition("_")
+        if not tail.isdigit():
+            return
+        info = read_ec_tier_info(os.path.join(self.directory, stem))
+        for sid in (info or {}).get("shards", {}):
+            found.setdefault(int(tail), (col, []))[1].append(int(sid))
 
     # -- volume lifecycle ----------------------------------------------------
 

@@ -25,6 +25,14 @@ def entry_to_bytes(key: int, actual_offset: int, size: int) -> bytes:
         _SIZE.pack(size & 0xFFFFFFFF)
 
 
+def parse_entry(b: bytes) -> tuple:
+    """(key, actual offset, size) of one 16-byte entry."""
+    key = _KEY.unpack(b[:8])[0]
+    off_u = t.bytes_to_offset_units(b[8:8 + t.OFFSET_SIZE])
+    size_u = _SIZE.unpack(b[8 + t.OFFSET_SIZE:8 + t.OFFSET_SIZE + 4])[0]
+    return key, off_u * t.NEEDLE_PADDING, t.size_to_int32(size_u)
+
+
 def entries_to_bytes(keys: np.ndarray, actual_offsets: np.ndarray,
                      sizes: np.ndarray) -> bytes:
     """``entry_to_bytes`` over whole arrays: the inverse of

@@ -6,6 +6,7 @@ Reference: weed/storage/store.go (struct :32-48, read/write/delete
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import List, Optional
 
@@ -94,6 +95,42 @@ class Store:
             return False
         v.read_only = False
         return True
+
+    def configure_volume(self, vid: int, replication: str) -> bool:
+        """Change a volume's replica placement on disk (reference
+        store.go:431); False when the volume is not here."""
+        v = self.find_volume(vid)
+        if v is None:
+            return False
+        v.configure_replication(ReplicaPlacement.parse(replication))
+        return True
+
+    def delete_collection(self, collection: str) -> List[int]:
+        """Remove every volume and EC volume of a collection from every
+        location, with every file of theirs: besides the ones a volume
+        owns, what vacuum, scrub quarantine, tiering or a copy left
+        (``<collection>_<vid>.*``). Returns their ids."""
+        gone = []
+        with self._lock:
+            for loc in self.locations:
+                here = []
+                for vid, v in list(loc.volumes.items()):
+                    if v.collection == collection:
+                        loc.delete_volume(vid)
+                        here.append(vid)
+                for vid, ecv in list(loc.ec_volumes.items()):
+                    if ecv.collection == collection:
+                        ecv.destroy()
+                        loc.ec_volumes.pop(vid, None)
+                        here.append(vid)
+                prefixes = tuple(f"{collection}_{vid}." if collection
+                                 else f"{vid}." for vid in here)
+                for name in os.listdir(loc.directory) if here else ():
+                    p = os.path.join(loc.directory, name)
+                    if name.startswith(prefixes) and os.path.isfile(p):
+                        os.remove(p)
+                gone += here
+        return gone
 
     # -- data ops ------------------------------------------------------------
 

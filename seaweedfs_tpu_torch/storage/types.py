@@ -53,3 +53,12 @@ def offset_units_to_bytes(units: int) -> bytes:
     if OFFSET_SIZE == 4:
         return struct.pack(">I", units)
     return struct.pack(">I", units & 0xFFFFFFFF) + bytes([units >> 32])
+
+
+def bytes_to_offset_units(b: bytes) -> int:
+    """Wire bytes -> padding-unit offset (the inverse of
+    offset_units_to_bytes)."""
+    low = struct.unpack(">I", b[:4])[0]
+    if OFFSET_SIZE == 4:
+        return low
+    return (b[4] << 32) | low

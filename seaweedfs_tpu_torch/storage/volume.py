@@ -18,6 +18,10 @@ wants no fsync is applied inline under the volume lock; the writer
 thread is made at the first fsync'd or contended write (one that finds
 the volume lock taken, where the reference waits for the lock and
 applies the write alone).
+
+A volume whose .dat was moved to an object store (``volume_tier``) has a
+``<base>.tier`` sidecar: it loads read-only on a ``RemoteFile``, and a
+load first resolves what a vacuum cut short (``vacuum.recover_compaction``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ import numpy as np
 from seaweedfs_tpu_torch.native import crc
 from seaweedfs_tpu_torch.storage import idx as idx_codec
 from seaweedfs_tpu_torch.storage import types as t
-from seaweedfs_tpu_torch.storage.backend import BackendStorageFile, DiskFile
+from seaweedfs_tpu_torch.storage import backend as bk
+from seaweedfs_tpu_torch.storage.backend import (
+    BackendError, BackendStorageFile, DiskFile)
 from seaweedfs_tpu_torch.storage.needle import (
     Needle, NeedleError, CookieMismatch, actual_size, VERSION3,
     verify_needle_integrity,
@@ -208,7 +214,8 @@ class Volume:
         base = self.file_name()
         self.dat_path = base + ".dat"
         self.idx_path = base + ".idx"
-        if os.path.exists(self.dat_path):
+        if os.path.exists(self.dat_path) or \
+                bk.read_tier_info(base) is not None:
             self._load()
         elif not create_if_missing:
             raise VolumeError(f"volume file {self.dat_path} missing")
@@ -251,14 +258,57 @@ class Volume:
     # -- loading / integrity -------------------------------------------------
 
     def _load(self) -> None:
-        self._dat = DiskFile(self.dat_path)
+        # vacuum imports this module: resolve it at call time
+        from seaweedfs_tpu_torch.storage.vacuum import recover_compaction
+        recover_compaction(self.file_name())
+        tier = bk.read_tier_info(self.file_name())
+        if tier is not None and not os.path.exists(self.dat_path):
+            # tiered: the .dat lives in an object store, reads are ranged
+            # reads of it, and the volume is sealed (reference
+            # volume_tier.go LoadRemoteFile)
+            self._dat = bk.RemoteFile(bk.get_backend(tier["backend"]),
+                                      tier["key"], tier["size"])
+            self.read_only = True
+        else:
+            self._dat = DiskFile(self.dat_path)
+            if tier is not None:
+                # tiered with the local copy kept: reads stay local, but
+                # a write would diverge from the remote object
+                self.read_only = True
         header = self._dat.read_at(8, 0)
         if len(header) < 8:
             raise VolumeError(f"{self.dat_path}: truncated superblock")
         self.super_block = SuperBlock.from_bytes(header)
         self.version = self.super_block.version
         self.nm = make_needle_map(self.idx_path, self.needle_map_kind)
-        self._check_and_fix_integrity()
+        if not self._dat.is_remote:
+            self._check_and_fix_integrity()
+        self._restore_last_append_ns()
+
+    def _restore_last_append_ns(self) -> None:
+        """The newest record's append time, from the last .idx entry: the
+        quiet-period guard of ec.encode and incremental backup both need
+        it to survive a restart (the reference reads it at load too)."""
+        if not os.path.exists(self.idx_path):
+            return
+        n_entries = os.path.getsize(self.idx_path) // t.NEEDLE_MAP_ENTRY_SIZE
+        if n_entries == 0:
+            return
+        with open(self.idx_path, "rb") as f:
+            f.seek((n_entries - 1) * t.NEEDLE_MAP_ENTRY_SIZE)
+            entry = f.read(t.NEEDLE_MAP_ENTRY_SIZE)
+        _, offset, _ = idx_codec.parse_entry(entry)
+        header = self._dat.read_at(t.NEEDLE_HEADER_SIZE, offset)
+        if len(header) < t.NEEDLE_HEADER_SIZE:
+            return
+        _, _, size_u = struct.unpack(">IQI", header)
+        body = t.size_to_int32(size_u)
+        if t.size_is_deleted(body):
+            body = 0
+        blob = self._dat.read_at(
+            8, offset + t.NEEDLE_HEADER_SIZE + body + t.NEEDLE_CHECKSUM_SIZE)
+        if len(blob) == 8:
+            self.last_append_at_ns = struct.unpack(">Q", blob)[0]
 
     def _check_and_fix_integrity(self) -> None:
         """Truncate a torn tail: the .dat must end exactly after the last
@@ -400,10 +450,10 @@ class Volume:
                     self._dat.write_at(buf, batch_start)
                     if any_fsync:
                         self._dat.sync()
-                except OSError as e:
+                except (OSError, BackendError) as e:
                     try:
                         self._dat.truncate(batch_start)
-                    except OSError:
+                    except (OSError, BackendError):
                         pass
                     err = VolumeError(
                         f"volume {self.id}: batch write failed: {e}")
@@ -519,8 +569,13 @@ class Volume:
         Opens its own read-only fd, so a long scan (scrub) never races
         reads and writes on the shared handle. A garbled record is
         skipped, never raised. The scan ends where the .dat ended when
-        no batch was in flight (taken under the volume lock)."""
+        no batch was in flight (taken under the volume lock). A tiered
+        volume has no local .dat to scan: download it first."""
         with self._lock:
+            if self._dat.is_remote:
+                raise VolumeError(
+                    f"volume {self.id} is tiered; download it first "
+                    "(VolumeTierMoveDatFromRemote) before scanning")
             size = self._dat.size()
         offset = 8
         with open(self.dat_path, "rb") as f:
@@ -553,6 +608,28 @@ class Volume:
     def is_remote(self) -> bool:
         return self._dat.is_remote
 
+    # -- stats / admin -------------------------------------------------------
+
+    def garbage_ratio(self) -> float:
+        cs = self.content_size
+        return (self.nm.deleted_size / cs) if cs > 8 else 0.0
+
+    def configure_replication(self, rp: ReplicaPlacement) -> None:
+        """Rewrite the superblock's replica placement in place (reference
+        store.go:431 ConfigureVolume). A tiered volume's superblock lives
+        in the object store and is not rewritten."""
+        with self._lock:
+            if self._dat.is_remote:
+                raise VolumeError(
+                    f"volume {self.id} is tiered; download it first")
+            self.super_block = SuperBlock(
+                version=self.super_block.version,
+                replica_placement=rp,
+                ttl=self.super_block.ttl,
+                compaction_revision=self.super_block.compaction_revision)
+            self._dat.write_at(self.super_block.to_bytes(), 0)
+            self._dat.sync()
+
     # -- lifecycle -----------------------------------------------------------
 
     def sync(self) -> None:
@@ -577,5 +654,6 @@ class Volume:
     def destroy(self) -> None:
         self.close()
         self.nm.destroy()  # the .idx, and the .nmkv directory of a kv map
-        if os.path.exists(self.dat_path):
-            os.remove(self.dat_path)
+        for p in (self.dat_path, bk.tier_info_path(self.file_name())):
+            if os.path.exists(p):
+                os.remove(p)

@@ -82,6 +82,10 @@ class VolumeLayout:
         with self._lock:
             return list(self.locations.get(vid, []))
 
+    def volume_ids(self) -> List[int]:
+        with self._lock:
+            return list(self.locations)
+
     @property
     def writable_count(self) -> int:
         return len(self.writable)

@@ -93,7 +93,7 @@ class Cluster:
     def __init__(self, tmp_path, n_volume_servers: int = 2,
                  volumes_per_server: int = 30, ec_encoder: str = "cpu",
                  volume_size_limit_mb: int = 64, ec_mesh: bool = False,
-                 volume_kwargs=()):
+                 volume_kwargs=(), master_kwargs=None):
         self.tmp_path = tmp_path
         self.volumes_per_server = volumes_per_server
         self.ec_encoder = ec_encoder
@@ -103,7 +103,7 @@ class Cluster:
         self.master = MasterServer(
             port=free_port_pair(), meta_dir=str(tmp_path / "master"),
             volume_size_limit_mb=volume_size_limit_mb,
-            pulse_seconds=PULSE)
+            pulse_seconds=PULSE, **(master_kwargs or {}))
         self.master.start()
         self.volume_servers = []
         try:

@@ -77,6 +77,34 @@ def test_every_ported_message_is_listed():
         assert want in names
 
 
+MAINTENANCE_METHODS = {
+    "VolumeServer": ["VacuumVolumeCheck", "VacuumVolumeCompact",
+                     "VacuumVolumeCommit", "VacuumVolumeCleanup",
+                     "DeleteCollection", "BatchDelete", "VolumeServerLeave",
+                     "VolumeNeedleStatus", "VolumeConfigure", "Query",
+                     "VolumeCopy", "VolumeSyncStatus",
+                     "VolumeIncrementalCopy", "VolumeTailSender",
+                     "VolumeTailReceiver", "VolumeTierMoveDatToRemote",
+                     "VolumeTierMoveDatFromRemote"],
+    "Seaweed": ["Statistics", "CollectionList", "CollectionDelete",
+                "VacuumVolume"],
+}
+
+
+@pytest.mark.parametrize("service", sorted(MAINTENANCE_METHODS))
+def test_maintenance_methods_are_served(service):
+    """Every RPC of the maintenance surface is in the port's service
+    table, with its messages (nested ones included) ported."""
+    module = volume_server_pb2 if service == "VolumeServer" else master_pb2
+    served = {m[0]: m for m in module.SERVICES[service]}
+    names = {cls.FULL_NAME for cls, _ in ALL}
+    for method in MAINTENANCE_METHODS[service]:
+        _, req, resp, _, _ = served[method]
+        assert req.FULL_NAME in names and resp.FULL_NAME in names
+    assert "volume_server_pb.QueryRequest.Filter" in names
+    assert "volume_server_pb.DeleteResult" in names
+
+
 @pytest.mark.parametrize("cls,jax_module", ALL,
                          ids=[c.FULL_NAME for c, _ in ALL])
 def test_field_table_equals_jax_descriptor(cls, jax_module):
