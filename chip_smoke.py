@@ -82,7 +82,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    the servers' launches): a port MasterServer (volumes of 1,024 MiB) and
    four VolumeServers (``ec_encoder`` cuda, the decode fleet on, a
    1,024 MiB read cache and hedged shard reads; the last one on the kv
-   needle map), each with its own directory. (a) 1 GiB of needles of
+   needle map), each with its own directory. (a) 512 MiB of needles of
    1 B-256 KiB (uniform, seeded) into collection "smoke" through
    operations.assign + upload_data over HTTP from 16 threads; the master
    grows 7 volumes; MB/s, group-commit batches and every .dat hashed. (b) ``Shell.run_command("ec.encode
@@ -90,10 +90,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    source server: wall seconds and .dat GB/s, with the fused generates,
    the spread and its shard copies over the RPC transport timed apart;
    data shards == the .dat stripes, sampled parity == gf_linear_plain,
-   shards on all four servers. (c) 4,096 sampled needles read over HTTP
-   from random servers (16 threads): bytes equal, p50/p99. (d) a server
+   each volume's shards on at least three of the four servers (the shell
+   spreads by free slots). (c) half the needles (at most 4,096) read
+   over HTTP from random servers (16 threads): bytes equal, p50/p99. (d)
+   a server
    holding at most four shards of every volume stopped; once the master
-   drops it, 4,096 other needles (the caches hold (c)'s), p50/p99 of the
+   drops it, the other half (the caches hold (c)'s), p50/p99 of the
    reads across its shards, decode fleet dispatches > 0; then the same
    reads again, each to the same server: bytes equal, no decode dispatch,
    no kernel launch, cache hits = reads. (e) ``ec.rebuild``: 14 shards
@@ -129,7 +131,34 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    Statistics, ``collection.delete``: no smoke file and no smoke volume
    left. gf_linear's launch count must rise in (k) and both scrubs, and
    stay 0 in (i), (j), (m) and (n).
-10. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+10. The replicated, highly available cluster, in this process: three
+   MasterServers with ``peers`` set to all three (volumes of 256 MiB) and
+   four VolumeServers naming all three masters, in data center dc1, racks
+   r1, r1, r2, r2 (``ec_encoder`` cuda, the read cache and hedging as in
+   phase 8), the breaker on. (a) one leader elected, four servers
+   registered with their racks. (b) 256 MiB of needles of 1 B-256 KiB in
+   collection "repl" with replication 010 from 16 threads, every assign
+   sent to a follower (the HTTP proxy); the leader stopped, the failover
+   timed until a new leader has all four servers; two volumes grown
+   through a follower must be numbered above every earlier one; 256 MiB
+   more; every file id distinct, every volume on two racks; MB/s of both
+   halves. (c) 4,096 sampled needles read from each of their replicas
+   (bytes equal, p50/p99), and every volume's two replicas hold the same
+   live needles with the same data. (d) 64 needles deleted through one
+   replica, gone from both; one r1 server stopped: writes to a volume it
+   held a replica of are not acknowledged, before and after the master
+   drops it; the sample of its volumes read from the other replicas; the
+   breaker's state for it. (e) ``volume.fix.replication``: every volume
+   back on two racks, seconds and bytes copied, the sample read from the
+   new copies. (f) a byte flipped in a live needle's data on one replica,
+   ``volume.scrub -node -volumeId``: found 1, repaired 1, bytes equal to
+   the other replica's. (g) ``ec.encode -collection=repl -volumeId=<every
+   vid>``: one generate per volume, data shards == the generating
+   replica's .dat stripes, sampled parity == gf_linear_plain, no .dat of
+   those volumes on any live server, the sample read back through the EC
+   path; wall seconds and GB/s. gf_linear's launch count must rise in (g)
+   and stay 0 in (a)-(f).
+11. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -1443,16 +1472,17 @@ def phase_scrub(workdir: str, ctx: dict, mesh, backend: str, launches,
 # --- phase 8 ------------------------------------------------------------------
 
 # The cluster configuration: four volume servers, volumes of at most
-# 1,024 MiB, 1 GiB of needles of 1-256 KiB (uniform), written from 16
+# 1,024 MiB, 512 MiB of needles of 1-256 KiB (uniform), written from 16
 # client threads into collection "smoke"; the master grows 7 volumes. (At
-# 2 GiB the whole run took past eight minutes.) Every server runs the read
-# cache and hedged shard reads; the last one the kv needle map. The cache's
-# RAM tier holds every needle a server serves in (c) and both passes of
-# (d): (c) reads 4,096 needles of 128 KiB mean, about 128 MiB on each of 4
-# servers; (d) 4,096 others, about 171 MiB on each of 3, plus at most as
+# 2 GiB the whole run took past eight minutes; at 1 GiB, with phase 10,
+# 458 s of the 480 on an NVIDIA H100 80GB HBM3 at 700 W.) Every server runs the read cache and hedged shard
+# reads; the last one the kv needle map. The cache's RAM tier holds every
+# needle a server serves in (c) and both passes of (d): (c) and (d) read
+# half the needles each (about 2,050 of 128 KiB mean), about 64 MiB on
+# each of 4 servers in (c) and 86 MiB on each of 3 in (d), plus at most as
 # much again of reconstructed spans; 1,024 MiB a server leaves room.
 SERVICE_SERVERS = 4
-SERVICE_BYTES = 1 << 30
+SERVICE_BYTES = 512 << 20
 SERVICE_NEEDLE_MAX = 256 << 10
 SERVICE_THREADS = 16
 SERVICE_SAMPLE = 4096
@@ -1502,14 +1532,16 @@ def http_get(url: str) -> bytes:
     return r.body
 
 
-def upload_needles(master_url: str, total: int, seed: int) -> tuple:
+def upload_needles(master_url: str, total: int, seed: int,
+                   collection: str = "smoke", replication: str = "",
+                   buf: bytes = b"") -> tuple:
     """About ``total`` bytes of needles, sizes uniform in 1 B-256 KiB, from
     SERVICE_THREADS threads through operations.assign + upload_data. The
-    bytes are slices of one seeded random buffer. Returns ({fid: (offset,
-    size)}, the buffer, wall seconds)."""
+    bytes are slices of one seeded random buffer (``buf`` when given).
+    Returns ({fid: (offset, size)}, the buffer, wall seconds)."""
     from seaweedfs_tpu_torch.operation import operations
     rng = np.random.default_rng(seed)
-    buf = rng.bytes(64 << 20)
+    buf = buf or rng.bytes(64 << 20)
     sizes = []
     while sum(sizes) < total:
         sizes.append(int(rng.integers(1, SERVICE_NEEDLE_MAX + 1)))
@@ -1520,7 +1552,8 @@ def upload_needles(master_url: str, total: int, seed: int) -> tuple:
         out = {}
         try:
             for off, size in part:
-                a = operations.assign(master_url, collection="smoke")
+                a = operations.assign(master_url, collection=collection,
+                                      replication=replication)
                 operations.upload_data(f"{a.url}/{a.fid}",
                                        buf[off:off + size])
                 out[a.fid] = (off, size)
@@ -1811,10 +1844,16 @@ def phase_service(workdir: str, seed: int, backend: str,
         rng = np.random.default_rng(seed + 8)
         device = "cuda" if backend == "cuda" else "cpu"
         moved = 0
+        spread = {}
         for vid in vids:
             paths = shard_paths_of(servers, "smoke", vid)
             holders = {os.path.dirname(p) for p in paths}
-            if len(holders) != SERVICE_SERVERS:
+            # the shell spreads by free slots (upstream
+            # balancedEcDistribution): a source that held several of the
+            # volumes has fewer free slots and can get none of a volume's
+            # shards, so three servers at least, four most often
+            spread[vid] = len(holders)
+            if len(holders) < SERVICE_SERVERS - 1:
                 raise AssertionError(f"volume {vid}: shards on "
                                      f"{len(holders)} servers")
             check_stripes(dats[vid], paths)
@@ -1848,8 +1887,8 @@ def phase_service(workdir: str, seed: int, backend: str,
             f"({out['encode']['copy_GBps']:.3f} GB/s over the RPC "
             f"transport); {launches.per_phase['service_encode']} "
             f"gf_linear launches; data shards == .dat stripes, sampled "
-            f"parity == gf_linear_plain, shards on all "
-            f"{SERVICE_SERVERS} servers [{card}]")
+            f"parity == gf_linear_plain, servers holding each volume's "
+            f"shards {spread} [{card}]")
 
         # (c) healthy reads. They fill the servers' needle caches, so (d)
         # reads a sample disjoint from this one
@@ -1872,12 +1911,17 @@ def phase_service(workdir: str, seed: int, backend: str,
             f"at random servers: {pcts(every)}, {secs:.3f} s; caches "
             f"{out['healthy_reads']['cache']} [{card}]")
 
-        # (d) a server stopped: degraded reads through the decode fleet
-        victim = next(vs for vs in servers if all(
-            vs.store.find_ec_volume(v).shard_bits.count <= 4
-            for v in vids))
-        lost = {v: set(victim.store.find_ec_volume(v).shard_bits.shard_ids)
-                for v in vids}
+        # (d) a server stopped: degraded reads through the decode fleet.
+        # The victim holds at most four shards of every volume (so every
+        # read can be served), the most shards in all among those
+        def held(vs, v):
+            ecv = vs.store.find_ec_volume(v)
+            return set(ecv.shard_bits.shard_ids) if ecv is not None else set()
+
+        victim = max((vs for vs in servers
+                      if all(len(held(vs, v)) <= 4 for v in vids)),
+                     key=lambda vs: sum(len(held(vs, v)) for v in vids))
+        lost = {v: held(victim, v) for v in vids}
         victim.stop()
         servers.remove(victim)
         t0 = time.perf_counter()
@@ -2502,6 +2546,437 @@ def phase_cli(workdir: str, backend: str, card: str) -> dict:
     return dict(seconds=secs, blobs=CLI_BLOBS, encoded_volume=vid)
 
 
+# --- phase 10 -----------------------------------------------------------------
+
+# The replicated, highly available cluster: three masters (a raft set),
+# four volume servers over two racks of one data center, volumes of 256
+# MiB, placement 010 (one copy in each rack), the breaker on. 256 MiB of
+# needles of 1 B-256 KiB before a leader failover and 256 MiB after it.
+REPL_MASTERS = 3
+REPL_RACKS = ("r1", "r1", "r2", "r2")
+REPL_BYTES = 256 << 20
+REPL_VOLUME_MB = 256
+REPL_DELETES = 64
+REPL_GROW_AFTER_FAILOVER = 2
+
+
+def read_pairs(pairs, buf) -> list:
+    """GET each (fid, url, (offset, size)) from that url, from
+    SERVICE_THREADS threads; any wrong byte fails the run. Returns the
+    latencies."""
+    from seaweedfs_tpu_torch.operation import operations
+
+    def worker(part):
+        lat = []
+        try:
+            for fid, url, (off, size) in part:
+                t0 = time.perf_counter()
+                r = operations.http_request("GET", f"{url}/{fid}")
+                lat.append(time.perf_counter() - t0)
+                if r.status != 200 or r.body != buf[off:off + size]:
+                    raise AssertionError(f"{fid} from {url}: http "
+                                         f"{r.status}, wrong bytes")
+        finally:
+            operations.close_connections()
+        return lat
+
+    with concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+        parts = list(pool.map(worker, [pairs[i::SERVICE_THREADS]
+                                       for i in range(SERVICE_THREADS)]))
+    return [t for p in parts for t in p]
+
+
+def replica_urls(master, vid: int, copies: int = 2) -> list:
+    return wait_until(
+        lambda: (lambda locs: sorted(u for u, _ in locs)
+                 if len(locs) == copies else None)(
+            master.lookup_locations(vid, "repl")),
+        30, f"{copies} replicas of volume {vid}")
+
+
+def live_needles(v) -> dict:
+    """{needle id: sha256 of its data} of one replica's live needles."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    out = {}
+    for key, _ in list(v.nm.items()):
+        got = v.read_needle(Needle(id=key, cookie=0))
+        out[key] = hashlib.sha256(got.data).hexdigest()
+    return out
+
+
+def phase_replication(workdir: str, seed: int, backend: str,
+                      total_bytes: int = REPL_BYTES,
+                      sample_size: int = SERVICE_SAMPLE,
+                      card: str = "") -> dict:
+    """Phase 10: (a) election and registration, (b) uploads of 010 needles
+    through a follower with a leader failover between two halves, (c)
+    every replica holds every write, (d) deletes and a lost replica, (e)
+    volume.fix.replication, (f) scrub repair from a replica, (g) ec.encode
+    of every replicated volume on the card."""
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.operation.file_id import parse_fid
+    from seaweedfs_tpu_torch.resilience import breaker
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.shell import Shell
+    from seaweedfs_tpu_torch.storage.needle import Needle
+
+    card = card or backend
+    launches = Launches(backend)
+    out = {}
+    breaker.configure(enable=True)
+    ports = [free_port_pair() for _ in range(REPL_MASTERS)]
+    murls = [f"127.0.0.1:{p}" for p in ports]
+    masters = [MasterServer(port=p, meta_dir=os.path.join(workdir, f"m{i}"),
+                            peers=murls, volume_size_limit_mb=REPL_VOLUME_MB,
+                            pulse_seconds=1.0)
+               for i, p in enumerate(ports)]
+    servers = []
+    stopped = []
+    t_phase = time.perf_counter()
+    try:
+        for m in masters:
+            m.start()
+        for i, rack in enumerate(REPL_RACKS):
+            d = os.path.join(workdir, f"vol{i}")
+            os.makedirs(d)
+            vs = VolumeServer(
+                ",".join(murls), [d], port=free_port_pair(),
+                data_center="dc1", rack=rack, max_volume_counts=[16],
+                pulse_seconds=1.0, ec_encoder=backend,
+                cache_size_mb=SERVICE_CACHE_MB, hedge_reads=True)
+            vs.start()
+            servers.append(vs)
+
+        def leader_of(ms):
+            leaders = [m for m in ms if m.is_leader]
+            return leaders[0] if len(leaders) == 1 else None
+
+        def registered(m):
+            nodes = m.topo.nodes()
+            return len(nodes) == len(servers) and sorted(
+                n.rack.id for n in nodes) == sorted(REPL_RACKS)
+
+        # (a) election and registration
+        def elect():
+            leader = wait_until(lambda: leader_of(masters), 30,
+                                "one raft leader")
+            wait_until(lambda: registered(leader), 30,
+                       "four servers with their racks at the leader")
+            return leader
+
+        leader, secs = launches.run("repl_election", elect, none=True)
+        log(f"  (a) {REPL_MASTERS} masters elected {leader.url} (term "
+            f"{leader.raft.current_term}); {len(servers)} servers "
+            f"registered with racks {sorted(REPL_RACKS)} in {secs:.3f} s "
+            f"[{card}]")
+        out["election_seconds"] = secs
+
+        # (b) uploads through a follower, a failover between the halves
+        follower = next(m for m in masters if m is not leader)
+        (first, buf, up1), _ = launches.run(
+            "repl_upload_1", upload_needles, follower.url, total_bytes,
+            seed + 10, collection="repl", replication="010", none=True)
+        vids_before = sorted({parse_fid(f).volume_id for f in first})
+        t0 = time.perf_counter()
+        leader.stop()
+        masters.remove(leader)
+        survivors = list(masters)
+
+        def failover():
+            new = wait_until(lambda: leader_of(survivors), 60,
+                             "a new leader")
+            wait_until(lambda: registered(new), 60,
+                       "the servers re-registered at the new leader")
+            return new
+
+        new_leader, _ = launches.run("repl_failover", failover, none=True)
+        failover_s = time.perf_counter() - t0
+        follower = next(m for m in survivors if m is not new_leader)
+        grown = json.loads(operations.http_request(
+            "GET", f"{follower.url}/vol/grow?collection=repl&replication="
+            f"010&count={REPL_GROW_AFTER_FAILOVER}").body)
+        if grown.get("count") != REPL_GROW_AFTER_FAILOVER or \
+                min(grown["volumeIds"]) <= max(vids_before):
+            raise AssertionError(f"grow after the failover: {grown}, "
+                                 f"volumes before {vids_before}")
+        (second, _, up2), _ = launches.run(
+            "repl_upload_2", upload_needles, follower.url, total_bytes,
+            seed + 11, collection="repl", replication="010", buf=buf,
+            none=True)
+        if set(first) & set(second):
+            raise AssertionError("a file id was issued twice")
+        blobs = dict(first, **second)
+        vids = sorted({parse_fid(f).volume_id for f in blobs})
+        after = sorted(set(vids) - set(vids_before))
+        if after and min(after) <= max(vids_before):
+            raise AssertionError(f"volumes {after} written after the "
+                                 f"failover, {vids_before} before it")
+        rack_of = {vs.url: vs.rack for vs in servers}
+        holders = {vid: replica_urls(new_leader, vid) for vid in vids}
+        for vid, urls in holders.items():
+            if rack_of[urls[0]] == rack_of[urls[1]]:
+                raise AssertionError(f"volume {vid}: both replicas in "
+                                     f"{rack_of[urls[0]]}")
+        nb = [sum(s for _, s in part.values()) for part in (first, second)]
+        out["upload"] = dict(
+            needles=len(blobs), bytes=sum(nb), volumes=len(vids),
+            MBps_before=nb[0] / up1 / 1e6, MBps_after=nb[1] / up2 / 1e6,
+            failover_seconds=failover_s, grown_after=grown["volumeIds"])
+        log(f"  (b) 010 uploads through follower masters: {len(first)} "
+            f"needles, {nb[0]} B in {up1:.3f} s = {nb[0] / up1 / 1e6:.1f} "
+            f"MB/s; leader {leader.url} stopped, {new_leader.url} leads "
+            f"(term {new_leader.raft.current_term}) with all four servers "
+            f"back after {failover_s:.3f} s; grown after it "
+            f"{grown['volumeIds']} > {max(vids_before)}; {len(second)} "
+            f"needles, {nb[1]} B in {up2:.3f} s = "
+            f"{nb[1] / up2 / 1e6:.1f} MB/s; {len(blobs)} distinct file "
+            f"ids in {len(vids)} volumes, each on two racks [{card}]")
+
+        # (c) every replica holds every write
+        rng = np.random.default_rng(seed + 12)
+        fids = sorted(blobs)
+        picks = rng.choice(len(fids), size=min(sample_size, len(fids)),
+                           replace=False)
+        sample = {fids[i]: blobs[fids[i]] for i in sorted(picks.tolist())}
+        pairs = [(fid, url, where) for fid, where in sample.items()
+                 for url in holders[parse_fid(fid).volume_id]]
+
+        def every_replica():
+            lat = read_pairs(pairs, buf)
+            for vs in servers:
+                for vid in vids:
+                    v = vs.store.find_volume(vid)
+                    if v is not None:
+                        v.sync()
+            for vid, urls in holders.items():
+                a, b = (live_needles(next(
+                    vs for vs in servers if vs.url == u).store.find_volume(
+                        vid)) for u in urls)
+                if a != b:
+                    raise AssertionError(
+                        f"volume {vid}: replicas differ ({len(a)} and "
+                        f"{len(b)} live needles)")
+            return lat
+
+        lat, secs = launches.run("repl_reads", every_replica, none=True)
+        out["replica_reads"] = dict(
+            reads=len(lat), seconds=secs,
+            p50_ms=float(np.percentile(lat, 50) * 1e3),
+            p99_ms=float(np.percentile(lat, 99) * 1e3))
+        log(f"  (c) {len(sample)} sampled needles read from each of their "
+            f"two replicas: {pcts(lat)}; every volume's replicas hold the "
+            f"same live needles with the same data; {secs:.3f} s [{card}]")
+
+        # (d) deletes (sampled needles, which later steps read no more),
+        # then a lost replica
+        doomed = sorted(rng.choice(sorted(sample), REPL_DELETES,
+                                   replace=False).tolist())
+
+        def deletes():
+            for i, fid in enumerate(doomed):
+                urls = holders[parse_fid(fid).volume_id]
+                r = operations.http_request("DELETE",
+                                            f"{urls[i % 2]}/{fid}")
+                if r.status != 202:
+                    raise AssertionError(f"DELETE {fid}: http {r.status}")
+                for url in urls:
+                    if operations.http_request(
+                            "GET", f"{url}/{fid}").status != 404:
+                        raise AssertionError(f"{fid} survives on {url}")
+
+        _, del_secs = launches.run("repl_deletes", deletes, none=True)
+        for fid in doomed:
+            del sample[fid]
+        victim = next(vs for vs in servers if vs.rack == "r1" and any(
+            vs.url in urls for urls in holders.values()))
+        lost_vids = [vid for vid, urls in holders.items()
+                     if victim.url in urls]
+        vid = lost_vids[0]
+        partner = next(u for u in holders[vid] if u != victim.url)
+        cookie = 0x5eed5eed
+
+        def lose_a_replica():
+            warm = f"{vid},{(1 << 40):x}{cookie:08x}"
+            r = operations.http_request("POST", f"{partner}/{warm}",
+                                        body=b"acknowledged by both")
+            if r.status != 201:
+                raise AssertionError(f"write before the loss: {r.status}")
+            victim.stop()
+            servers.remove(victim)
+            stopped.append(victim)
+            statuses = []
+            for key in ((1 << 40) + 1, (1 << 40) + 2):
+                statuses.append(operations.http_request(
+                    "POST", f"{partner}/{vid},{key:x}{cookie:08x}",
+                    body=b"one copy only").status)
+                wait_until(lambda: victim.url not in {
+                    n.url for n in new_leader.topo.nodes()}, 30,
+                    "the master dropping the stopped server")
+            if any(st < 300 for st in statuses):
+                raise AssertionError(f"a write with a replica down was "
+                                     f"acknowledged: {statuses}")
+            lost_sample = [(fid, partner if vid_of == vid else next(
+                u for u in holders[vid_of] if u != victim.url), where)
+                for fid, where in sample.items()
+                for vid_of in [parse_fid(fid).volume_id]
+                if vid_of in lost_vids]
+            return statuses, read_pairs(lost_sample, buf)
+
+        (statuses, lat), secs = launches.run("repl_lost_replica",
+                                             lose_a_replica, none=True)
+        state = {breaker.CLOSED: "closed", breaker.HALF_OPEN: "half-open",
+                 breaker.OPEN: "open"}[breaker.for_peer(victim.url).state]
+        out["lost_replica"] = dict(
+            deletes=len(doomed), delete_seconds=del_secs,
+            refused_statuses=statuses, reads=len(lat),
+            p50_ms=float(np.percentile(lat, 50) * 1e3),
+            p99_ms=float(np.percentile(lat, 99) * 1e3), breaker=state)
+        log(f"  (d) {len(doomed)} needles deleted through one replica, gone "
+            f"from both, in {del_secs:.3f} s; {victim.url} ({victim.rack}, "
+            f"replicas of volumes {lost_vids}) stopped; writes to volume "
+            f"{vid} through {partner} answered {statuses} (not "
+            f"acknowledged) before and after the master dropped it; the "
+            f"sample of its volumes from the other replicas: {pcts(lat)}; "
+            f"breaker for {victim.url}: {state} [{card}]")
+
+        # (e) volume.fix.replication
+        sh = Shell(new_leader.url)
+        text, fix_secs = launches.run("repl_fix", sh.run_command,
+                                      "volume.fix.replication", none=True)
+        copied = 0
+        for lv in lost_vids:
+            if f"volume {lv}: replicated" not in text:
+                raise AssertionError(f"volume.fix.replication:\n{text}")
+        for vid_, urls in list(holders.items()):
+            urls = replica_urls(new_leader, vid_)
+            if rack_of[urls[0]] == rack_of[urls[1]] or victim.url in urls:
+                raise AssertionError(f"volume {vid_} after the fix: {urls}")
+            if vid_ in lost_vids:
+                new = next(u for u in urls if u not in holders[vid_])
+                v = next(vs for vs in servers if vs.url == new) \
+                    .store.find_volume(vid_)
+                copied += os.path.getsize(v.file_name() + ".dat") + \
+                    os.path.getsize(v.file_name() + ".idx")
+            holders[vid_] = urls
+        new_copy_reads = read_pairs(
+            [(fid, next(u for u in holders[parse_fid(fid).volume_id]
+                        if rack_of[u] == "r1"), where)
+             for fid, where in sample.items()
+             if parse_fid(fid).volume_id in lost_vids], buf)
+        out["fix"] = dict(seconds=fix_secs, copied_bytes=copied,
+                          volumes=len(lost_vids),
+                          reads=len(new_copy_reads))
+        log(f"  (e) volume.fix.replication: {len(lost_vids)} volumes "
+            f"copied back to two racks, {copied} B in {fix_secs:.3f} s; "
+            f"the sample reads back from the new copies "
+            f"({pcts(new_copy_reads)}) [{card}]")
+
+        # (f) scrub repair from a replica
+        fid = next(iter(sample))
+        f = parse_fid(fid)
+        target = next(vs for vs in servers
+                      if vs.url in holders[f.volume_id])
+        other = next(u for u in holders[f.volume_id] if u != target.url)
+        v = target.store.find_volume(f.volume_id)
+        v.sync()
+        off, size = sample[fid]
+        nv = v.nm.get(f.key)
+        flip_byte(v.file_name() + ".dat", nv.offset + 20 + size // 2)
+        st0 = target.scrub.status()
+
+        def scrub():
+            text = sh.run_command(f"volume.scrub -node={target.url} "
+                                  f"-volumeId={f.volume_id}")
+            if "scrub started" not in text:
+                raise AssertionError(f"volume.scrub:\n{text}")
+            wait_until(lambda: target.scrub.status()["passes_completed"]
+                       > st0["passes_completed"] and
+                       target.scrub.status()["state"] != "running", 300,
+                       "the targeted scrub pass")
+
+        _, scrub_secs = launches.run("repl_scrub", scrub, none=True)
+        st1 = target.scrub.status()
+        found = st1["corruptions_found"] - st0["corruptions_found"]
+        repaired = st1["corruptions_repaired"] - st0["corruptions_repaired"]
+        got = operations.http_request("GET", f"{target.url}/{fid}").body
+        want = operations.http_request("GET", f"{other}/{fid}").body
+        if (found, repaired) != (1, 1) or got != want or \
+                got != buf[off:off + size]:
+            raise AssertionError(f"scrub from a replica: found {found}, "
+                                 f"repaired {repaired}, bytes equal "
+                                 f"{got == want}")
+        out["scrub"] = dict(seconds=scrub_secs, found=found,
+                            repaired=repaired)
+        log(f"  (f) a byte flipped in needle {fid}'s data on {target.url}: "
+            f"volume.scrub found {found}, repaired {repaired} from "
+            f"{other} in {scrub_secs:.3f} s; its bytes equal the other "
+            f"replica's [{card}]")
+
+        # (g) ec.encode of every replicated volume on the card
+        snap = os.path.join(workdir, "snap")
+        os.makedirs(snap)
+        dats = {}
+        for vid_ in vids:
+            # the replica ec.encode generates from: the master's first
+            # location (replicas differ in their needles' append times)
+            source = new_leader.lookup_locations(vid_, "repl")[0][0]
+            owner = next(vs for vs in servers if vs.url == source)
+            v = owner.store.find_volume(vid_)
+            v.sync()
+            dats[vid_] = os.path.join(snap, f"{vid_}.dat")
+            os.link(v.file_name() + ".dat", dats[vid_])
+        dat_bytes = sum(os.path.getsize(p) for p in dats.values())
+        text, enc_secs = launches.run(
+            "repl_encode", sh.run_command,
+            f"ec.encode -collection=repl -volumeId={','.join(map(str, vids))}")
+        for vid_ in vids:
+            if text.count(f"volume {vid_}: generated 14 shards") != 1 or \
+                    f"volume {vid_}: ec.encode done" not in text:
+                raise AssertionError(f"ec.encode:\n{text}")
+        wait_until(lambda: all(new_leader.topo.lookup_ec(v_) and not
+                               new_leader.topo.lookup(v_, "repl")
+                               for v_ in vids), 30,
+                   "the EC volumes in the topology")
+        device = "cuda" if backend == "cuda" else "cpu"
+        for vid_ in vids:
+            if any(vs.store.has_volume(vid_) or os.path.exists(os.path.join(
+                    vs.store.locations[0].directory, f"repl_{vid_}.dat"))
+                   for vs in servers):
+                raise AssertionError(f"volume {vid_}: a .dat is left")
+            paths = shard_paths_of(servers, "repl", vid_)
+            check_stripes(dats[vid_], paths)
+            link = os.path.join(snap, f"linked_{vid_}")
+            for sid, p in enumerate(paths):
+                os.symlink(p, f"{link}.ec{sid:02d}")
+            check_parity_spans(link, os.path.getsize(paths[0]), rng, 8,
+                               1 << 20, device)
+        ec_reads, _ = read_sample(servers, sample, buf)
+        out["encode"] = dict(
+            seconds=enc_secs, GBps=dat_bytes / enc_secs / 1e9,
+            dat_bytes=dat_bytes, volumes=len(vids),
+            launches=launches.per_phase["repl_encode"],
+            reads=len(ec_reads),
+            p50_ms=float(np.percentile(ec_reads, 50) * 1e3))
+        log(f"  (g) ec.encode -collection=repl of {len(vids)} replicated "
+            f"volumes ({dat_bytes} B of .dat): {enc_secs:.3f} s = "
+            f"{dat_bytes / enc_secs / 1e9:.3f} GB/s, one generate per "
+            f"volume, {launches.per_phase['repl_encode']} gf_linear "
+            f"launches; data shards == the .dat stripes, sampled parity == "
+            f"gf_linear_plain, no .dat left on any live server; the sample "
+            f"reads back through the EC path ({pcts(ec_reads)}) [{card}]")
+    finally:
+        for vs in servers:
+            vs.stop()
+        for m in masters:
+            m.stop()
+        breaker.reset()
+        operations.close_connections()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(launches.per_phase)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--needles", type=int, default=1 << 20)
@@ -2565,6 +3040,17 @@ def main() -> int:
                                 fix_dir=fix_dir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log("phase 10: the replicated HA cluster (three masters, four servers "
+        "over two racks, placement 010)")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_repl_")
+    try:
+        repl = phase_replication(workdir, args.seed, "cuda", card=card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phase 10 took {repl['seconds']:.3f} s [{card}]")
+    service["replication"] = {k: v for k, v in repl.items()
+                              if k != "launches"}
+    service["launches"].update(repl["launches"])
     main_launches = sum(m["launches"][p] for p in
                         ("generate", "rebuild", "degraded_read", "decode"))
     service_launches = sum(service["launches"].values())

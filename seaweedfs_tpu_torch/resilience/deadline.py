@@ -14,6 +14,10 @@ import time
 from contextlib import contextmanager
 from typing import Optional
 
+# the remaining budget, in seconds, forwarded on an outbound HTTP request
+# (util/http_client.py)
+HEADER = "X-Seaweed-Deadline"
+
 _deadline: "contextvars.ContextVar[Optional[float]]" = \
     contextvars.ContextVar("seaweed_deadline", default=None)
 

@@ -80,13 +80,16 @@ def heartbeat_from_pb(hb: master_pb2.Heartbeat) -> dict:
     return d
 
 
-def heartbeat_to_pb(hb: dict) -> master_pb2.Heartbeat:
+def heartbeat_to_pb(hb: dict, data_center: str = "",
+                    rack: str = "") -> master_pb2.Heartbeat:
     return master_pb2.Heartbeat(
         ip=hb["ip"],
         port=hb["port"],
         public_url=hb.get("public_url", ""),
         max_volume_count=hb.get("max_volume_count", 0),
         max_file_key=hb.get("max_file_key", 0),
+        data_center=data_center,
+        rack=rack,
         volumes=[volume_info_to_pb(v) for v in hb.get("volumes", [])],
         ec_shards=[ec_info_to_pb(e) for e in hb.get("ec_shards", [])])
 

@@ -1,11 +1,20 @@
-"""Master server: the cluster's control plane, one master.
+"""Master server: the cluster's control plane.
 
-Owns the Topology, assigns file ids, grows volumes, drives vacuum and
-feeds clients a live vid -> location view over the KeepConnected stream.
-The port of ``seaweedfs_tpu.server.master`` for a single master: the max
-volume id and the file-id sequence survive a restart from ``-mdir`` (a
-state file written before a grown volume id is used, and at stop), as
-the JAX package's single-node raft log gives.
+Owns the Topology, assigns file ids, grows volumes under any xyz replica
+placement (``topology/volume_growth.py``), drives vacuum and feeds
+clients a live vid -> location view over the KeepConnected stream. The
+port of ``seaweedfs_tpu.server.master``.
+
+With ``peers`` (``-peers``) an odd set of masters elects one leader by
+raft (``server/raft.py``). Only the leader assigns, grows, vacuums,
+leases the admin lock, takes heartbeats and runs the loops below; a
+follower answers an RPC with NotLeader and proxies HTTP to the leader
+(``/cluster/status`` is answered locally). The raft log carries the max
+volume id, raised before a grown id is used, and a file-id watermark
+``SEQ_WATERMARK_GAP`` ahead of every id handed out, so a new leader never
+issues an id twice. Without peers the node leads alone and the same log
+keeps the max volume id across a restart; ``sequence.json`` keeps the
+memory sequencer's next id at stop. These files are the JAX package's.
 
 Two optional loops do the cluster's upkeep with no operator: the
 maintenance cron runs master.toml's ``master.maintenance.scripts``
@@ -13,16 +22,13 @@ through the shell every ``sleep_minutes`` (reference
 master_server.go:187-263), and the scrub scheduler opens one scrub pass
 on every volume server per ``-scrub.intervalSeconds``, staggered over
 the window. Neither thread exists unless its scripts or interval are
-set. Both run only on the leader; with one master that is always this
-one, and the checks stay calls so that raft with peers can slot in.
+set, and both act only on the leader.
 
-Left out: raft with peers, lifecycle, heat and QoS views, ``/status``
-and the UI, and replication other than ``000`` (a write or grow that
-asks for it is refused).
+Left out: lifecycle, heat and QoS views, ``/status`` and the UI.
 
 Reference: weed/server/master_server.go, master_grpc_server.go
 (SendHeartbeat :20-176, KeepConnected :178-233),
-master_server_handlers*.go, topology/topology_vacuum.go.
+master_server_handlers*.go, raft_server.go, topology/topology_vacuum.go.
 """
 
 from __future__ import annotations
@@ -32,42 +38,34 @@ import os
 import queue
 import threading
 import time
+import zlib
 from typing import Dict, List, Optional, Set
 from urllib.parse import parse_qs
 
 from seaweedfs_tpu_torch import rpc
-from seaweedfs_tpu_torch.pb import master_pb2, volume_server_pb2, volume_stub
+from seaweedfs_tpu_torch.pb import (master_pb2, raft_pb2, volume_server_pb2,
+                                    volume_stub)
 from seaweedfs_tpu_torch.server import convert
+from seaweedfs_tpu_torch.server.raft import NotLeader, RaftNode
 from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement
 from seaweedfs_tpu_torch.topology.node import VolumeInfo
-from seaweedfs_tpu_torch.topology.sequence import MemorySequencer
+from seaweedfs_tpu_torch.topology.sequence import (EtcdSequencer,
+                                                   MemorySequencer,
+                                                   SnowflakeSequencer)
 from seaweedfs_tpu_torch.topology.topology import Topology
-from seaweedfs_tpu_torch.topology.volume_growth import (GROWTH_COUNT,
-                                                       NoFreeSlots, pick_node)
-from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.topology.volume_growth import (NoFreeSlots,
+                                                       VolumeGrowth,
+                                                       growth_count)
+from seaweedfs_tpu_torch.util import http_client, wlog
 from seaweedfs_tpu_torch.util.http_server import (FastHandler,
                                                   make_http_server)
 
 log = wlog.logger("master")
 
-STATE_FILE = "master.state.json"
-# the only replica placement the port writes: one copy
-SUPPORTED_REPLICATION = "000"
-
-
-class UnsupportedReplication(ValueError):
-    pass
-
-
-def check_replication(replication: str) -> ReplicaPlacement:
-    """The placement of a write or grow; anything but one copy is refused
-    (never acknowledged with fewer copies than asked for)."""
-    rp = ReplicaPlacement.parse(replication or SUPPORTED_REPLICATION)
-    if str(rp) != SUPPORTED_REPLICATION:
-        raise UnsupportedReplication(
-            f"replication {rp} is not supported by this port (only "
-            f"{SUPPORTED_REPLICATION}: one copy)")
-    return rp
+SEQUENCE_FILE = "sequence.json"
+# what an assign or grow answers with an error message instead of a fid
+ASSIGN_ERRORS = (NoFreeSlots, RuntimeError, NotLeader, TimeoutError,
+                 ValueError)
 
 
 class AdminLock:
@@ -112,27 +110,62 @@ def plan_scrub_stagger(urls: List[str],
 
 
 class MasterServer:
+    SEQ_WATERMARK_GAP = 10000  # ids raft-committed ahead of allocation
+
     def __init__(self, ip: str = "127.0.0.1", port: int = 9333,
                  meta_dir: Optional[str] = None,
                  volume_size_limit_mb: int = 30 * 1024,
+                 default_replication: str = "000",
                  pulse_seconds: float = 5.0,
                  garbage_threshold: float = 0.3,
+                 peers: Optional[List[str]] = None,
+                 raft_election_timeout: float = 0.5,
                  maintenance_scripts: Optional[List[str]] = None,
                  maintenance_interval_s: float = 17 * 60,
                  scrub_interval_s: float = 0.0,
-                 scrub_throttle_mbps: float = 0.0):
+                 scrub_throttle_mbps: float = 0.0,
+                 sequencer_type: str = "memory",
+                 sequencer_node_id: Optional[int] = None,
+                 sequencer_etcd_urls: str = "127.0.0.1:2379"):
         self.ip = ip
         self.port = port
         self.meta_dir = meta_dir
+        # an assign or grow that names no placement gets this one
+        self.default_replication = str(
+            ReplicaPlacement.parse(default_replication or "000"))
         self.garbage_threshold = garbage_threshold
-        state = self._load_state()
+        if sequencer_type == "snowflake":
+            # coordination-free ids; the node id must differ per master:
+            # configured, or derived from ip:port (masters often share a
+            # port across hosts)
+            node_id = sequencer_node_id if sequencer_node_id is not None \
+                else zlib.crc32(f"{ip}:{port}".encode()) & 0x3FF
+            seq = SnowflakeSequencer(node_id=node_id)
+        elif sequencer_type == "etcd":
+            seq = EtcdSequencer(
+                endpoint=sequencer_etcd_urls.split(",")[0].strip())
+        elif sequencer_type in ("memory", ""):
+            seq = MemorySequencer(start=self._load_sequence())
+        else:
+            raise ValueError(f"unknown sequencer type {sequencer_type!r} "
+                             "(memory | snowflake | etcd)")
         self.topo = Topology(
             volume_size_limit=volume_size_limit_mb << 20,
-            sequencer=MemorySequencer(start=state.get("sequence", 1)),
-            pulse_seconds=pulse_seconds)
-        self.topo.adjust_max_volume_id(state.get("max_volume_id", 0))
+            sequencer=seq, pulse_seconds=pulse_seconds)
+        self.growth = VolumeGrowth(self.topo)
         self.admin_lock = AdminLock()
-        self._state_lock = threading.Lock()
+        # RaftNode.__init__ replays the committed log through _raft_apply
+        # before self.raft exists: the callbacks use _applied_state, never
+        # self.raft
+        self._applied_state = {"max_volume_id": 0, "sequence": 0}
+        self._seq_watermark = 0  # guarded_by(self._seq_lock)
+        self._seq_lock = threading.Lock()
+        self.raft = RaftNode(
+            f"{ip}:{port}", peers or [], meta_dir,
+            apply=self._raft_apply,
+            snapshot_fn=lambda: dict(self._applied_state),
+            restore_fn=self._raft_restore,
+            election_timeout=raft_election_timeout)
         self._grow_lock = threading.Lock()
         # layouts being grown -> the event their waiters block on
         self._growing: Dict[tuple, threading.Event] = {}  # guarded_by(self._grow_lock)
@@ -171,8 +204,11 @@ class MasterServer:
         if self.port == 0:
             raise ValueError("master port must be fixed (rpc = port+10000)")
         handler = rpc.generic_handler(master_pb2, "Seaweed", self)
+        raft_handler = rpc.generic_handler(raft_pb2, "Raft", self.raft)
         self._grpc_server = rpc.make_server(
-            f"{self.ip}:{self.port + rpc.GRPC_PORT_OFFSET}", [handler])
+            f"{self.ip}:{self.port + rpc.GRPC_PORT_OFFSET}",
+            [handler, raft_handler])
+        self.raft.start()
         self._http_server = make_http_server(
             (self.ip, self.port), _make_http_handler(self))
         # lint: thread-ok(listener thread; each request mints its own context)
@@ -202,7 +238,8 @@ class MasterServer:
         for th in (self._maint_thread, self._scrub_thread):
             if th is not None:
                 th.join(timeout=30)
-        self._save_state()
+        self.raft.stop()
+        self._save_sequence()
         if self._http_server:
             self._http_server.shutdown()
             self._http_server.server_close()
@@ -211,8 +248,11 @@ class MasterServer:
 
     @property
     def is_leader(self) -> bool:
-        """One master leads alone; raft with peers replaces this."""
-        return True
+        return self.raft.is_leader
+
+    def _require_leader(self) -> None:
+        if not self.raft.is_leader:
+            raise NotLeader(self.raft.leader())
 
     # -- maintenance cron ----------------------------------------------------
 
@@ -349,32 +389,83 @@ class MasterServer:
 
     # -- persistent state ----------------------------------------------------
 
-    def _state_path(self) -> Optional[str]:
-        return os.path.join(self.meta_dir, STATE_FILE) \
+    def _sequence_path(self) -> Optional[str]:
+        return os.path.join(self.meta_dir, SEQUENCE_FILE) \
             if self.meta_dir else None
 
-    def _load_state(self) -> dict:
-        p = self._state_path()
+    def _load_sequence(self) -> int:
+        p = self._sequence_path()
         if p and os.path.exists(p):
             with open(p) as f:
-                return json.load(f)
-        return {}
+                return json.load(f).get("next", 1)
+        return 1
 
-    def _save_state(self) -> None:
-        """fsync'd replace of {max_volume_id, sequence}: written before a
-        grown volume id goes out, so a restart never issues it again."""
-        p = self._state_path()
-        if not p:
-            return
-        with self._state_lock:
+    def _save_sequence(self) -> None:
+        if not getattr(self.topo.sequence, "persistable", True):
+            return  # snowflake ids must not seed a later memory run
+        p = self._sequence_path()
+        if p:
             os.makedirs(self.meta_dir, exist_ok=True)
             tmp = p + ".tmp"
             with open(tmp, "w") as f:
-                json.dump({"max_volume_id": self.topo.next_volume_id - 1,
-                           "sequence": self.topo.sequence.peek}, f)
-                f.flush()
-                os.fsync(f.fileno())
+                json.dump({"next": self.topo.sequence.peek}, f)
             os.replace(tmp, p)
+
+    # -- raft state machine ----------------------------------------------------
+
+    def _raft_apply(self, cmd: dict, term: int = 0) -> None:
+        """The committed log's state machine: the max volume id and the
+        file-id watermark (the state the reference snapshots,
+        raft_server.go:21-60). Runs during RaftNode.__init__'s replay,
+        before self.raft is set."""
+        op = cmd.get("op")
+        raft = getattr(self, "raft", None)
+        if op == "max_volume_id":
+            value = int(cmd["value"])
+            self.topo.adjust_max_volume_id(value)
+            self._applied_state["max_volume_id"] = max(
+                self._applied_state["max_volume_id"], value)
+        elif op == "sequence":
+            value = int(cmd["value"])
+            self._applied_state["sequence"] = max(
+                self._applied_state["sequence"], value)
+            # every watermark raises the floor but the sitting leader's
+            # own proposals of its term (its sequencer is the truth
+            # there); a prior term's, applied after winning, must raise
+            # it, or this leader re-issues the dead leader's ids
+            own_proposal = raft is not None and raft.is_leader and \
+                term == raft.current_term
+            if not own_proposal:
+                self.topo.sequence.set_max(value)
+
+    def _raft_restore(self, state: dict) -> None:
+        """Reinstall a raft snapshot (log compaction, catch-up)."""
+        if not state:
+            return
+        self._applied_state.update({
+            "max_volume_id": int(state.get("max_volume_id", 0)),
+            "sequence": int(state.get("sequence", 0))})
+        if self._applied_state["max_volume_id"]:
+            self.topo.adjust_max_volume_id(
+                self._applied_state["max_volume_id"])
+        if self._applied_state["sequence"]:
+            self.topo.sequence.set_max(self._applied_state["sequence"])
+
+    def _ensure_sequence_watermark(self, count: int) -> None:  # requires(self._seq_lock)
+        """Keep the committed watermark ahead of every id this assign can
+        hand out; the caller holds _seq_lock, so no id at or above the
+        committed watermark ever goes out and a new leader resuming at
+        it cannot repeat one."""
+        if not self.raft.peers or \
+                not getattr(self.topo.sequence, "needs_watermark", True):
+            # time-based ids collide with nothing; watermarking them would
+            # propose on almost every assign
+            return
+        peek = self.topo.sequence.peek
+        if peek + count >= self._seq_watermark:
+            new_wm = peek + count + self.SEQ_WATERMARK_GAP
+            self.raft.propose({"op": "sequence", "value": new_wm})
+            self._seq_watermark = new_wm
 
     # -- KeepConnected fan-out -----------------------------------------------
 
@@ -397,6 +488,13 @@ class MasterServer:
     # -- rpc: Seaweed service ------------------------------------------------
 
     def SendHeartbeat(self, request_iterator, context):
+        if not self.raft.is_leader:
+            # name the leader and end the stream; the volume server
+            # redials it (reference master_grpc_server.go:20-28)
+            next(request_iterator, None)
+            yield master_pb2.HeartbeatResponse(
+                leader=self.raft.leader() or "")
+            return
         node_url = None
         stream_id = object()  # identity of THIS connection
         try:
@@ -420,6 +518,11 @@ class MasterServer:
                     self._broadcast(master_pb2.VolumeLocation(
                         url=node.url, public_url=node.public_url,
                         new_vids=new, deleted_vids=deleted))
+                if not self.raft.is_leader:
+                    # deposed mid-stream: send the node to the new leader
+                    yield master_pb2.HeartbeatResponse(
+                        leader=self.raft.leader() or "")
+                    return
                 yield master_pb2.HeartbeatResponse(
                     volume_size_limit=self.topo.volume_size_limit,
                     leader=self.url)
@@ -444,6 +547,9 @@ class MasterServer:
 
     def KeepConnected(self, request_iterator, context):
         if next(request_iterator, None) is None:  # the client's intro
+            return
+        if not self.raft.is_leader:
+            yield master_pb2.VolumeLocation(leader=self.raft.leader() or "")
             return
         q: queue.Queue = queue.Queue()
         with self._sub_lock:
@@ -504,7 +610,7 @@ class MasterServer:
                 ttl=request.ttl,
                 data_center=request.data_center,
                 writable_volume_count=request.writable_volume_count)
-        except (NoFreeSlots, RuntimeError, ValueError) as e:
+        except ASSIGN_ERRORS as e:
             return master_pb2.AssignResponse(error=str(e))
         return master_pb2.AssignResponse(
             fid=fid, url=locs[0].url, public_url=locs[0].public_url,
@@ -513,7 +619,8 @@ class MasterServer:
     def assign(self, count: int = 1, replication: str = "",
                collection: str = "", ttl: str = "", data_center: str = "",
                writable_volume_count: int = 0):
-        rp = check_replication(replication)
+        self._require_leader()
+        rp = ReplicaPlacement.parse(replication or self.default_replication)
         rb = rp.to_byte()
         key = (collection, rb, ttl)
         for _ in range(2):
@@ -531,14 +638,17 @@ class MasterServer:
                 continue
             try:
                 self.grow_volumes(
-                    writable_volume_count or GROWTH_COUNT,
+                    writable_volume_count or growth_count(rp.copy_count),
                     str(rp), collection, ttl, data_center)
             finally:
                 with self._grow_lock:
                     self._growing.pop(key, None)
                 ev.set()
-        picked = self.topo.pick_for_write(
-            count=count, collection=collection, replica_byte=rb, ttl=ttl)
+        with self._seq_lock:
+            self._ensure_sequence_watermark(count)
+            picked = self.topo.pick_for_write(
+                count=count, collection=collection, replica_byte=rb,
+                ttl=ttl)
         if picked is None:
             raise RuntimeError("no writable volumes")
         return picked
@@ -546,38 +656,49 @@ class MasterServer:
     def grow_volumes(self, target_count: int, replication: str,
                      collection: str = "", ttl: str = "",
                      data_center: str = "") -> List[int]:
-        """Allocate `target_count` new volumes, each on one node with a
-        free slot (replication 000 only)."""
-        rp = check_replication(replication)
+        """Allocate ``target_count`` new volumes, each on the nodes its
+        placement picks (reference volume_growth.go:70-240). A volume
+        whose replicas are not all created is left for
+        volume.fix.replication and hands out no write location."""
+        self._require_leader()
+        rp = ReplicaPlacement.parse(replication or self.default_replication)
         grown = []
         for _ in range(max(1, target_count)):
             try:
-                node = pick_node(self.topo, data_center)
+                nodes = self.growth.find_empty_slots(rp, data_center)
             except NoFreeSlots:
                 if grown:
                     break  # partial growth still unblocks the assign
                 raise
             vid = self.topo.reserve_volume_ids(1)[0]
-            self._save_state()
-            try:
-                volume_stub(node.url).AllocateVolume(
-                    volume_server_pb2.AllocateVolumeRequest(
-                        volume_id=vid, collection=collection,
-                        replication=str(rp), ttl=ttl))
-            except rpc.RpcError as e:
-                # dead node: the heartbeat stream's end reaps it
-                log.warning("allocate volume %d on %s failed: %s",
-                            vid, node.url, e)
+            # the new max volume id is committed before it is used, so no
+            # later leader issues it again
+            self.raft.propose({"op": "max_volume_id", "value": vid})
+            ok_nodes = []
+            for n in nodes:
+                try:
+                    volume_stub(n.url).AllocateVolume(
+                        volume_server_pb2.AllocateVolumeRequest(
+                            volume_id=vid, collection=collection,
+                            replication=str(rp), ttl=ttl))
+                    ok_nodes.append(n)
+                except rpc.RpcError as e:
+                    # a dead node: the heartbeat stream's end reaps it
+                    log.warning("allocate volume %d on %s failed: %s",
+                                vid, n.url, e)
+            if len(ok_nodes) < rp.copy_count:
                 if grown:
                     break
-                raise RuntimeError(f"volume allocation failed: vid {vid} "
-                                   f"on {node.url}: {e}") from e
-            info = VolumeInfo(id=vid, collection=collection,
-                              replica_placement=rp.to_byte(), ttl=ttl)
-            node.volumes[vid] = info
-            self.topo.register_volume(info, node)
-            self._broadcast(master_pb2.VolumeLocation(
-                url=node.url, public_url=node.public_url, new_vids=[vid]))
+                raise RuntimeError(
+                    f"volume allocation failed: {len(ok_nodes)}/"
+                    f"{rp.copy_count} replicas created for vid {vid}")
+            for n in ok_nodes:
+                info = VolumeInfo(id=vid, collection=collection,
+                                  replica_placement=rp.to_byte(), ttl=ttl)
+                n.volumes[vid] = info
+                self.topo.register_volume(info, n)
+                self._broadcast(master_pb2.VolumeLocation(
+                    url=n.url, public_url=n.public_url, new_vids=[vid]))
             grown.append(vid)
         return grown
 
@@ -621,7 +742,10 @@ class MasterServer:
         return master_pb2.CollectionDeleteResponse()
 
     def VacuumVolume(self, request, context):
-        self.vacuum(request.garbage_threshold or self.garbage_threshold)
+        try:
+            self.vacuum(request.garbage_threshold or self.garbage_threshold)
+        except NotLeader as e:
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION, str(e))
         return master_pb2.VacuumVolumeResponse()
 
     def VolumeList(self, request, context):
@@ -655,6 +779,12 @@ class MasterServer:
         return master_pb2.GetMasterConfigurationResponse()
 
     def LeaseAdminToken(self, request, context):
+        if not self.raft.is_leader:
+            # the cluster-wide lock lives on the leader only: a lease
+            # from a follower would make two holders
+            context.abort(rpc.StatusCode.FAILED_PRECONDITION,
+                          f"not the raft leader; leader is "
+                          f"{self.raft.leader() or '?'}")
         try:
             token, ts = self.admin_lock.lease(request.previous_token)
         except PermissionError as e:
@@ -675,7 +805,7 @@ class MasterServer:
                 collection=params.get("collection", [""])[0],
                 ttl=params.get("ttl", [""])[0],
                 data_center=params.get("dataCenter", [""])[0])
-        except (NoFreeSlots, RuntimeError, ValueError) as e:
+        except ASSIGN_ERRORS as e:
             return {"error": str(e)}
         return {"fid": fid, "url": locs[0].url,
                 "publicUrl": locs[0].public_url, "count": count}
@@ -717,16 +847,18 @@ class MasterServer:
         try:
             grown = self.grow_volumes(
                 int(params.get("count", ["1"])[0]),
-                params.get("replication", [""])[0],
+                params.get("replication", [self.default_replication])[0],
                 params.get("collection", [""])[0],
                 params.get("ttl", [""])[0],
                 params.get("dataCenter", [""])[0])
-        except (NoFreeSlots, RuntimeError, ValueError) as e:
+        except ASSIGN_ERRORS as e:
             return {"error": str(e)}
         return {"count": len(grown), "volumeIds": grown}
 
     def http_cluster_status(self) -> dict:
-        return {"IsLeader": True, "Leader": self.url, "Peers": []}
+        return {"IsLeader": self.raft.is_leader,
+                "Leader": self.raft.leader() or "",
+                "Peers": self.raft.peers}
 
 
 def _make_http_handler(ms: MasterServer):
@@ -741,9 +873,33 @@ def _make_http_handler(ms: MasterServer):
             self.fast_reply(code, json.dumps(payload).encode(),
                             ctype="application/json")
 
+        def _proxy_to_leader(self) -> bool:
+            """Forward this request to the raft leader (reference
+            master_server.go:155-185 proxyToLeader). True when the
+            request was answered here (proxied, or an error)."""
+            if ms.raft.is_leader:
+                return False
+            leader = ms.raft.leader()
+            if not leader:
+                self._json({"error": "no raft leader elected yet"},
+                           code=503)
+                return True
+            try:
+                r = http_client.request(self.command,
+                                        f"{leader}{self.path}", timeout=30)
+            except OSError as e:
+                self._json({"error": f"leader {leader} unreachable: {e}"},
+                           code=502)
+                return True
+            self.fast_reply(r.status, r.body, ctype=r.header(
+                "content-type", "application/json"))
+            return True
+
         def do_GET(self):
             upath, sep, query = self.path.partition("?")
             params = parse_qs(query) if sep else {}
+            if upath != "/cluster/status" and self._proxy_to_leader():
+                return
             if upath == "/dir/assign":
                 self._json(ms.http_assign(params))
             elif upath == "/dir/lookup":

@@ -23,11 +23,20 @@ copy and tail streams, tiers (a sealed volume's .dat, or this server's
 EC shards, to a configured backend and back), collection delete, batch
 delete, needle status, configure, leave, and the JSON Query scan.
 
-Left out (each queued in ROADMAP.md): replica fan-out (placements other
-than ``000``), the breaker, heat, QoS, the async core's sendfile path,
-image resizing, the ``/ui``, ``/debug/*`` and ``/qos/status`` pages, and
-chunk manifests (an upload with ``cm=true``, and a read or delete of a
-needle flagged as one, is refused with 400).
+Replication: a write or delete of a volume whose placement asks for more
+than one copy is applied here, then POSTed to every other replica at
+once (``/admin/replicate``, ``/admin/replicate_delete``, on a pool of
+``replicate_parallel`` lanes), and acknowledged only when every replica
+answered. A failed replica fails the request, and so does a volume with
+fewer known replicas than its placement names. Remote readers and the
+scrub's replica source sort their candidates by circuit-breaker state
+(``resilience/breaker.py``). ``master_url`` may list several masters:
+the heartbeat follows the raft leader that a follower names.
+
+Left out (each queued in ROADMAP.md): heat, QoS, the async core's
+sendfile path, image resizing, the ``/ui``, ``/debug/*`` and
+``/qos/status`` pages, and chunk manifests (an upload with ``cm=true``,
+and a read or delete of a needle flagged as one, is refused with 400).
 
 Reference: weed/server/volume_server.go, volume_server_handlers_*.go,
 volume_grpc_*.go, volume_grpc_client_to_master.go.
@@ -56,6 +65,7 @@ from seaweedfs_tpu_torch.ops.rs_code import BACKENDS
 from seaweedfs_tpu_torch.pb import (master_pb2, master_stub,
                                     volume_server_pb2, volume_stub)
 from seaweedfs_tpu_torch.reads import DegradedReadFleet
+from seaweedfs_tpu_torch.resilience import breaker as _breaker
 from seaweedfs_tpu_torch.resilience import deadline as _deadline
 from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
 from seaweedfs_tpu_torch.scrub import ScrubDaemon
@@ -72,8 +82,9 @@ from seaweedfs_tpu_torch.storage.needle import (FLAG_IS_COMPRESSED,
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.superblock import TTL
 from seaweedfs_tpu_torch.storage.volume import VolumeError
+from seaweedfs_tpu_torch.util.fanout import FanOutPool
 from seaweedfs_tpu_torch.util.throttler import Throttler
-from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.util import http_client, wlog
 from seaweedfs_tpu_torch.util.http_server import (FastHandler,
                                                   make_http_server)
 from seaweedfs_tpu_torch.util.multipart import iter_parts
@@ -86,6 +97,10 @@ COPY_CHUNK = 1 << 20
 EC_REFRESH_SPARSE_S = 11.0
 EC_REFRESH_PARTIAL_S = 7 * 60.0
 EC_REFRESH_FULL_S = 37 * 60.0
+# Replica locations are cached this long: replica sets move on
+# volume.fix.replication and volume.move, so the window stays short, and
+# a failed replica POST forgets the vid at once
+REPLICA_REFRESH_S = 30.0
 # the deadline on one remote shard interval read
 REMOTE_READ_TIMEOUT_S = 15.0
 # how often a tail stream looks for new needles
@@ -110,13 +125,16 @@ def check_encoder(name: str) -> str:
 class VolumeServer:
     def __init__(self, master_url: str, directories: List[str],
                  ip: str = "127.0.0.1", port: int = 8080,
+                 public_url: str = "", data_center: str = "",
+                 rack: str = "",
                  max_volume_counts: Optional[List[int]] = None,
                  pulse_seconds: float = 5.0, ec_encoder: str = "cuda",
                  ec_mesh: bool = False, needle_map_kind: str = "memory",
                  cache_size_mb: int = 0, cache_dir: Optional[str] = None,
                  hedge_reads: bool = False, hedge_delay_ms: float = 10.0,
                  compaction_mbps: float = 0.0,
-                 storage_backends: Optional[dict] = None):
+                 storage_backends: Optional[dict] = None,
+                 replicate_parallel: int = 8):
         self.ec_encoder = check_encoder(ec_encoder)
         if storage_backends:
             # tier targets (master.toml [storage.backend.<scheme>.<id>]);
@@ -128,16 +146,22 @@ class VolumeServer:
         # vid -> the compaction VacuumVolumeCommit finishes
         self.compact_states: Dict[int, vacuum_mod.CompactState] = {}
         self.master_url = master_url
-        # the master this server last heartbeated successfully
+        # the master this server last heartbeated successfully (the
+        # leader); master_url may list several, so lookups dial this
         self.current_master = master_url.split(",")[0].strip()
         self.ip = ip
         self.port = port
+        # where the master places this server (-dataCenter, -rack); empty
+        # is the master's DefaultDataCenter/DefaultRack
+        self.data_center = data_center
+        self.rack = rack
         self.pulse_seconds = pulse_seconds
         # -ec.mesh: batched encode, verify and degraded decode on the
         # unified mesh scheduler (parallel/mesh_fleet, its default mesh);
         # None, not empty, when off
         self.ec_mesh_cfg = {} if ec_mesh else None
         self.store = Store(directories, max_volume_counts, ip=ip, port=port,
+                           public_url=public_url,
                            needle_map_kind=needle_map_kind)
         # tiered read cache (-cache.sizeMB, -cache.dir): None, not empty,
         # unless sized, so the read path without it pays one None check
@@ -154,7 +178,15 @@ class VolumeServer:
                                           use_mesh=ec_mesh)
         self.scrub = ScrubDaemon(self.store, backend=self.ec_encoder,
                                  mesh_cfg=self.ec_mesh_cfg,
+                                 replica_fetch=self._fetch_needle_from_replica,
                                  on_repair=self._invalidate_volume_cache)
+        # the replica fan-out (-replicate.parallel): every replica POST of
+        # one write goes out at once on this pool, which makes no thread
+        # before the first fan-out to two or more replicas
+        self._replicate_pool = FanOutPool(max(1, replicate_parallel),
+                                          f"replicate-{port}")
+        # vid -> (monotonic time, the other replicas' urls)
+        self._replica_urls: Dict[int, Tuple[float, List[str]]] = {}
         # hedged remote shard reads (-resilience.hedge): None unless
         # asked for; a Hedger makes no thread until its first fetch with
         # more than one candidate
@@ -220,6 +252,7 @@ class VolumeServer:
         self._stopping = True
         self.degraded.stop()
         self.scrub.stop()
+        self._replicate_pool.stop()
         if self.hedger is not None:
             self.hedger.stop()
         self._hb_wake.set()
@@ -236,23 +269,37 @@ class VolumeServer:
 
     def _heartbeat_gen(self):
         while not self._stopping:
-            yield convert.heartbeat_to_pb(self.store.collect_heartbeat())
+            yield convert.heartbeat_to_pb(self.store.collect_heartbeat(),
+                                          self.data_center, self.rack)
             self._hb_wake.wait(timeout=self.pulse_seconds)
             self._hb_wake.clear()
 
     def _heartbeat_loop(self) -> None:
-        """Keep one bidi heartbeat stream to the master; redial on a
-        break (reference volume_grpc_client_to_master.go:50-95)."""
+        """Keep one bidi heartbeat stream to the master leader; redial on
+        a break (reference volume_grpc_client_to_master.go:50-95).
+        master_url may list several masters: a follower answers with the
+        leader's address and the loop dials it, and a plain break moves on
+        to the next master of the list after a pause, so an election
+        without a leader is no tight redial loop."""
         candidates = [m.strip() for m in self.master_url.split(",")
                       if m.strip()]
+        target = candidates[0]
         rotate = 0
         while not self._stopping:
-            target = candidates[rotate % len(candidates)]
+            redirect = None
             try:
                 self._hb_call = master_stub(target).SendHeartbeat(
                     self._heartbeat_gen())
                 connected = False
                 for resp in self._hb_call:
+                    if resp.leader != target:
+                        # a follower: it names the leader, or "" while
+                        # an election runs (then the next candidate)
+                        redirect = resp.leader or None
+                        log.info("master %s redirects the heartbeat to "
+                                 "leader %s", target, redirect or "?")
+                        self._hb_call.cancel()
+                        break
                     if not connected:
                         connected = True
                         self.current_master = target
@@ -267,7 +314,13 @@ class VolumeServer:
                     return
                 log.warning("heartbeat stream to master %s broken (%s); "
                             "reconnecting", target, e.code().name)
+            if self._stopping:
+                return
+            if redirect:
+                target = redirect
+                continue
             rotate += 1
+            target = candidates[rotate % len(candidates)]
             self._hb_wake.wait(timeout=min(self.pulse_seconds, 1.0))
             self._hb_wake.clear()
 
@@ -286,6 +339,7 @@ class VolumeServer:
 
     def VolumeDelete(self, request, context):
         self.store.delete_volume(request.volume_id)
+        self._invalidate_volume_cache(request.volume_id, "rebuild")
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeDeleteResponse()
 
@@ -347,6 +401,9 @@ class VolumeServer:
 
     def ReadVolumeFileStatus(self, request, context):
         v = self._volume_or_abort(context, request.volume_id)
+        # the first call of a VolumeCopy from here: the vid is about to
+        # gain a replica this server's cached locations do not name
+        self._forget_replicas(v.id)
         base = v.file_name()
         return volume_server_pb2.ReadVolumeFileStatusResponse(
             volume_id=v.id,
@@ -424,7 +481,9 @@ class VolumeServer:
                             error="ChunkManifest: not allowed in batch "
                                   "delete mode."))
                         continue
-                size = self.delete_needle(f.volume_id, n)
+                # replicated like the HTTP DELETE: the needle goes from
+                # every replica, not only this one
+                size = self.replicated_delete(f.volume_id, n)
                 results.append(volume_server_pb2.DeleteResult(
                     file_id=fid, status=202, size=size))
             except CookieMismatch as e:
@@ -464,19 +523,17 @@ class VolumeServer:
 
     def VolumeConfigure(self, request, context):
         """Rewrite a volume's replica placement in its superblock
-        (reference volume_grpc_admin.go:104). The port writes one copy
-        only, so a placement other than 000 is refused."""
-        from seaweedfs_tpu_torch.server.master import (
-            UnsupportedReplication, check_replication)
+        (reference volume_grpc_admin.go:104); volume.fix.replication then
+        makes the copies it asks for."""
         try:
-            check_replication(request.replication)
             found = self.store.configure_volume(request.volume_id,
                                                 request.replication)
-        except (UnsupportedReplication, ValueError, VolumeError) as e:
+        except (ValueError, VolumeError) as e:
             return volume_server_pb2.VolumeConfigureResponse(error=str(e))
         if not found:
             context.abort(rpc.StatusCode.NOT_FOUND,
                           f"volume {request.volume_id} not found")
+        self._invalidate_volume_cache(request.volume_id, "rebuild")
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeConfigureResponse()
 
@@ -572,6 +629,7 @@ class VolumeServer:
                     os.remove(base + ext)
             raise
         v = loc.add_volume(vid, status.collection)
+        self._invalidate_volume_cache(vid, "rebuild")
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeCopyResponse(
             last_append_at_ns=v.last_append_at_ns)
@@ -898,20 +956,8 @@ class VolumeServer:
                 "volume.read", got.data, vid=str(vid), server=self.url)
         return got
 
-    def write_needle(self, vid: int, n: Needle, fsync: bool = False) -> int:
-        v = self.store.find_volume(vid)
-        if v is not None and v.read_only:
-            raise NeedleError(f"volume {vid} is read only")
-        if v is not None and v.replica_placement.copy_count > 1:
-            # one copy is all this server can acknowledge
-            raise NeedleError(
-                f"volume {vid} asks for replication "
-                f"{v.replica_placement}; this port writes one copy only")
-        _, size = self.store.write_needle(vid, n, fsync=fsync)
-        self._invalidate_needle_cache(vid, n.id, "overwrite")
-        return size
-
     def delete_needle(self, vid: int, n: Needle) -> int:
+        """Delete on this server only (a replica's side of a fan-out)."""
         if self.store.has_volume(vid):
             size = self.store.delete_needle(vid, n)
             self._invalidate_needle_cache(vid, n.id, "delete")
@@ -921,6 +967,148 @@ class VolumeServer:
                                       cache=self.read_cache)
             return 0
         raise NeedleError(f"volume {vid} not found")
+
+    def write_local(self, vid: int, n: Needle) -> int:
+        """Write on this server only (a replica's side of a fan-out)."""
+        _, size = self.store.write_needle(vid, n)
+        self._invalidate_needle_cache(vid, n.id, "overwrite")
+        return size
+
+    # -- replication ---------------------------------------------------------
+
+    def _other_replicas(self, vid: int) -> List[str]:
+        """The other replicas' urls, cached for REPLICA_REFRESH_S."""
+        now = time.monotonic()
+        cached = self._replica_urls.get(vid)
+        if cached is not None and now - cached[0] < REPLICA_REFRESH_S:
+            return cached[1]
+        try:
+            resp = master_stub(self.current_master).LookupVolume(
+                master_pb2.LookupVolumeRequest(volume_ids=[str(vid)]))
+        except rpc.RpcError:
+            # master unreachable: the stale view, if any; a POST to a
+            # moved replica fails and forgets it
+            return cached[1] if cached is not None else []
+        urls = [loc.url for vl in resp.volume_id_locations
+                for loc in vl.locations if loc.url != self.url]
+        if not urls:
+            # never cache an empty view: a replica mid-restart is missing
+            # from the master for a pulse
+            self._replica_urls.pop(vid, None)
+            return urls
+        self._replica_urls[vid] = (now, urls)
+        return urls
+
+    def _forget_replicas(self, vid: int) -> None:
+        self._replica_urls.pop(vid, None)
+
+    def _replica_targets(self, v, vid: int) -> List[str]:
+        """The replicas a write or delete of ``vid`` must reach. Raises
+        when the master knows fewer than the placement names (reference
+        topology/store_replicate.go GetWritableRemoteReplications): a
+        write is never acknowledged with fewer copies than asked for."""
+        if v.replica_placement.copy_count <= 1:
+            return []
+        urls = self._other_replicas(vid)
+        want = v.replica_placement.copy_count - 1
+        if len(urls) < want:
+            self._forget_replicas(vid)
+            raise NeedleError(
+                f"volume {vid} (replication {v.replica_placement}): "
+                f"{len(urls)} other replicas known, {want} needed")
+        return urls
+
+    def _fan_out_replicas(self, vid: int, urls: List[str], op: str,
+                          post_one) -> None:
+        """``post_one(url)`` for every replica at once on the shared pool
+        (reference topology/store_replicate.go). Every POST runs to its
+        end, then the first error fails the request and forgets the vid's
+        cached locations. An open breaker makes its POST fail at once: the
+        request still fails, in microseconds instead of a connect
+        timeout."""
+        from seaweedfs_tpu_torch.stats.metrics import \
+            IngestReplicaFanoutSecondsHistogram
+        urls = _breaker.sort_candidates(urls)
+        t0 = time.perf_counter()
+        outcomes = self._replicate_pool.run(
+            [lambda u=u: post_one(u) for u in urls])
+        IngestReplicaFanoutSecondsHistogram.labels(op).observe(
+            time.perf_counter() - t0)
+        first_err = None
+        for url, (resp, exc) in zip(urls, outcomes):
+            if exc is not None:
+                err = f"{op} to {url} failed: {exc}"
+            elif resp.status >= 300:
+                err = f"{op} to {url} failed: {resp.status}"
+            else:
+                continue
+            if first_err is None:
+                first_err = err
+        if first_err is not None:
+            self._forget_replicas(vid)
+            raise NeedleError(first_err)
+
+    def replicated_write(self, vid: int, n: Needle,
+                         fsync: bool = False) -> int:
+        """Write here, then to every other replica at once (reference
+        topology/store_replicate.go:21-94). Returns after every replica
+        answered; a volume of one copy never asks the master."""
+        v = self.store.find_volume(vid)
+        if v is not None and v.read_only:
+            raise NeedleError(f"volume {vid} is read only")
+        urls = self._replica_targets(v, vid) if v is not None else []
+        _, size = self.store.write_needle(vid, n, fsync=fsync)
+        self._invalidate_needle_cache(vid, n.id, "overwrite")
+        if not urls:
+            return size
+        blob = n.to_bytes()
+
+        def post_one(url):
+            return http_client.request(
+                "POST", f"{url}/admin/replicate?volume={vid}", body=blob,
+                headers={"Content-Type": "application/octet-stream"},
+                timeout=30)
+
+        self._fan_out_replicas(vid, urls, "replicate", post_one)
+        return size
+
+    def replicated_delete(self, vid: int, n: Needle) -> int:
+        v = self.store.find_volume(vid)
+        urls = self._replica_targets(v, vid) if v is not None else None
+        size = self.delete_needle(vid, n)
+        if urls is None:
+            # an EC volume: every other shard holder tombstones the
+            # needle in its .ecx too
+            urls = self._other_replicas(vid)
+        if not urls:
+            return size
+
+        def post_one(url):
+            return http_client.request(
+                "POST", f"{url}/admin/replicate_delete"
+                f"?volume={vid}&key={n.id:x}&cookie={n.cookie:08x}",
+                timeout=30)
+
+        self._fan_out_replicas(vid, urls, "replicate_delete", post_one)
+        return size
+
+    def _fetch_needle_from_replica(self, vid: int, corrupt: Needle):
+        """Scrub's repair source: one needle's stored payload from any
+        OTHER replica. Accept-Encoding gzip keeps a compressed needle's
+        bytes as stored. The planner checks what comes back against the
+        local record's stored CRC, so a stale or corrupt copy is refused,
+        never written."""
+        fid = f"{vid},{corrupt.id:x}{corrupt.cookie:08x}"
+        for url in _breaker.sort_candidates(self._other_replicas(vid)):
+            try:
+                resp = http_client.request(
+                    "GET", f"{url}/{fid}?cm=false",
+                    headers={"Accept-Encoding": "gzip"}, timeout=30)
+            except OSError:
+                continue
+            if resp.status == 200:
+                return resp.body
+        return None
 
     # -- read-cache invalidation ---------------------------------------------
 
@@ -935,8 +1123,11 @@ class VolumeServer:
         entries and its cached shard locations. A location map kept from
         an earlier EC incarnation (decode, vacuum, encode again) names
         holders that no longer have those shards, and with 14 entries it
-        would be trusted for 37 minutes."""
+        would be trusted for 37 minutes. The vid's cached replica
+        locations go too: a move, copy or placement change makes them
+        stale."""
         self._ec_locations.pop(vid, None)
+        self._replica_urls.pop(vid, None)
         if self.read_cache is not None:
             self.read_cache.invalidate_volume(vid, reason)
 
@@ -956,11 +1147,10 @@ class VolumeServer:
             return data
 
         def remote_reader(shard_id: int, offset: int, length: int):
-            # a stable order: a shard's primary is the same holder on
-            # every read (the breaker that reorders it by health comes
-            # with replica fan-out)
-            urls = sorted(u for u in self._ec_shard_locations(vid)
-                          .get(shard_id, []) if u != self.url)
+            # open-breaker holders last (reference store_ec.go)
+            urls = _breaker.sort_candidates(
+                [u for u in self._ec_shard_locations(vid).get(shard_id, [])
+                 if u != self.url])
             if self.hedger is not None and len(urls) > 1:
                 # a stalled holder hedges to the next one after the
                 # tracked p95; the first response wins
@@ -1149,13 +1339,16 @@ def _make_http_handler(vs: VolumeServer):
             except rpc.RpcError:
                 self._json({"error": "master unreachable"}, code=500)
                 return
-            for vl in resp.volume_id_locations:
-                for loc in vl.locations:
-                    if loc.url != vs.url:
-                        self.fast_reply(302, headers={
-                            "Location":
-                                f"http://{loc.public_url or loc.url}/{f}"})
-                        return
+            candidates = [loc for vl in resp.volume_id_locations
+                          for loc in vl.locations if loc.url != vs.url]
+            if candidates:
+                # never send a reader to a peer known dead while a
+                # healthier replica exists
+                loc = min(candidates,
+                          key=lambda l: 1 if _breaker.is_open(l.url) else 0)
+                self.fast_reply(302, headers={
+                    "Location": f"http://{loc.public_url or loc.url}/{f}"})
+                return
             self._json({"error": f"volume {f.volume_id} not found"},
                        code=404)
 
@@ -1193,6 +1386,14 @@ def _make_http_handler(vs: VolumeServer):
         # -- write -----------------------------------------------------------
 
         def do_POST(self):
+            upath, sep, query = self.path.partition("?")
+            if upath in ("/admin/replicate", "/admin/replicate_delete"):
+                params = parse_qs(query) if sep else {}
+                if upath == "/admin/replicate":
+                    self._handle_replicate(params)
+                else:
+                    self._handle_replicate_delete(params)
+                return
             try:
                 f, params = self._parse_path()
             except ValueError as e:
@@ -1222,8 +1423,11 @@ def _make_http_handler(vs: VolumeServer):
                        mime != "application/octet-stream" else b"",
                        ttl=TTL.parse(ttl_s) if ttl_s else None)
             try:
-                size = vs.write_needle(f.volume_id, n,
-                                       fsync="fsync" in params)
+                if params.get("type", [""])[0] == "replicate":
+                    size = vs.write_local(f.volume_id, n)
+                else:
+                    size = vs.replicated_write(f.volume_id, n,
+                                               fsync="fsync" in params)
             except (NeedleError, VolumeError) as e:
                 self._json({"error": str(e)}, code=500)
                 return
@@ -1232,11 +1436,43 @@ def _make_http_handler(vs: VolumeServer):
 
         do_PUT = do_POST
 
+        def _handle_replicate(self, params: dict) -> None:
+            """A replica's side of a write: the needle as its primary
+            serialized it."""
+            try:
+                vid = int(params["volume"][0])
+                n = Needle.from_bytes(self.read_body())
+                vs.write_local(vid, n)
+            except (KeyError, ValueError) as e:
+                self._json({"error": f"bad replicate request: {e}"},
+                           code=400)
+                return
+            except (NeedleError, VolumeError) as e:
+                self._json({"error": str(e)}, code=500)
+                return
+            self._json({"size": n.size}, code=201)
+
+        def _handle_replicate_delete(self, params: dict) -> None:
+            try:
+                vid = int(params["volume"][0])
+                n = Needle(id=int(params["key"][0], 16),
+                           cookie=int(params["cookie"][0], 16))
+            except (KeyError, ValueError) as e:
+                self._json({"error": f"bad replicate request: {e}"},
+                           code=400)
+                return
+            try:
+                vs.delete_needle(vid, n)
+            except (NeedleError, EcShardNotFound) as e:
+                self._json({"error": str(e)}, code=404)
+                return
+            self._json({}, code=202)
+
         # -- delete ----------------------------------------------------------
 
         def do_DELETE(self):
             try:
-                f, _params = self._parse_path()
+                f, params = self._parse_path()
             except ValueError as e:
                 self._json({"error": str(e)}, code=400)
                 return
@@ -1250,7 +1486,10 @@ def _make_http_handler(vs: VolumeServer):
                     # deleting one means deleting its chunks first
                     self._json({"error": CHUNK_MANIFEST_REFUSAL}, code=400)
                     return
-                size = vs.delete_needle(f.volume_id, n)
+                if params.get("type", [""])[0] == "replicate":
+                    size = vs.delete_needle(f.volume_id, n)
+                else:
+                    size = vs.replicated_delete(f.volume_id, n)
             except CookieMismatch:
                 self._json({"error": "cookie mismatch"}, code=403)
                 return

@@ -1,27 +1,27 @@
 """Volume ops-plane commands: list, balance, move, copy, evacuate,
-leave, scrub, vacuum, mark, delete, mount/unmount and the tier moves.
+leave, scrub, vacuum, mark, delete, mount/unmount, the tier moves, and
+fix.replication and configure.replication.
 
 The port of the part of ``seaweedfs_tpu.shell.command_volume`` that
-needs no replica fan-out, filer or lifecycle engine (reference
-weed/shell/command_volume_*.go). Balance and evacuation planning is pure
-over the TopologyInfo snapshot, testable on fabricated views.
-``volume.fix.replication`` and ``volume.configure.replication`` arrive
-with replication other than 000 (ROADMAP Queue 1 item 7),
-``volume.lifecycle`` with the lifecycle engine (item 11) and
-``volume.fsck`` with the filer (item 13): until then each answers with
-an error that says so.
+needs no filer or lifecycle engine (reference
+weed/shell/command_volume_*.go). Balance, evacuation and replica-fix
+planning is pure over the TopologyInfo snapshot, testable on fabricated
+views. ``volume.lifecycle`` arrives with the lifecycle engine (ROADMAP
+Queue 1 item 11) and ``volume.fsck`` with the filer (item 13): until
+then each answers with an error that says so.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.ec.shard_bits import ShardBits
 from seaweedfs_tpu_torch.pb import master_pb2, volume_server_pb2
 from seaweedfs_tpu_torch.shell import command, refuse
 from seaweedfs_tpu_torch.shell.command_env import CommandEnv
+from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement
 
 
 class VolumeMove(NamedTuple):
@@ -56,6 +56,73 @@ def plan_volume_balance(counts: Dict[str, List[int]],
         held[dst].append(vid)
         moves.append(VolumeMove(vid, src, dst))
     return moves
+
+
+class NodeLoc(NamedTuple):
+    """Where a node lives, for placement-aware planning."""
+    url: str
+    dc: str = ""
+    rack: str = ""
+
+
+def _placement_deficit(rp: ReplicaPlacement, primary: NodeLoc,
+                       others: List[NodeLoc]) -> Optional[tuple]:
+    """(dx, dy, dz) copies still needed with ``primary`` as the first
+    one, or None when the existing layout over-fills a dimension."""
+    x = sum(1 for o in others if o.dc != primary.dc)
+    y = sum(1 for o in others
+            if o.dc == primary.dc and o.rack != primary.rack)
+    z = sum(1 for o in others
+            if o.dc == primary.dc and o.rack == primary.rack)
+    dx, dy, dz = rp.diff_dc - x, rp.diff_rack - y, rp.same_rack - z
+    if min(dx, dy, dz) < 0:
+        return None
+    return dx, dy, dz
+
+
+def plan_fix_replication(
+        replicas_by_vid: Dict[int, List[Tuple[NodeLoc, int]]],
+        candidates: List[NodeLoc]) -> List[VolumeMove]:
+    """replicas_by_vid: vid -> [(holder, placement byte)]. Each missing
+    copy goes where the xyz placement wants it: the primary's rack, other
+    racks of its data center, or other data centers (reference
+    command_volume_fix_replication.go). A copy no candidate can hold is
+    not planned, rather than placed against the placement."""
+    fixes = []
+    for vid, replicas in sorted(replicas_by_vid.items()):
+        rp = ReplicaPlacement.from_byte(replicas[0][1])
+        holders = [loc for loc, _ in replicas]
+        if len(holders) >= rp.copy_count:
+            continue
+        held_urls = {h.url for h in holders}
+        # any primary with a non-negative deficit works: every valid
+        # primary's deficit sums to copy_count - len(holders)
+        best = next(
+            ((p, d) for p in holders
+             if (d := _placement_deficit(
+                 rp, p, [h for h in holders if h is not p]))
+             is not None),
+            None)
+        if best is None:
+            continue   # the layout already breaks the placement
+        primary, (dx, dy, dz) = best
+        free = [c for c in candidates if c.url not in held_urls]
+
+        def take(pred, n):
+            nonlocal free
+            picked = [c for c in free if pred(c)][:n]
+            free = [c for c in free if c not in picked]
+            return picked
+
+        targets = (
+            take(lambda c: c.dc == primary.dc
+                 and c.rack == primary.rack, dz)
+            + take(lambda c: c.dc == primary.dc
+                   and c.rack != primary.rack, dy)
+            + take(lambda c: c.dc != primary.dc, dx))
+        for dst in targets:
+            fixes.append(VolumeMove(vid, primary.url, dst.url))
+    return fixes
 
 
 @command("volume.list", "show the topology tree")
@@ -543,11 +610,67 @@ def volume_tier_download(env: CommandEnv, argv: List[str], out) -> None:
             raise
 
 
+@command("volume.fix.replication", "re-create missing replicas")
+def volume_fix_replication(env: CommandEnv, argv: List[str], out) -> None:
+    env.acquire_lock()
+    try:
+        topo = env.topology()
+        replicas: Dict[int, List[Tuple[NodeLoc, int]]] = {}
+        locs = []
+        for dc, rack, dn in env.data_nodes(topo):
+            loc = NodeLoc(dn.id, dc, rack)
+            locs.append(loc)
+            for vi in dn.volume_infos:
+                replicas.setdefault(vi.id, []).append(
+                    (loc, vi.replica_placement))
+        fixes = plan_fix_replication(replicas, locs)
+        for mv in fixes:
+            env.volume_server(mv.dst).VolumeCopy(
+                volume_server_pb2.VolumeCopyRequest(
+                    volume_id=mv.vid, source_data_node=mv.src))
+            out.write(f"volume {mv.vid}: replicated {mv.src} -> "
+                      f"{mv.dst}\n")
+        if not fixes:
+            out.write("all volumes sufficiently replicated\n")
+    finally:
+        env.release_lock()
+
+
+@command("volume.configure.replication",
+         "change a volume's replication value")
+def volume_configure_replication(env: CommandEnv, argv: List[str],
+                                 out) -> None:
+    """Rewrite the superblock on every replica whose placement differs
+    (reference command_volume_configure_replication.go); run
+    volume.fix.replication after it to make the copies."""
+    p = argparse.ArgumentParser(prog="volume.configure.replication")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-replication", required=True)
+    args = p.parse_args(argv)
+    want = ReplicaPlacement.parse(args.replication).to_byte()
+    env.acquire_lock()
+    try:
+        touched = 0
+        for _, _, dn in env.data_nodes(env.topology()):
+            for vi in dn.volume_infos:
+                if vi.id != args.volumeId or vi.replica_placement == want:
+                    continue
+                resp = env.volume_server(dn.id).VolumeConfigure(
+                    volume_server_pb2.VolumeConfigureRequest(
+                        volume_id=args.volumeId,
+                        replication=args.replication))
+                if resp.error:
+                    raise RuntimeError(f"{dn.id}: {resp.error}")
+                out.write(f"volume {args.volumeId}: replication -> "
+                          f"{args.replication} on {dn.id}\n")
+                touched += 1
+        if not touched:
+            out.write(f"volume {args.volumeId}: nothing to change\n")
+    finally:
+        env.release_lock()
+
+
 for _name, _item in (
-        ("volume.fix.replication",
-         "replication other than 000 (ROADMAP Queue 1 item 7)"),
-        ("volume.configure.replication",
-         "replication other than 000 (ROADMAP Queue 1 item 7)"),
         ("volume.lifecycle",
          "the heat-driven lifecycle engine (ROADMAP Queue 1 item 11)"),
         ("volume.fsck", "the filer (ROADMAP Queue 1 item 13)")):

@@ -347,3 +347,38 @@ HedgeDeniedCounter = REGISTRY.counter(
 FailpointTriggersCounter = REGISTRY.counter(
     "SeaweedFS_failpoint_triggers_total",
     "armed failpoints fired", ("site", "action"))
+
+# Circuit breakers (resilience/breaker.py), fed by the data-plane client.
+BreakerStateGauge = REGISTRY.gauge(
+    "SeaweedFS_breaker_state",
+    "circuit breaker state per peer (0 closed, 1 half-open, 2 open)",
+    ("peer",))
+BreakerTransitionsCounter = REGISTRY.counter(
+    "SeaweedFS_breaker_transitions_total",
+    "circuit breaker state transitions", ("peer", "to"))
+
+# The data-plane client's connection pool (util/http_client.py).
+HttpPoolIdleGauge = REGISTRY.gauge(
+    "SeaweedFS_http_pool_idle_connections",
+    "pooled keep-alive connections currently idle")
+HttpPoolStaleRetryCounter = REGISTRY.counter(
+    "SeaweedFS_http_pool_stale_retries_total",
+    "requests replayed on a fresh connection after a pooled one "
+    "proved stale")
+HttpPoolReapedCounter = REGISTRY.counter(
+    "SeaweedFS_http_pool_reaped_total",
+    "pooled connections closed for exceeding the idle age cap")
+
+# Retries (util/retry.py) and spent request budgets.
+RetryAttemptsCounter = REGISTRY.counter(
+    "SeaweedFS_retry_attempts_total",
+    "retry attempts by outcome", ("name", "outcome"))
+DeadlineRefusedCounter = REGISTRY.counter(
+    "SeaweedFS_deadline_refused_total",
+    "work refused because the request's budget was already spent",
+    ("where",))
+
+# The volume server's replica fan-out (server/volume.py).
+IngestReplicaFanoutSecondsHistogram = REGISTRY.histogram(
+    "SeaweedFS_ingest_replica_fanout_seconds",
+    "wall time of one concurrent replica fan-out", ("op",))

@@ -21,7 +21,7 @@ from seaweedfs_tpu_torch.storage.volume import Volume
 class Store:
     def __init__(self, directories: List[str],
                  max_volume_counts: Optional[List[int]] = None,
-                 ip: str = "", port: int = 0,
+                 ip: str = "", port: int = 0, public_url: str = "",
                  needle_map_kind: str = "memory"):
         if max_volume_counts is None:
             max_volume_counts = [8] * len(directories)
@@ -29,7 +29,7 @@ class Store:
                           for d, c in zip(directories, max_volume_counts)]
         self.ip = ip
         self.port = port
-        self.public_url = f"{ip}:{port}" if ip else ""
+        self.public_url = public_url or (f"{ip}:{port}" if ip else "")
         self._lock = threading.RLock()
         # collections the storage gauges were last set for
         self._metric_collections: set = set()  # guarded_by(self._lock)

@@ -19,6 +19,10 @@ from seaweedfs_tpu_torch.topology.node import DataCenter, DataNode, VolumeInfo
 from seaweedfs_tpu_torch.topology.sequence import MemorySequencer
 from seaweedfs_tpu_torch.topology.volume_layout import VolumeLayout
 
+def _layout_key(info: VolumeInfo) -> tuple:
+    return info.collection, info.replica_placement, info.ttl
+
+
 class Topology:
     def __init__(self, volume_size_limit: int = 30 << 30,
                  sequencer: Optional[MemorySequencer] = None,
@@ -88,7 +92,15 @@ class Topology:
             node.max_volumes = hb.get("max_volume_count", node.max_volumes)
             self.sequence.set_max(hb.get("max_file_key", 0))
 
+            before = dict(node.volumes)
             _, deleted = node.update_volumes(hb.get("volumes", []))
+            # a volume whose collection, placement or ttl changed (shell
+            # volume.configure.replication) leaves its old layout, which
+            # would otherwise go on answering lookups with the old
+            # replica set
+            deleted += [old for vid, old in before.items()
+                        if vid in node.volumes and
+                        _layout_key(old) != _layout_key(node.volumes[vid])]
             # re-register every current volume: register() is the
             # idempotent state sync (size growth past the limit, a
             # read_only flip, etc. must reach the layout every pulse)

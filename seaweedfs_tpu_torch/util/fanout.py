@@ -3,11 +3,13 @@
 The counterpart of ``seaweedfs_tpu.util.fanout`` (the JAX package's
 substitute for the reference's goroutine fan-outs), without that module's
 weighted-fair QoS seam: the port has no QoS. In the port the hedger
-(``resilience/hedge.py``) runs its candidate fetches on one.
+(``resilience/hedge.py``) runs its candidate fetches on one, and the
+volume server its replica POSTs (``-replicate.parallel``).
 
 Constructing a FanOutPool makes a queue and a lock, no thread. Workers are
 made one per submit up to the cap on the first tasks and then stay
-(daemon threads), so a server whose reads never hedge never grows one.
+(daemon threads), so a server whose reads never hedge, or whose writes
+never fan out to a replica, never grows one.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import contextvars
 import queue
 import threading
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 
 class Future:
@@ -98,6 +100,19 @@ class FanOutPool:
         if stopping:
             self._run_task(fut, ctx, fn, args)
         return fut
+
+    def run(self, fns: Sequence[Callable]
+            ) -> List[Tuple[Any, Optional[BaseException]]]:
+        """Run every thunk concurrently; (result, exc) pairs in order.
+        Always waits for every task, so an early failure never leaves a
+        sibling's socket half-read in a shared connection pool."""
+        if len(fns) == 1:  # no thread hop for a fan-out of one
+            try:
+                return [(fns[0](), None)]
+            except BaseException as e:  # noqa: BLE001 - latched, not lost
+                return [(None, e)]
+        futs = [self.submit(fn) for fn in fns]
+        return [f.wait() for f in futs]
 
     def stop(self, join_timeout: float = 2.0) -> None:
         """Drain and stop every worker. Queued tasks still run (the

@@ -11,7 +11,8 @@ shard and ``.ecx`` bytes, the decoded ``.dat`` is the snapshot, a copy of
 a port volume directory serves the same needles from the JAX Store, and
 the shell prints the JAX shell's lines. Also: the default encoder
 (``cuda``) answers with an error status where there is no card, JAX
-encoder names are refused, a replication-001 assign is refused, the
+encoder names are refused, 010 on one rack is refused as the JAX master
+refuses it and 001 on two servers is granted, the
 master's ids survive a restart, and the CLI runs as subprocesses. The
 read cache: repeat degraded reads through a stopped server are cache
 hits with no new decode dispatch, and a rebuild invalidates. Against a
@@ -270,16 +271,48 @@ def test_read_redirects_from_non_owner(cluster):
         assert r.read() == data
 
 
-def test_replication_001_is_refused(cluster):
-    out = cluster.assign(replication="001")
-    assert "fid" not in out and "not supported" in out["error"]
+def test_replication_010_on_one_rack_answers_as_jax(cluster):
+    """Two servers in one rack cannot hold 010 (a copy in another rack):
+    the assign, the RPC assign, /vol/grow and a client upload get the
+    JAX master's NoFreeSlots text, and no volume is grown."""
+    from seaweedfs_tpu.storage.superblock import \
+        ReplicaPlacement as JaxPlacement
+    from seaweedfs_tpu.topology.topology import Topology as JaxTopology
+    from seaweedfs_tpu.topology.volume_growth import (
+        NoFreeSlots as JaxNoFreeSlots, VolumeGrowth as JaxGrowth)
+    jax_topo = JaxTopology()
+    for vs in cluster.volume_servers:
+        jax_topo.sync_heartbeat(vs.store.collect_heartbeat())
+    with pytest.raises(JaxNoFreeSlots) as want:
+        JaxGrowth(jax_topo).find_empty_slots(JaxPlacement.parse("010"))
+    before = cluster.master.topo.next_volume_id
+    assert cluster.assign(replication="010") == {"error": str(want.value)}
     resp = master_stub(cluster.master.url).Assign(
-        master_pb2.AssignRequest(replication="001"))
-    assert not resp.fid and "not supported" in resp.error
+        master_pb2.AssignRequest(replication="010"))
+    assert not resp.fid and resp.error == str(want.value)
     with cluster.http(f"{cluster.master.url}/vol/grow?replication=010") as r:
-        assert "not supported" in json.load(r)["error"]
-    with pytest.raises(RuntimeError, match="not supported"):
-        operations.upload(cluster.master.url, b"x", replication="001")
+        assert json.load(r) == {"error": str(want.value)}
+    with pytest.raises(RuntimeError, match="no placement for 010"):
+        operations.upload(cluster.master.url, b"x", replication="010")
+    assert cluster.master.topo.next_volume_id == before
+
+
+def test_replication_001_with_two_nodes_succeeds(tmp_path):
+    """001 (a second copy in the same rack) on two servers: the master
+    grows growth_count(2) = 6 volumes on both, and an upload reads back
+    from each of them."""
+    c = Cluster(tmp_path, n_volume_servers=2, volumes_per_server=8)
+    try:
+        fid = c.upload(b"two copies", replication="001", collection="r1")
+        vid = parse_fid(fid).volume_id
+        wait_for(lambda: len(c.master.lookup_locations(vid, "r1")) == 2,
+                 what="both replicas in the layout")
+        for vs in c.volume_servers:
+            assert len(vs.store.locations[0].volumes) == 6
+            with c.http(f"{vs.url}/{fid}") as r:
+                assert r.read() == b"two copies"
+    finally:
+        c.stop()
 
 
 def test_keepconnected_streams_topology(cluster):

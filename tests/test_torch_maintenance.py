@@ -58,7 +58,8 @@ import seaweedfs_tpu_torch.storage.volume_tier as port_tier
 from seaweedfs_tpu_torch.ec import fleet, store_ec
 from seaweedfs_tpu_torch.server.master import plan_scrub_stagger
 from seaweedfs_tpu_torch.storage.needle import Needle
-from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement
+from seaweedfs_tpu_torch.storage.superblock import (ReplicaPlacement,
+                                                    SuperBlock)
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.ec.encoder import shard_file_name
 from seaweedfs_tpu_torch.operation.file_id import parse_fid
@@ -831,9 +832,22 @@ def test_needle_status_configure_and_query(mcluster):
     assert ei.value.code() == rpc.StatusCode.NOT_FOUND
     assert not stub.VolumeConfigure(volume_server_pb2.VolumeConfigureRequest(
         volume_id=f.volume_id, replication="000")).error
-    assert "not supported" in stub.VolumeConfigure(
-        volume_server_pb2.VolumeConfigureRequest(
-            volume_id=f.volume_id, replication="001")).error
+    # any placement is taken: the superblock and the heartbeat carry it
+    assert not stub.VolumeConfigure(volume_server_pb2.VolumeConfigureRequest(
+        volume_id=f.volume_id, replication="001")).error
+    v = mcluster.server(holder(mcluster.master, f.volume_id)) \
+        .store.find_volume(f.volume_id)
+    assert str(v.replica_placement) == "001"
+    with open(v.file_name() + ".dat", "rb") as fh:
+        assert str(SuperBlock.from_bytes(fh.read(8)).replica_placement) \
+            == "001"
+    wait_for(lambda: any(
+        vi.replica_placement == 1 for vi in
+        mcluster.master.topo.find_node(holder(
+            mcluster.master, f.volume_id)).volumes.values()
+        if vi.id == f.volume_id), what="the placement in the heartbeat")
+    assert not stub.VolumeConfigure(volume_server_pb2.VolumeConfigureRequest(
+        volume_id=f.volume_id, replication="000")).error
     stripes = list(stub.Query(volume_server_pb2.QueryRequest(
         from_file_ids=[fid], selections=["name"],
         filter=volume_server_pb2.QueryRequest.Filter(
@@ -1193,8 +1207,6 @@ def test_scrub_all_now_and_targeted_ec_scrub(tmp_path):
 
 @pytest.mark.parametrize("name,item", [
     ("volume.fsck", "item 13"), ("volume.lifecycle", "item 11"),
-    ("volume.fix.replication", "item 7"),
-    ("volume.configure.replication -volumeId=1 -replication=001", "item 7"),
     ("cluster.trace -traceId=1", "item 11"),
     ("cluster.requests", "item 11"), ("cluster.heat", "item 11"),
     ("cluster.qos", "item 11")])

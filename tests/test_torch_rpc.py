@@ -22,12 +22,14 @@ import pytest
 from google.protobuf.descriptor import FieldDescriptor
 
 from seaweedfs_tpu.pb import master_pb2 as jax_master_pb2
+from seaweedfs_tpu.pb import raft_pb2 as jax_raft_pb2
 from seaweedfs_tpu.pb import volume_server_pb2 as jax_volume_pb2
 from seaweedfs_tpu_torch import rpc
-from seaweedfs_tpu_torch.pb import master_pb2, volume_server_pb2
+from seaweedfs_tpu_torch.pb import master_pb2, raft_pb2, volume_server_pb2
 from seaweedfs_tpu_torch.pb.wire import Message
 
-MODULES = [(master_pb2, jax_master_pb2), (volume_server_pb2, jax_volume_pb2)]
+MODULES = [(master_pb2, jax_master_pb2), (volume_server_pb2, jax_volume_pb2),
+           (raft_pb2, jax_raft_pb2)]
 
 _KIND = {FieldDescriptor.TYPE_STRING: "string",
          FieldDescriptor.TYPE_BYTES: "bytes",
@@ -73,7 +75,8 @@ def test_every_ported_message_is_listed():
     for want in ("master_pb.Heartbeat", "master_pb.TopologyInfo",
                  "master_pb.LookupVolumeResponse.VolumeIdLocation",
                  "volume_server_pb.VolumeEcShardsGenerateRequest",
-                 "volume_server_pb.VolumeScrubStatusResponse"):
+                 "volume_server_pb.VolumeScrubStatusResponse",
+                 "raft_pb.LogEntry", "raft_pb.AppendEntriesRequest"):
         assert want in names
 
 
@@ -88,6 +91,7 @@ MAINTENANCE_METHODS = {
                      "VolumeTierMoveDatFromRemote"],
     "Seaweed": ["Statistics", "CollectionList", "CollectionDelete",
                 "VacuumVolume"],
+    "Raft": ["RequestVote", "AppendEntries"],
 }
 
 
@@ -95,7 +99,8 @@ MAINTENANCE_METHODS = {
 def test_maintenance_methods_are_served(service):
     """Every RPC of the maintenance surface is in the port's service
     table, with its messages (nested ones included) ported."""
-    module = volume_server_pb2 if service == "VolumeServer" else master_pb2
+    module = {"VolumeServer": volume_server_pb2,
+              "Raft": raft_pb2}.get(service, master_pb2)
     served = {m[0]: m for m in module.SERVICES[service]}
     names = {cls.FULL_NAME for cls, _ in ALL}
     for method in MAINTENANCE_METHODS[service]:
@@ -122,7 +127,7 @@ def test_field_table_equals_jax_descriptor(cls, jax_module):
 
 
 @pytest.mark.parametrize("pb_module,jax_module", MODULES,
-                         ids=["master", "volume_server"])
+                         ids=["master", "volume_server", "raft"])
 def test_service_methods_equal_jax_descriptor(pb_module, jax_module):
     for service, methods in pb_module.SERVICES.items():
         svc = jax_module.DESCRIPTOR.services_by_name[service]
