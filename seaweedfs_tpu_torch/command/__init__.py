@@ -1,9 +1,11 @@
 """The single-binary command layer: ``python -m seaweedfs_tpu_torch <cmd>``.
 
-The port of ``seaweedfs_tpu.command`` for the cluster: ``master``,
-``volume`` and ``shell``. Global flags (-v verbosity, -logFile) are
-peeled off before dispatch, like the reference's glog flags
-(weed/command/command.go:10-34, weed/weed.go:37).
+The port of ``seaweedfs_tpu.command`` for the cluster and its clients:
+``master``, ``volume``, ``shell``, ``upload``, ``download``, ``delete``,
+``benchmark``, ``fix`` and ``export``. Global flags (-v verbosity,
+-logFile) are peeled off before dispatch, like the reference's glog flags
+(weed/command/command.go:10-34, weed/weed.go:37). Every server and client
+command reads ``security.toml`` first (``setup_client_tls``).
 """
 
 from __future__ import annotations
@@ -67,6 +69,20 @@ def main(argv=None) -> int:
         return 130
 
 
+def setup_client_tls(role: str = "client") -> None:
+    """Mutual TLS from security.toml's [grpc.*] sections for this
+    process's RPC plane (``util/config.py`` finds the file in the working
+    directory, then $HOME/.seaweedfs): the role's pair for its server, the
+    [grpc.client] pair for what it dials. Plaintext without them; a file
+    that names certificates which do not load raises."""
+    from seaweedfs_tpu_torch.security import tls as tls_mod
+    from seaweedfs_tpu_torch.util import config as config_mod
+    conf = config_mod.load_configuration("security")
+    if conf:
+        tls_mod.configure_process_tls(conf, role)
+
+
 # registration side effects
 from seaweedfs_tpu_torch.command import servers  # noqa: E402,F401
 from seaweedfs_tpu_torch.command import tools  # noqa: E402,F401
+from seaweedfs_tpu_torch.command import benchmark  # noqa: E402,F401

@@ -7,6 +7,10 @@ carries. ``-ec.encoder`` takes ``cuda`` (the default) or ``cpu``;
 any other name is refused. Each subcommand blocks until SIGINT or
 SIGTERM, then stops its server.
 
+Both read security.toml first (``_setup_tls``): with its ``[grpc.ca]``
+and ``[grpc.master]``/``[grpc.volume]`` sections the server's RPC plane
+runs mutual TLS, and a certificate that does not load ends the start.
+
 Both read master.toml (``util/config.py``: the working directory, then
 ``$HOME/.seaweedfs``): the master its ``master.maintenance.scripts``,
 ``sleep_minutes`` and ``[master.sequencer]``, the volume server its
@@ -24,10 +28,16 @@ import threading
 from typing import List
 
 from seaweedfs_tpu_torch.command import command
-from seaweedfs_tpu_torch.ops.rs_code import BACKENDS
 from seaweedfs_tpu_torch.util import wlog
 
 log = wlog.logger("command")
+
+
+def _setup_tls(role: str) -> None:
+    """Mutual TLS when security.toml carries [grpc.*] sections (reference
+    security/tls.go; plaintext without them)."""
+    from seaweedfs_tpu_torch.command import setup_client_tls
+    setup_client_tls(role)
 
 
 def _serve_until_signalled(server) -> int:
@@ -88,6 +98,7 @@ def _master_parser() -> argparse.ArgumentParser:
 
 @command("master", "start a master server (control plane)")
 def run_master(args) -> int:
+    _setup_tls("master")
     opts = _master_parser().parse_args(args)
     return _serve_until_signalled(_build_master(opts))
 
@@ -124,6 +135,9 @@ def _build_master(opts):
 
 
 def _volume_parser() -> argparse.ArgumentParser:
+    # torch is imported here, not at module import: the client commands
+    # (upload, download, delete, benchmark, shell) never need it
+    from seaweedfs_tpu_torch.ops.rs_code import BACKENDS
     p = argparse.ArgumentParser(prog="volume",
                                 description="start a volume server")
     p.add_argument("-ip", default="127.0.0.1")
@@ -208,6 +222,7 @@ def _volume_parser() -> argparse.ArgumentParser:
 
 @command("volume", "start a volume server (data plane)")
 def run_volume(args) -> int:
+    _setup_tls("volume")
     opts = _volume_parser().parse_args(args)
     return _serve_until_signalled(_build_volume(opts))
 

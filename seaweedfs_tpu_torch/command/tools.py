@@ -1,20 +1,25 @@
-"""Client subcommands: the admin shell and the offline volume tools.
+"""Client subcommands: the admin shell, upload, download, delete and the
+offline volume tools.
 
-Reference: weed/command/shell.go, fix.go and export.go; the counterparts
-of the JAX package's ``command/tools.py`` subcommands of the same names.
+Reference: weed/command/shell.go, upload.go, download.go, fix.go and
+export.go; the counterparts of the JAX package's ``command/tools.py``
+subcommands of the same names. The commands that dial the cluster read
+security.toml first.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
-from seaweedfs_tpu_torch.command import command
+from seaweedfs_tpu_torch.command import command, setup_client_tls
 
 
 @command("shell", "admin shell against a master (one-shot or a REPL)")
 def run_shell(args) -> int:
+    setup_client_tls()
     p = argparse.ArgumentParser(prog="shell")
     p.add_argument("-master", default="127.0.0.1:9333")
     p.add_argument("command", nargs=argparse.REMAINDER,
@@ -32,6 +37,66 @@ def run_shell(args) -> int:
             print(f"error: {e}", file=sys.stderr)
             return 1
     sh.repl()
+    return 0
+
+
+@command("upload", "upload files via master assignment")
+def run_upload(args) -> int:
+    setup_client_tls()
+    p = argparse.ArgumentParser(prog="upload")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-ttl", default="")
+    p.add_argument("-maxMB", dest="max_mb", type=int, default=32,
+                   help="split files larger than this into chunk "
+                        "needles + a manifest (reference upload.go)")
+    p.add_argument("files", nargs="+")
+    opts = p.parse_args(args)
+    from seaweedfs_tpu_torch.operation import operations
+    results = []
+    for path in opts.files:
+        with open(path, "rb") as f:
+            data = f.read()
+        fid = operations.submit(
+            opts.master, data, filename=os.path.basename(path),
+            collection=opts.collection, replication=opts.replication,
+            ttl=opts.ttl, max_mb=opts.max_mb)
+        results.append({"fileName": os.path.basename(path),
+                        "fid": fid, "size": len(data)})
+    print(json.dumps(results, indent=2))
+    return 0
+
+
+@command("download", "download a file id to disk")
+def run_download(args) -> int:
+    setup_client_tls()
+    p = argparse.ArgumentParser(prog="download")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-dir", default=".")
+    p.add_argument("fids", nargs="+")
+    opts = p.parse_args(args)
+    from seaweedfs_tpu_torch.operation import operations
+    for fid in opts.fids:
+        data = operations.download(opts.master, fid)
+        out = os.path.join(opts.dir, fid.replace(",", "_"))
+        with open(out, "wb") as f:
+            f.write(data)
+        print(out)
+    return 0
+
+
+@command("delete", "delete file ids")
+def run_delete(args) -> int:
+    setup_client_tls()
+    p = argparse.ArgumentParser(prog="delete")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("fids", nargs="+")
+    opts = p.parse_args(args)
+    from seaweedfs_tpu_torch.operation import operations
+    for fid in opts.fids:
+        operations.delete_file(opts.master, fid)
+        print(f"deleted {fid}")
     return 0
 
 

@@ -21,8 +21,14 @@ they end cleanly; calls with a request stream never reuse one.
 Conventions kept from the JAX package's ``rpc.py``: ``GRPC_PORT_OFFSET``,
 ``grpc_address``, ``make_server``, ``generic_handler``, ``make_stub``
 (one cached stub and connection pool per target), ``close_channels``,
-and the ``rpc.call`` failpoint and ambient-deadline seams on every
-outbound call.
+``set_server_credentials`` and ``set_channel_credentials``, and the
+``rpc.call`` failpoint and ambient-deadline seams on every outbound call.
+
+Mutual TLS (``security/tls.py``): with server credentials set, a new
+connection's handshake runs on that connection's own thread, never on the
+accept loop, so a slow or plaintext client stalls nothing but itself;
+with channel credentials set, every new client connection is wrapped
+after its connect. Plaintext is the default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import enum
 import logging
 import select
 import socket
+import ssl
 import struct
 import threading
 import time
@@ -45,6 +52,7 @@ GRPC_PORT_OFFSET = 10000
 # the JAX package's channels allow 64 MiB messages; a frame adds a little
 MAX_FRAME = (64 << 20) + 4096
 CONNECT_TIMEOUT_S = 5.0
+HANDSHAKE_TIMEOUT_S = 5.0
 
 HEAD, MSG, END, STATUS = 1, 2, 3, 4
 _HDR = struct.Struct(">BI")
@@ -108,11 +116,39 @@ def _split(target: str):
     return host or "127.0.0.1", int(port)
 
 
+# process-wide TLS (security/tls.py configure_process_tls); None is
+# plaintext, as the reference runs without security.toml's [grpc.*]
+_server_context: Optional[ssl.SSLContext] = None
+_client_context: Optional[ssl.SSLContext] = None
+
+
+def set_server_credentials(ctx: Optional[ssl.SSLContext]) -> None:
+    """Connections accepted from now on handshake with ``ctx`` (None:
+    plaintext)."""
+    global _server_context
+    _server_context = ctx
+
+
+def set_channel_credentials(ctx: Optional[ssl.SSLContext]) -> None:
+    """Connections dialled from now on handshake with ``ctx`` (None:
+    plaintext); every pooled connection is dropped, so none is reused
+    under the old credentials."""
+    global _client_context
+    _client_context = ctx
+    close_channels()
+
+
 # -- framing -------------------------------------------------------------------
 
 
 class _Conn:
-    """One socket and its receive buffer; frames in and out."""
+    """One socket and its receive buffer; frames in and out.
+
+    Under TLS the socket runs non-blocking: one SSL object must never be
+    read and written by two threads at once (a request stream's pump
+    thread sends while the caller receives), so every SSL call holds
+    ``_io`` and never waits inside it; the waits are ``select`` calls
+    outside the lock, bounded by the timeout ``settimeout`` set."""
 
     def __init__(self, sock: socket.socket):
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
@@ -120,6 +156,66 @@ class _Conn:
         self._buf = bytearray()
         self.eof = False
         self.closed = False
+        self._io: Optional[threading.Lock] = None   # set by start_tls
+        self._timeout: Optional[float] = None      # TLS waits only
+
+    def start_tls(self, ctx: ssl.SSLContext, server_side: bool,
+                  server_hostname: Optional[str] = None,
+                  timeout: float = HANDSHAKE_TIMEOUT_S) -> None:
+        """Run the TLS handshake (bounded by ``timeout``) and carry the
+        connection's frames over it. Raises OSError (ssl.SSLError,
+        socket.timeout) or ValueError (a certificate error) on failure;
+        the socket is closed then."""
+        self.sock.settimeout(timeout)
+        tls = ctx.wrap_socket(self.sock, server_side=server_side,
+                              server_hostname=server_hostname)
+        tls.settimeout(0.0)
+        self.sock = tls
+        self._io = threading.Lock()
+
+    def settimeout(self, timeout: Optional[float]) -> None:
+        if self._io is None:
+            self.sock.settimeout(timeout)
+        else:
+            self._timeout = timeout
+
+    def _tls(self, op, *args):
+        """One non-blocking SSL call, retried after a wait outside the
+        lock until it completes or the timeout passes."""
+        deadline = None if self._timeout is None \
+            else time.monotonic() + self._timeout
+        while True:
+            with self._io:
+                try:
+                    return op(*args)
+                except ssl.SSLWantReadError:
+                    write = False
+                except ssl.SSLWantWriteError:
+                    write = True
+            left = None if deadline is None \
+                else deadline - time.monotonic()
+            if left is not None and left <= 0:
+                raise socket.timeout("timed out")
+            try:
+                ready = select.select([] if write else [self.sock],
+                                      [self.sock] if write else [], [], left)
+            except ValueError:          # closed under us
+                raise OSError("connection closed") from None
+            if not (ready[0] or ready[1]):
+                raise socket.timeout("timed out")
+
+    def _sendall(self, data) -> None:
+        if self._io is None:
+            self.sock.sendall(data)
+            return
+        view = memoryview(data)
+        while view:
+            view = view[self._tls(self.sock.send, view):]
+
+    def _recv_into(self, view) -> int:
+        if self._io is None:
+            return self.sock.recv_into(view)
+        return self._tls(self.sock.recv_into, view)
 
     def send(self, *frames) -> None:
         """(kind, payload) frames in one write when they are small. A call
@@ -130,14 +226,15 @@ class _Conn:
             parts.append(_HDR.pack(kind, len(payload)))
             parts.append(payload)
         if sum(len(p) for p in parts) < 65536:
-            self.sock.sendall(b"".join(parts))
+            self._sendall(b"".join(parts))
         else:
             for p in parts:
                 if p:
-                    self.sock.sendall(p)
+                    self._sendall(p)
 
     def _read_some(self) -> None:
-        data = self.sock.recv(1 << 16)
+        data = self.sock.recv(1 << 16) if self._io is None \
+            else self._tls(self.sock.recv, 1 << 16)
         if not data:
             self.eof = True
         self._buf += data
@@ -150,6 +247,10 @@ class _Conn:
                 return None
             self._read_some()
         kind, n = _HDR.unpack_from(buf)
+        if not HEAD <= kind <= STATUS:
+            # not this protocol (a TLS ClientHello starts 0x16): end the
+            # connection now, not after waiting for a bogus length
+            raise OSError(f"rpc frame of unknown kind {kind}")
         if n > MAX_FRAME:
             raise OSError(f"rpc frame of {n} bytes exceeds the limit")
         want = _HDR.size + n
@@ -161,7 +262,7 @@ class _Conn:
             del buf[:]
             view = memoryview(payload)
             while have < n:
-                got = self.sock.recv_into(view[have:])
+                got = self._recv_into(view[have:])
                 if not got:
                     self.eof = True
                     return None
@@ -177,7 +278,21 @@ class _Conn:
 
     def fill_nowait(self) -> None:
         """Take in whatever the socket holds without blocking; notes a
-        hang-up in ``eof``."""
+        hang-up in ``eof``. Under TLS the SSL object may hold decrypted
+        bytes that ``select`` cannot see, so it is read directly."""
+        if self._io is not None:
+            while not self.eof and not self.closed:
+                with self._io:
+                    try:
+                        data = self.sock.recv(1 << 16)
+                    except (ssl.SSLWantReadError, ssl.SSLWantWriteError):
+                        return
+                    except (OSError, ValueError):
+                        data = b""
+                if not data:
+                    self.eof = True
+                self._buf += data
+            return
         while not self.eof and not self.closed:
             try:
                 r, _, _ = select.select([self.sock], [], [], 0)
@@ -195,11 +310,12 @@ class _Conn:
 
     def close(self) -> None:
         self.closed = True
+        # close() runs whatever shutdown() raised (an SSLSocket's too)
         for fn in (lambda: self.sock.shutdown(socket.SHUT_RDWR),
                    self.sock.close):
             try:
                 fn()
-            except OSError:
+            except (OSError, ValueError):
                 pass
 
 
@@ -240,7 +356,19 @@ def _checkout(target: str, timeout: Optional[float]) -> _Conn:
     except OSError as e:
         raise RpcError(StatusCode.UNAVAILABLE,
                        f"cannot connect to {target}: {e}") from None
-    return _Conn(sock)
+    conn = _Conn(sock)
+    ctx = _client_context
+    if ctx is not None:
+        try:
+            conn.start_tls(ctx, server_side=False,
+                           server_hostname=_split(target)[0],
+                           timeout=connect)
+        except (OSError, ValueError) as e:
+            conn.close()
+            raise RpcError(StatusCode.UNAVAILABLE,
+                           f"TLS handshake with {target} failed: {e}") \
+                from None
+    return conn
 
 
 def _checkin(target: str, conn: _Conn) -> None:
@@ -290,7 +418,7 @@ class _Call:
         t = -1.0 if self.deadline is None else \
             max(0.0, self.deadline - time.monotonic())
         try:
-            self.conn.sock.settimeout(self._remaining())
+            self.conn.settimeout(self._remaining())
             head = (HEAD, struct.pack(">d", t) + self.path.encode())
             if not streaming:
                 self.conn.send(head, (MSG, requests.SerializeToString()),
@@ -343,7 +471,7 @@ class _Call:
         if self.done:
             return None
         try:
-            self.conn.sock.settimeout(self._remaining())
+            self.conn.settimeout(self._remaining())
             frame = self.conn.recv()
         except (OSError, socket.timeout, ValueError) as e:
             self._fail(e)
@@ -357,7 +485,7 @@ class _Call:
         self.done = True
         err = _parse_status(payload)
         if self.reuse:
-            self.conn.sock.settimeout(None)
+            self.conn.settimeout(None)
             _checkin(self.target, self.conn)
         else:
             self.conn.close()
@@ -572,6 +700,16 @@ class RpcServer:
 
     def _serve(self, conn: _Conn) -> None:
         try:
+            ctx = _server_context
+            if ctx is not None:
+                try:
+                    conn.start_tls(ctx, server_side=True)
+                except (OSError, ValueError) as e:
+                    # a plaintext client, a certificate the CA did not
+                    # sign: this connection ends, the server goes on
+                    log.info("rpc %d: TLS handshake failed: %s",
+                             self.bound_port, e)
+                    return
             while not self._stopping:
                 try:
                     frame = conn.recv()

@@ -33,10 +33,15 @@ scrub's replica source sort their candidates by circuit-breaker state
 (``resilience/breaker.py``). ``master_url`` may list several masters:
 the heartbeat follows the raft leader that a follower names.
 
+Chunk manifests: ``POST``/``PUT ?cm=true`` stores a needle flagged as
+one; ``GET``/``HEAD`` resolve it into the file it lists (unless
+``cm=false``), reading the chunks through ``ChunkedFileReader`` against
+the master the heartbeat follows, whole or by range; ``DELETE`` deletes
+every chunk before the manifest; ``BatchDelete`` refuses a manifest.
+
 Left out (each queued in ROADMAP.md): heat, QoS, the async core's
-sendfile path, image resizing, the ``/ui``, ``/debug/*`` and
-``/qos/status`` pages, and chunk manifests (an upload with ``cm=true``,
-and a read or delete of a needle flagged as one, is refused with 400).
+sendfile path, image resizing, and the ``/ui``, ``/debug/*`` and
+``/qos/status`` pages.
 
 Reference: weed/server/volume_server.go, volume_server_handlers_*.go,
 volume_grpc_*.go, volume_grpc_client_to_master.go.
@@ -75,7 +80,8 @@ from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage import vacuum as vacuum_mod
 from seaweedfs_tpu_torch.storage import volume_backup, volume_tier
 from seaweedfs_tpu_torch.storage.backend import BackendError
-from seaweedfs_tpu_torch.storage.needle import (FLAG_IS_COMPRESSED,
+from seaweedfs_tpu_torch.storage.needle import (FLAG_IS_CHUNK_MANIFEST,
+                                                FLAG_IS_COMPRESSED,
                                                 CookieMismatch,
                                                 DataCorruptionError, Needle,
                                                 NeedleError)
@@ -105,11 +111,11 @@ REPLICA_REFRESH_S = 30.0
 REMOTE_READ_TIMEOUT_S = 15.0
 # how often a tail stream looks for new needles
 TAIL_POLL_S = 1.0
-# what a request for a chunk manifest gets until the client libraries
-# that write and resolve them are ported
-CHUNK_MANIFEST_REFUSAL = ("chunk manifests are not served by this port: "
-                          "chunk manifests arrive with the client "
-                          "libraries")
+# a chunked file's GET up to this many bytes is read whole before its
+# head is sent, so a chunk that fails is an error status; a longer one is
+# sent with chunked framing, which a failed chunk cuts off without its
+# last chunk, so the client still sees an error, never a short body
+CHUNKED_BUFFER_BYTES = 64 << 20
 
 
 def check_encoder(name: str) -> str:
@@ -1290,7 +1296,7 @@ def _make_http_handler(vs: VolumeServer):
                 })
                 return
             try:
-                f, _params = self._parse_path()
+                f, params = self._parse_path()
             except ValueError as e:
                 self._json({"error": str(e)}, code=404)
                 return
@@ -1324,12 +1330,73 @@ def _make_http_handler(vs: VolumeServer):
                 log.exception("read %s failed", self.path)
                 self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
                 return
-            if got.is_chunk_manifest:
-                self._json({"error": CHUNK_MANIFEST_REFUSAL}, code=400)
+            if got.is_chunk_manifest and \
+                    params.get("cm", [""])[0] != "false" and \
+                    self._send_chunked(got):
                 return
             self._send_needle(got)
 
         do_HEAD = do_GET
+
+        def _send_chunked(self, got: Needle) -> bool:
+            """Serve the file a chunk-manifest needle lists (reference
+            volume_server_handlers_read.go:180-216 tryHandleChunkedFile).
+            False for a manifest that does not parse: it is then served
+            as the raw needle."""
+            from seaweedfs_tpu_torch.operation.chunked_file import (
+                ChunkedFileReader, load_chunk_manifest)
+            try:
+                cm = load_chunk_manifest(got.data, got.is_compressed)
+            except (ValueError, KeyError, TypeError):
+                log.warning("volume %s: unparseable chunk manifest",
+                            self.path)
+                return False
+            reader = ChunkedFileReader(cm.chunks, vs.current_master)
+            total = reader.total_size
+            headers = {"X-File-Store": "chunked", "Accept-Ranges": "bytes"}
+            name = cm.name or (got.name.decode("utf-8", "replace")
+                               if got.name else "")
+            if name:
+                headers["Content-Disposition"] = content_disposition(name)
+            if cm.mime and not cm.mime.startswith(
+                    "application/octet-stream"):
+                headers["Content-Type"] = cm.mime
+            status, start, length = 200, 0, total
+            rng = self.headers.get("range")
+            if rng and rng.startswith("bytes="):
+                try:
+                    start, end = parse_byte_range(rng, total)
+                except ValueError:
+                    # RFC 7233 4.4: a 416 carries the representation size
+                    self.fast_reply(416, headers={
+                        "Content-Range": f"bytes */{total}"})
+                    return True
+                status = 206
+                length = end - start + 1
+                headers["Content-Range"] = f"bytes {start}-{end}/{total}"
+            if self.command == "HEAD":
+                self.wfile.write(self._head_bytes(status, length, headers))
+                return True
+            chunk_errors = (RuntimeError, OSError, rpc.RpcError)
+            if length <= CHUNKED_BUFFER_BYTES:
+                try:
+                    body = b"".join(reader.stream(start, length))
+                except chunk_errors as e:
+                    self._json({"error": f"read chunks: {e}"}, code=500)
+                    return True
+                self.fast_reply(status, body, headers)
+                return True
+            self.wfile.write(self._head_bytes(status, None, headers))
+            try:
+                for block in reader.stream(start, length):
+                    self.wfile.write(b"%x\r\n%b\r\n" % (len(block), block))
+            except chunk_errors as e:
+                # no last chunk: the client sees the body cut off
+                log.warning("chunked read %s failed: %s", self.path, e)
+                self.close_connection = True
+                return True
+            self.wfile.write(b"0\r\n\r\n")
+            return True
 
         def _redirect(self, f) -> None:
             try:
@@ -1400,9 +1467,6 @@ def _make_http_handler(vs: VolumeServer):
                 self._json({"error": str(e)}, code=400)
                 return
             body = self.read_body()
-            if params.get("cm", [""])[0].lower() == "true":
-                self._json({"error": CHUNK_MANIFEST_REFUSAL}, code=400)
-                return
             ctype = self.headers.get("content-type") or ""
             encoding = self.headers.get("content-encoding") or ""
             filename, mime, data = "", ctype, body
@@ -1415,9 +1479,11 @@ def _make_http_handler(vs: VolumeServer):
                     return
                 encoding = part_enc or encoding
             ttl_s = params.get("ttl", [""])[0]
-            n = Needle(id=f.key, cookie=f.cookie, data=data,
-                       flags=FLAG_IS_COMPRESSED
-                       if encoding.lower() == "gzip" else 0,
+            flags = FLAG_IS_COMPRESSED if encoding.lower() == "gzip" else 0
+            if params.get("cm", [""])[0].lower() == "true":
+                # a chunk manifest (reference needle_parse_upload.go:180)
+                flags |= FLAG_IS_CHUNK_MANIFEST
+            n = Needle(id=f.key, cookie=f.cookie, data=data, flags=flags,
                        name=filename.encode() if filename else b"",
                        mime=mime.encode() if mime and
                        mime != "application/octet-stream" else b"",
@@ -1482,14 +1548,35 @@ def _make_http_handler(vs: VolumeServer):
                 if got.cookie != f.cookie:
                     self._json({"error": "cookie mismatch"}, code=403)
                     return
+                chunked_size = None
                 if got.is_chunk_manifest:
-                    # deleting one means deleting its chunks first
-                    self._json({"error": CHUNK_MANIFEST_REFUSAL}, code=400)
-                    return
+                    # every chunk goes before the manifest (reference
+                    # volume_server_handlers_write.go:124-137); a chunk
+                    # that fails keeps the manifest, so the delete can
+                    # run again
+                    from seaweedfs_tpu_torch.operation.chunked_file \
+                        import load_chunk_manifest
+                    try:
+                        cm = load_chunk_manifest(got.data,
+                                                 got.is_compressed)
+                    except (ValueError, KeyError, TypeError) as e:
+                        self._json({"error":
+                                    f"load chunks manifest: {e}"},
+                                   code=500)
+                        return
+                    try:
+                        cm.delete_chunks(vs.current_master)
+                    except (RuntimeError, OSError, rpc.RpcError) as e:
+                        self._json({"error": f"delete chunks: {e}"},
+                                   code=500)
+                        return
+                    chunked_size = cm.size
                 if params.get("type", [""])[0] == "replicate":
                     size = vs.delete_needle(f.volume_id, n)
                 else:
                     size = vs.replicated_delete(f.volume_id, n)
+                if chunked_size is not None:
+                    size = chunked_size
             except CookieMismatch:
                 self._json({"error": "cookie mismatch"}, code=403)
                 return

@@ -109,6 +109,12 @@ class CommandEnv:
         return nodes
 
     def lookup(self, vid: int, collection: str = "") -> List[str]:
+        from seaweedfs_tpu_torch.wdclient import lookup_cache
+        if lookup_cache.enabled:
+            # looped lookups over a topology coalesce into batched round
+            # trips and repeats answer locally; an error is [] as below
+            return [l.url for l in lookup_cache.for_master(
+                self.master_url, collection).lookup(vid).locations]
         resp = self.master.LookupVolume(master_pb2.LookupVolumeRequest(
             volume_ids=[str(vid)], collection=collection))
         for vl in resp.volume_id_locations:

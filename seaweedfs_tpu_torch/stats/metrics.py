@@ -382,3 +382,52 @@ DeadlineRefusedCounter = REGISTRY.counter(
 IngestReplicaFanoutSecondsHistogram = REGISTRY.histogram(
     "SeaweedFS_ingest_replica_fanout_seconds",
     "wall time of one concurrent replica fan-out", ("op",))
+
+# The client's ingest pipeline (operation/assign_lease.py): how well
+# master assigns amortize over leased file ids.
+IngestLeaseDepthGauge = REGISTRY.gauge(
+    "SeaweedFS_ingest_lease_pool_depth",
+    "leased fids banked and ready to hand out without a master trip")
+IngestLeaseAssignsCounter = REGISTRY.counter(
+    "SeaweedFS_ingest_lease_assigns_total",
+    "count=N master assign round trips made by the lease cache")
+IngestLeaseServedCounter = REGISTRY.counter(
+    "SeaweedFS_ingest_lease_served_total",
+    "fids served from the lease pool (master round trip avoided)")
+IngestLeaseDiscardsCounter = REGISTRY.counter(
+    "SeaweedFS_ingest_lease_discards_total",
+    "banked leases dropped before use", ("reason",))
+
+# The metadata plane (wdclient/lookup_cache.py): the coalescing
+# vid-lookup cache's ledger. Labels are bounded enums: `outcome` in
+# hit | negative_hit | miss, `reason` in read_failure | explicit.
+MetaLookupCounter = REGISTRY.counter(
+    "SeaweedFS_meta_lookup_total",
+    "vid lookups through the coalescing cache by outcome "
+    "(hit | negative_hit | miss)", ("outcome",))
+MetaLookupBatchHistogram = REGISTRY.histogram(
+    "SeaweedFS_meta_lookup_batch_vids",
+    "vids fused into one batched master lookup round trip",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+MetaLookupWaitersCounter = REGISTRY.counter(
+    "SeaweedFS_meta_lookup_singleflight_waiters_total",
+    "lookups that waited on another caller's in-flight fetch "
+    "instead of issuing their own")
+MetaLookupInvalidationsCounter = REGISTRY.counter(
+    "SeaweedFS_meta_lookup_invalidations_total",
+    "cached vid answers dropped by reason", ("reason",))
+
+# The master client (wdclient/masterclient.py).
+MasterReconnectsCounter = REGISTRY.counter(
+    "SeaweedFS_master_reconnects_total",
+    "master client stream redials after a break")
+
+# Errors absorbed on purpose by a broad handler that must keep running.
+SwallowedErrorsCounter = REGISTRY.counter(
+    "SeaweedFS_swallowed_errors_total",
+    "errors absorbed by intentional broad except handlers", ("site",))
+
+
+def swallowed(site: str) -> None:
+    """Count one error a named handler absorbed on purpose."""
+    SwallowedErrorsCounter.labels(site).inc()

@@ -299,9 +299,10 @@ class FastHandler(BaseHTTPRequestHandler):
             self.wfile.flush()
         return ok
 
-    def _head_bytes(self, code: int, length: int, headers=None,
+    def _head_bytes(self, code: int, length: Optional[int], headers=None,
                     ctype: str = "") -> bytes:
-        """One response head as a single bytes blob."""
+        """One response head as a single bytes blob; a length of None
+        frames the body with chunked transfer encoding."""
         reason = _REASONS.get(code, "")
         parts = [f"HTTP/1.1 {code} {reason}\r\nDate: {http_date()}\r\n"]
         if ctype:
@@ -311,7 +312,8 @@ class FastHandler(BaseHTTPRequestHandler):
                 parts.append(f"{k}: {v}\r\n")
         if self.close_connection:
             parts.append("Connection: close\r\n")
-        parts.append(f"Content-Length: {length}\r\n\r\n")
+        parts.append("Transfer-Encoding: chunked\r\n\r\n" if length is None
+                     else f"Content-Length: {length}\r\n\r\n")
         return "".join(parts).encode("latin-1")
 
     def fast_reply(self, code: int, body: bytes = b"",

@@ -16,8 +16,9 @@ refuses it and 001 on two servers is granted, the
 master's ids survive a restart, and the CLI runs as subprocesses. The
 read cache: repeat degraded reads through a stopped server are cache
 hits with no new decode dispatch, and a rebuild invalidates. Against a
-JAX volume server: a chunk-manifest upload and a read or delete of a
-flagged needle are refused, and a corrupt read counts in
+JAX volume server: a JAX-written chunk manifest answers GET, HEAD,
+``cm=false``, BatchDelete (refused, 406) and DELETE as the JAX server
+answers them, and a corrupt read counts in
 ``ScrubCorruptionsFoundCounter{kind="read"}`` on both.
 """
 
@@ -994,9 +995,14 @@ MANIFEST = b'{"name": "x", "mime": "", "size": 0, "chunks": []}'
 
 
 def test_chunk_manifest_is_refused(tmp_path):
-    """The 50-byte manifest: the JAX server stores it flagged 0x84 (at
-    record offset 70); the port refuses the upload, and the port serving
-    the JAX server's directory refuses its GET, HEAD and DELETE."""
+    """The 50-byte manifest the JAX server stores flagged 0x84 (at record
+    offset 70), in a directory a JAX server and a port server each open:
+    GET, HEAD, GET ?cm=false and DELETE answer alike (status, headers,
+    body), and both refuse it in BatchDelete (406), the one refusal left
+    since the port serves chunk manifests. A port upload with cm=true is
+    flagged 0x84 too."""
+    from seaweedfs_tpu.pb import volume_server_pb2 as jax_vs_pb2
+    from seaweedfs_tpu.pb import volume_stub as jax_volume_stub
     assert len(MANIFEST) == 50
     d = tmp_path / "v"
     d.mkdir()
@@ -1011,23 +1017,51 @@ def test_chunk_manifest_is_refused(tmp_path):
     with open(d / "1.dat", "rb") as f:
         record = f.read()[8:]
     assert record[70] == 0x84
+    shutil.copytree(d, tmp_path / "j")
+    jvs = _jax_volume_server(tmp_path / "j", free_port_pair())
     vs = VolumeServer("127.0.0.1:1", [str(d)], port=free_port_pair(),
                       pulse_seconds=60.0, ec_encoder="cpu")
     vs.start()
+    compared = ("Content-Type", "Content-Length", "Content-Disposition",
+                "X-File-Store", "Accept-Ranges")
+
+    def answer(url, method="GET"):
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://{url}", method=method), timeout=30) as r:
+                return r.status, [r.headers.get(k) for k in compared], \
+                    r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, [e.headers.get(k) for k in compared], e.read()
+
     try:
-        for method in ("GET", "DELETE"):
-            status, body = _request(method, f"{vs.url}/1,01000000aa")
-            assert status == 400, (method, body)
-            assert b"chunk manifests arrive with the client libraries" \
-                in body
-        status, _ = _request("HEAD", f"{vs.url}/1,01000000aa")
-        assert status == 400
-        status, body = _request("POST", f"{vs.url}/1,02000000bb?cm=true",
-                                MANIFEST,
-                                {"Content-Type": "application/json"})
-        assert status == 400
-        assert b"chunk manifests arrive with the client libraries" in body
-        assert vs.store.find_volume(1).nm.get(2) is None
+        for method, suffix in (("GET", ""), ("HEAD", ""),
+                               ("GET", "?cm=false")):
+            got = [answer(f"{srv.url}/1,01000000aa{suffix}", method)
+                   for srv in (jvs, vs)]
+            assert got[1] == got[0], (method, suffix)
+        assert got[1][2] == MANIFEST
+        assert answer(f"{vs.url}/1,01000000aa")[1][3] == "chunked"
+        refusals = [
+            stub(srv.url).BatchDelete(pb2.BatchDeleteRequest(
+                file_ids=["1,01000000aa"])).results[0]
+            for stub, pb2, srv in ((jax_volume_stub, jax_vs_pb2, jvs),
+                                   (volume_stub, volume_server_pb2, vs))]
+        assert [(r.status, r.error) for r in refusals] == \
+            [(406, "ChunkManifest: not allowed in batch delete mode.")] * 2
+        deleted = [(answer(f"{srv.url}/1,01000000aa", "DELETE"),
+                    answer(f"{srv.url}/1,01000000aa")[0])
+                   for srv in (jvs, vs)]
+        assert deleted[1] == deleted[0]
+        assert deleted[1][0][0] == 202 and deleted[1][1] == 404
+        status, _ = _request("POST", f"{vs.url}/1,02000000bb?cm=true",
+                             MANIFEST, {"Content-Type": "application/json"})
+        assert status == 201
+        v = vs.store.find_volume(1)
+        v.sync()
+        with open(v.dat_path, "rb") as f:
+            dat = f.read()
+        assert dat[dat.rindex(MANIFEST) + len(MANIFEST)] == 0x84
         # without cm the same bytes are a plain needle, as in the JAX
         # package: the flags byte is 0x04 (a mime type)
         status, _ = _request("POST", f"{vs.url}/1,03000000cc", MANIFEST,
@@ -1037,6 +1071,7 @@ def test_chunk_manifest_is_refused(tmp_path):
         assert (status, body) == (200, MANIFEST)
     finally:
         vs.stop()
+        jvs.stop()
 
 
 def test_corrupt_read_is_counted_on_both_servers(tmp_path):

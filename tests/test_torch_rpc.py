@@ -9,6 +9,11 @@ nested trees, unicode, multi-MiB bytes), and protobuf's bytes decode to
 equal fields. The transport: unary, server-streaming and bidirectional
 calls, status codes through ``context.abort``, a ``timeout=`` that fires,
 a refused connection, and a stopped peer ending the other side's stream.
+Under mutual TLS (``security/tls.py``, certificates from the system
+``openssl``): the same unary, server-streaming (frames over 64 KiB, read
+with ``recv_into`` on the SSL socket) and bidirectional calls, a hang-up
+seen through ``is_active()``, pooled connections reused, a deadline, and
+a plaintext client or server refused at once instead of hanging.
 """
 
 import socket
@@ -506,3 +511,140 @@ def test_grpc_address():
     assert rpc.grpc_address("http://h:9333") == "h:19333"
     with pytest.raises(ValueError):
         rpc.grpc_address("nohost")
+
+
+# -- the transport under mutual TLS --------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tls_contexts(tmp_path_factory):
+    from tests.test_tls import _gen_certs
+    from seaweedfs_tpu_torch.security.tls import TlsConfig
+    d = tmp_path_factory.mktemp("rpc_certs")
+    _gen_certs(d)
+    server = TlsConfig(str(d / "ca.crt"), str(d / "server.crt"),
+                       str(d / "server.key")).server_context()
+    client = TlsConfig(str(d / "ca.crt"), str(d / "client.crt"),
+                       str(d / "client.key")).client_context()
+    return server, client
+
+
+@pytest.fixture
+def tls_server(tls_contexts):
+    rpc.set_server_credentials(tls_contexts[0])
+    rpc.set_channel_credentials(tls_contexts[1])
+    svc = _Servicer()
+    srv = rpc.make_server("127.0.0.1:0", [
+        rpc.generic_handler(master_pb2, "Seaweed", svc),
+        rpc.generic_handler(volume_server_pb2, "VolumeServer",
+                            _VolumeServicer())])
+    try:
+        yield srv, svc, f"127.0.0.1:{srv.bound_port}"
+    finally:
+        srv.stop()
+        rpc.set_server_credentials(None)
+        rpc.set_channel_credentials(None)
+
+
+def test_tls_unary_calls_reuse_one_pooled_connection(tls_server):
+    _, _, target = tls_server
+    stub, _ = _stubs(target)
+    for i in range(1, 30):
+        resp = stub.Assign(master_pb2.AssignRequest(count=i,
+                                                    collection="c"))
+        assert (resp.fid, resp.count) == (f"{i},c", i)
+    idle = rpc._pools[target]
+    assert len(idle) == 1 and isinstance(idle[0].sock, rpc.ssl.SSLSocket)
+    with pytest.raises(rpc.RpcError) as ei:
+        stub.Assign(master_pb2.AssignRequest(collection="missing"))
+    assert ei.value.code() == rpc.StatusCode.NOT_FOUND
+    t0 = time.monotonic()
+    with pytest.raises(rpc.RpcError) as ei:
+        stub.Assign(master_pb2.AssignRequest(collection="slow"),
+                    timeout=0.2)
+    assert ei.value.code() == rpc.StatusCode.DEADLINE_EXCEEDED
+    assert time.monotonic() - t0 < 0.8
+
+
+def test_tls_server_streaming_large_frames(tls_server):
+    """Frames of up to 99,000 bytes: past 64 KiB the payload is read with
+    recv_into on the SSL socket."""
+    _, _, target = tls_server
+    _, vstub = _stubs(target)
+    for _ in range(2):
+        chunks = list(vstub.CopyFile(volume_server_pb2.CopyFileRequest(
+            stop_offset=100)))
+        assert [c.file_content for c in chunks] == \
+            [bytes([i]) * (i * 1000) for i in range(100)]
+
+
+def test_tls_bidi_stream_and_hangup(tls_server):
+    """A request stream pumped from its own thread while the caller reads
+    (one SSL socket, two threads), then a cancel the server sees."""
+    _, svc, target = tls_server
+    stub, _ = _stubs(target)
+    more = threading.Event()
+
+    def beats():
+        for i in range(200):
+            yield master_pb2.Heartbeat(ip=f"10.0.{i // 256}.{i % 256}",
+                                       port=i)
+        more.wait(5)
+
+    call = stub.SendHeartbeat(beats())
+    got = [next(call) for _ in range(200)]
+    assert [r.volume_size_limit for r in got] == list(range(200))
+    call.cancel()
+    assert svc.heartbeat_ended.wait(2)
+    more.set()
+    stream = stub.KeepConnected(
+        iter([master_pb2.KeepConnectedRequest(name="client")]))
+    assert next(stream).leader == "client"
+    time.sleep(0.1)
+    assert not svc.keep_connected_ended.is_set()
+    stream.cancel()
+    assert svc.keep_connected_ended.wait(2)
+
+
+def test_tls_pooled_connection_holding_a_byte_is_not_reused(tls_server):
+    """A pooled SSL connection whose peer sent anything while it sat idle
+    is dropped, whatever select sees of the raw socket."""
+    srv, _, target = tls_server
+    stub, _ = _stubs(target)
+    assert stub.Assign(master_pb2.AssignRequest(count=1)).count == 1
+    conn = rpc._pools[target][0]
+    assert not conn.idle_unusable()
+    with srv._lock:
+        server_side = next(iter(srv._conns))
+    server_side.send((rpc.MSG, b"stray"))
+    wait = time.monotonic() + 2
+    while not conn.idle_unusable() and time.monotonic() < wait:
+        time.sleep(0.01)
+    assert conn.idle_unusable()
+    assert stub.Assign(master_pb2.AssignRequest(count=2)).count == 2
+
+
+def test_plaintext_client_against_tls_server_fails_fast(tls_server):
+    _, _, target = tls_server
+    rpc.set_channel_credentials(None)
+    stub, _ = _stubs(target)
+    t0 = time.monotonic()
+    with pytest.raises(rpc.RpcError) as ei:
+        stub.Assign(master_pb2.AssignRequest(count=1), timeout=10)
+    assert ei.value.code() == rpc.StatusCode.UNAVAILABLE
+    assert time.monotonic() - t0 < 2.0
+
+
+def test_tls_client_against_plaintext_server_fails(server, tls_contexts):
+    _, _, target = server
+    rpc.set_channel_credentials(tls_contexts[1])
+    try:
+        stub, _ = _stubs(target)
+        t0 = time.monotonic()
+        with pytest.raises(rpc.RpcError) as ei:
+            stub.Assign(master_pb2.AssignRequest(count=1), timeout=10)
+        assert ei.value.code() == rpc.StatusCode.UNAVAILABLE
+        # the server ends a connection whose first frame is no frame
+        assert time.monotonic() - t0 < 2.0
+    finally:
+        rpc.set_channel_credentials(None)
