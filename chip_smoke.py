@@ -188,7 +188,46 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``benchmark -n 4096 -c 16 -assign.leaseCount 32`` as subprocesses.
    gf_linear's launch count must rise in (d) and (f) and stay 0 in
    (a)-(c), (e) and (h).
-12. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+12. The lifecycle cluster, in this process, on a cluster of its own:
+   three MasterServers (phase 10's raft settings, volumes of 64 MiB) with
+   the lifecycle engine (pass 0.5 s, cool 0.5, warm 3, hot and warm dwell
+   2 s, at most 4 transitions a pass, COLD off, dry run at the start) and
+   four VolumeServers in one rack (placement 000, no read cache, heat
+   tracked over a 2 s window), each with a ``-metricsPort`` listener;
+   QoS on for this phase (200 requests/s and a burst of 200 per tenant,
+   weights good:4, noisy:1) and cluster tracing at sample 1.0, both reset
+   at the end. (a) 192 MiB of needles of 1 B-256 KiB (seeded) from 16
+   threads as tenant ``good``, half in collection ``hot`` and half in
+   ``cold``; a reader keeps every hot volume above the warm threshold.
+   (b) within 10 s a dry-run encode decision for every cold volume and
+   none for a hot one, 0 transitions (the cap covers every volume while
+   dry: at 4 a dry run decides the same four each pass). (c) dry run off
+   and the cap at 4: every cold volume EC in fused ``ec.encode`` groups of
+   at most 4, its ``.dat`` retired, every cold needle read back
+   byte-identical (the engine paused until that heat cools), and
+   ``SeaweedFS_lifecycle_transitions_total{kind="encode",outcome="ok"}``
+   at the leader's /metrics equal to the number of cold volumes; seconds
+   to the last EC volume and the engine's encode GB/s. (d) for 3 s a
+   ``noisy`` tenant reads from 8 threads at 4x the rate: its 429s carry
+   Retry-After, ``good`` and ``_internal`` are never shed, ``cluster.qos``
+   equals the clients' counts; good's p50/p99 before and during. (e) a
+   server (at most four shards of every volume) stopped, two cold EC
+   volumes read above the warm threshold (the engine paused meanwhile):
+   decode fleet dispatches and K1; one degraded read stitched by
+   ``cluster.trace`` from the sampled list at once (the process-wide
+   rings keep 256 requests); the engine decodes both, K1 rebuilding the
+   lost data shards, every needle byte-identical, transitions_total
+   decode ok = 2. (f) the leader stopped: the new leader's engine
+   reconciles (WARM stays WARM, nothing moves twice), the hot reader
+   stops and the new leader encodes the hot volumes; seconds from the
+   stop to its first transition. (g) every live /metrics parses as
+   Prometheus text with the heat of every live volume, the cluster heat,
+   lifecycle, QoS, trace and request families; ``cluster.heat`` lists
+   every volume with its tier; ``volume.lifecycle`` status, pause and
+   resume; ``cluster.requests``; the stitched trace of (e) spans at least
+   two servers. gf_linear's launch count must rise in (c), (e)'s reads,
+   (e)'s decodes and (f), and stay 0 in (a), (b), (d) and (g).
+13. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -1674,6 +1713,12 @@ def check_stripes(dat_path: str, shard_paths: list) -> None:
             f.close()
 
 
+def held(vs, vid: int) -> set:
+    """The shard ids of vid a volume server has mounted."""
+    ecv = vs.store.find_ec_volume(vid)
+    return set(ecv.shard_bits.shard_ids) if ecv is not None else set()
+
+
 def shard_paths_of(servers, collection: str, vid: int) -> list:
     """The one file of each of the 14 shards of ``vid``, wherever it is."""
     from seaweedfs_tpu_torch.ec.encoder import shard_file_name
@@ -1937,10 +1982,6 @@ def phase_service(workdir: str, seed: int, backend: str,
         # (d) a server stopped: degraded reads through the decode fleet.
         # The victim holds at most four shards of every volume (so every
         # read can be served), the most shards in all among those
-        def held(vs, v):
-            ecv = vs.store.find_ec_volume(v)
-            return set(ecv.shard_bits.shard_ids) if ecv is not None else set()
-
         victim = max((vs for vs in servers
                       if all(len(held(vs, v)) <= 4 for v in vids)),
                      key=lambda vs: sum(len(held(vs, v)) for v in vids))
@@ -3437,10 +3478,6 @@ def phase_chunked(workdir: str, seed: int, backend: str, card: str = "",
             f"{failover_s:.3f} s [{card}]")
 
         # (f) degraded chunked reads through a stopped server
-        def held(vs, v):
-            ecv = vs.store.find_ec_volume(v)
-            return set(ecv.shard_bits.shard_ids) if ecv is not None else set()
-
         victim = max((vs for vs in servers
                       if all(len(held(vs, v)) <= 4 for v in vids)),
                      key=lambda vs: sum(len(held(vs, v)) for v in vids))
@@ -3583,6 +3620,886 @@ def phase_chunked(workdir: str, seed: int, backend: str, card: str = "",
     return out
 
 
+# the phase's writes and read-backs are paced by its QoS budget, so its
+# length follows its data: 192 MiB keeps the whole command under eight
+# minutes (384 MiB took it to 488.5 s on an H100 80GB HBM3 at 700 W)
+LIFECYCLE_BYTES = 192 << 20
+LIFECYCLE_VOLUME_MB = 64
+LIFECYCLE_QOS_RATE = 200.0
+LIFECYCLE_GOOD_RATE = 190.0      # the good clients' own pace, all threads
+LIFECYCLE_NOISY_THREADS = 8
+LIFECYCLE_NOISY_SECONDS = 3.0
+LIFECYCLE_HOT_READS_PER_S = 30.0
+LIFECYCLE_REHEAT_READS_PER_S = 10.0
+LIFECYCLE_ENGINE = dict(dry_run=True, interval_s=0.5, cool_threshold=0.5,
+                        warm_threshold=3.0, hot_dwell_s=2.0,
+                        warm_dwell_s=2.0, max_inflight=4, freeze_s=0.0)
+LIFECYCLE_HEAT_WINDOW_S = 2.0
+
+
+class Pacer:
+    """Spaces calls at most ``rate`` a second over every thread that
+    shares it: a client keeping its tenant inside its request budget."""
+
+    def __init__(self, rate: float):
+        import threading
+        self.gap = 1.0 / rate
+        self.next = time.monotonic()
+        self.lock = threading.Lock()
+
+    def wait(self) -> None:
+        with self.lock:
+            now = time.monotonic()
+            at = max(self.next, now)
+            self.next = at + self.gap
+        if at > now:
+            time.sleep(at - now)
+
+
+class TenantClient:
+    """A tenant's requests to the volume servers, each carrying
+    ``X-Seaweed-Tenant`` and counted by answer: what the client saw, to
+    hold against the servers' QoS ledger."""
+
+    def __init__(self, name: str, rate: float = 0.0):
+        import collections
+        import threading
+        self.name = name
+        self.pacer = Pacer(rate) if rate else None
+        self.lock = threading.Lock()
+        self.codes = collections.Counter()
+        self.without_retry_after = 0
+
+    def _count(self, status: int, retry_after: str = "") -> None:
+        with self.lock:
+            self.codes[status] += 1
+            if status == 429 and not retry_after:
+                self.without_retry_after += 1
+
+    def get(self, url: str):
+        return self.get_timed(url)[0]
+
+    def get_timed(self, url: str):
+        """(response, seconds of the request alone, the pace aside)."""
+        from seaweedfs_tpu_torch.util import http_client
+        if self.pacer is not None:
+            self.pacer.wait()
+        t0 = time.perf_counter()
+        r = http_client.request("GET", url, timeout=60,
+                                headers={"X-Seaweed-Tenant": self.name})
+        dt = time.perf_counter() - t0
+        self._count(r.status, r.header("retry-after"))
+        return r, dt
+
+    def upload(self, master_url: str, collection: str, data: bytes) -> str:
+        """assign at the master, then the POST, both as this tenant (the
+        ambient tenant rides every outbound request while QoS is on)."""
+        from seaweedfs_tpu_torch.operation import operations
+        from seaweedfs_tpu_torch.qos import tenant
+        if self.pacer is not None:
+            self.pacer.wait()
+        with tenant.as_tenant(self.name):
+            a = operations.assign(master_url, collection=collection)
+            operations.upload_data(f"{a.url}/{a.fid}", data)
+        self._count(201)
+        return a.fid
+
+    def sent(self) -> int:
+        with self.lock:
+            return sum(self.codes.values())
+
+
+class Reader:
+    """A background thread reading as one tenant, at about ``rate`` reads
+    a second, every body checked: each tick the next volume in turn and
+    the next of its fids, so every volume of the set is read every
+    len(volumes) / rate seconds however its fids came in."""
+
+    def __init__(self, client, rate: float, locate, want):
+        import threading
+        self.client = client
+        self.gap = 1.0 / rate
+        self.locate = locate          # fid -> url of a live holder
+        self.want = want              # fid -> bytes
+        self.by_vid = {}              # vid -> its fids; replaced, not mutated
+        self.busy = threading.Lock()  # held around each read
+        self.stop_event = threading.Event()
+        self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="smoke-reader")
+
+    def set(self, fids) -> None:
+        from seaweedfs_tpu_torch.operation.file_id import parse_fid
+        by_vid = {}
+        for fid in fids:
+            by_vid.setdefault(parse_fid(fid).volume_id, []).append(fid)
+        self.by_vid = by_vid
+
+    def start(self, fids):
+        self.set(fids)
+        self.thread.start()
+        return self
+
+    def _run(self):
+        i = 0
+        try:
+            while not self.stop_event.wait(self.gap):
+                with self.busy:
+                    by_vid = self.by_vid
+                    if not by_vid:
+                        continue
+                    vids = sorted(by_vid)
+                    fids = by_vid[vids[i % len(vids)]]
+                    fid = fids[(i // len(vids)) % len(fids)]
+                    i += 1
+                    r = self.client.get(f"{self.locate(fid)}/{fid}")
+                    if r.status != 200 or r.body != self.want(fid):
+                        raise AssertionError(f"{self.client.name} read "
+                                             f"{fid}: http {r.status}")
+        except BaseException as e:  # noqa: BLE001 - reported by stop()
+            self.error = e
+
+    def stop(self) -> None:
+        self.stop_event.set()
+        self.thread.join(timeout=30)
+        if self.error is not None:
+            import traceback
+            raise AssertionError(
+                "background reader: " + "".join(traceback.format_exception(
+                    self.error)))
+
+
+def parse_prometheus(text: str) -> dict:
+    """{"name{labels}": value} of a 0.0.4 text exposition; any line that
+    is neither a HELP/TYPE comment nor a sample fails the run."""
+    import re
+    sample = re.compile(
+        r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*"'
+        r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*\})? '
+        r'[-+]?([0-9.]+([eE][-+]?[0-9]+)?|inf|Inf|nan|NaN)$')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        if not sample.match(line):
+            raise AssertionError(f"/metrics: not Prometheus text: {line!r}")
+        key, _, value = line.rpartition(" ")
+        out[key] = float(value)
+    return out
+
+
+def phase_lifecycle(workdir: str, seed: int, backend: str, card: str = "",
+                    total_bytes: int = LIFECYCLE_BYTES,
+                    volume_mb: int = LIFECYCLE_VOLUME_MB) -> dict:
+    """Phase 12: a cluster that manages its own storage tiers. (a) data
+    written as tenant good; (b) the lifecycle engine's dry run; (c) live:
+    the idle volumes ec.encoded on the card in fused groups; (d) a noisy
+    tenant shed, good untouched; (e) two EC volumes re-heated through a
+    lost server and decoded back; (f) a leader failover; (g) /metrics,
+    cluster.heat, volume.lifecycle, cluster.requests and cluster.trace."""
+    import threading
+    from seaweedfs_tpu_torch import qos, rpc
+    from seaweedfs_tpu_torch.lifecycle import LifecycleConfig
+    from seaweedfs_tpu_torch.operation.file_id import parse_fid
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.shell import Shell
+    from seaweedfs_tpu_torch.stats import cluster_trace
+    from seaweedfs_tpu_torch.stats.metrics import start_metrics_server
+    from seaweedfs_tpu_torch.util import http_client
+
+    card = card or backend
+    launches = Launches(backend)
+    out = {}
+    rng = np.random.default_rng(seed + 30)
+    buf = rng.bytes(64 << 20)
+    if backend == "cuda":
+        import torch
+        # the CUDA context is made before the raft masters start (in the
+        # full run an earlier phase has made it)
+        torch.zeros(1, device="cuda")
+    qos.configure(qos.QosConfig(
+        request_rate=LIFECYCLE_QOS_RATE, request_burst=LIFECYCLE_QOS_RATE,
+        weights={"good": 4.0, "noisy": 1.0}))
+    cluster_trace.reset()
+    cluster_trace.enable(sample_fraction=1.0)
+    good = TenantClient("good", LIFECYCLE_GOOD_RATE)
+    ports = [free_port_pair() for _ in range(REPL_MASTERS)]
+    murls = [f"127.0.0.1:{p}" for p in ports]
+    cfg = LifecycleConfig(**LIFECYCLE_ENGINE)
+    masters = [MasterServer(port=p, meta_dir=os.path.join(workdir, f"m{i}"),
+                            peers=murls, volume_size_limit_mb=volume_mb,
+                            pulse_seconds=1.0, lifecycle=cfg)
+               for i, p in enumerate(ports)]
+    # every ec.encode / ec.decode group the engines run: (master, kind,
+    # vids, start, seconds)
+    groups = []
+    groups_lock = threading.Lock()
+
+    def watch(m):
+        run = m.lifecycle._run_group
+
+        def run_group(sh, group, cmd):
+            t0 = time.perf_counter()
+            try:
+                return run(sh, group, cmd)
+            finally:
+                with groups_lock:
+                    groups.append((m.url, group[0].kind,
+                                   [t.vid for t in group], t0,
+                                   time.perf_counter() - t0))
+        m.lifecycle._run_group = run_group
+
+    for m in masters:
+        watch(m)
+    metrics_srv = {}
+    servers = []
+    stopped = []
+    readers = []
+    t_phase = time.perf_counter()
+    try:
+        for m in masters:
+            m.start()
+            metrics_srv[m.url] = start_metrics_server(
+                0, ip="127.0.0.1", role="master")
+        for i in range(SERVICE_SERVERS):
+            d = os.path.join(workdir, f"vol{i}")
+            os.makedirs(d)
+            vs = VolumeServer(
+                ",".join(murls), [d], port=free_port_pair(),
+                max_volume_counts=[40], pulse_seconds=1.0,
+                ec_encoder=backend, cache_size_mb=0, heat_track=True,
+                heat_window_s=LIFECYCLE_HEAT_WINDOW_S)
+            vs.start()
+            servers.append(vs)
+            metrics_srv[vs.url] = start_metrics_server(
+                0, ip="127.0.0.1", role="volume")
+            qos.manager().heat = vs.heat
+
+        def leader_of(ms):
+            live = [m for m in ms if m not in stopped]
+            leaders = [m for m in live if m.is_leader]
+            return leaders[0] if len(leaders) == 1 else None
+
+        live_servers = lambda: [vs for vs in servers  # noqa: E731
+                                if vs not in stopped]
+
+        def holders(m, vid):
+            """Live urls serving vid: its normal replicas, else its EC
+            shard holders."""
+            up = {vs.url for vs in live_servers()}
+            urls = [n.url for n in m.topo.lookup(vid)] or \
+                sorted(m.topo.lookup_ec(vid))
+            return [u for u in urls if u in up]
+
+        # (a) the client finds the leader; the data, as tenant good
+        leader = wait_until(lambda: leader_of(masters), 30, "one leader")
+        wait_until(lambda: len(leader.topo.nodes()) == len(servers), 30,
+                   "four servers at the leader")
+        sizes = []
+        while sum(sizes) < total_bytes:
+            sizes.append(int(rng.integers(1, SERVICE_NEEDLE_MAX + 1)))
+        offsets = rng.integers(0, len(buf) - SERVICE_NEEDLE_MAX,
+                               len(sizes)).tolist()
+        jobs = [("hot" if i % 2 == 0 else "cold", o, s)
+                for i, (o, s) in enumerate(zip(offsets, sizes))]
+        data = {}                  # fid -> (collection, offset, size)
+        data_lock = threading.Lock()
+        hot_written = []
+
+        def want(fid):
+            _, o, s = data[fid]
+            return buf[o:o + s]
+
+        known = {}    # vid -> the live holders last seen
+
+        def locate(fid):
+            """A live holder of fid's volume; while a new leader's
+            topology fills from the heartbeats, the holders seen last."""
+            vid = parse_fid(fid).volume_id
+            urls = holders(leader_now(), vid)
+            if urls:
+                known[vid] = urls
+            else:
+                up = {vs.url for vs in live_servers()}
+                urls = [u for u in known.get(vid, ()) if u in up]
+            return urls[0]
+
+        last_leader = [leader]
+
+        def leader_now():
+            """The leader, or while an election runs the last one (its
+            topology still places every normal volume)."""
+            m = leader_of(masters)
+            if m is not None:
+                last_leader[0] = m
+            return last_leader[0]
+
+        hot_reader = Reader(good, LIFECYCLE_HOT_READS_PER_S, locate, want)
+        readers.append(hot_reader)
+
+        def write():
+            def worker(part):
+                for col, o, s in part:
+                    fid = good.upload(leader.url, col, buf[o:o + s])
+                    with data_lock:
+                        data[fid] = (col, o, s)
+                        if col == "hot":
+                            hot_written.append(fid)
+                            # the hot volumes are read from their first
+                            # needle on, so none of them ever looks idle
+                            if len(hot_written) % 16 == 1:
+                                hot_reader.set(hot_written)
+            t0 = time.perf_counter()
+            hot_reader.start([])
+            with concurrent.futures.ThreadPoolExecutor(
+                    SERVICE_THREADS) as pool:
+                list(pool.map(worker, [jobs[i::SERVICE_THREADS]
+                                       for i in range(SERVICE_THREADS)]))
+            hot_reader.set(hot_written)
+            return time.perf_counter() - t0
+
+        write_s, _ = launches.run("lifecycle_write", write, none=True)
+        vids = {c: sorted({parse_fid(f).volume_id for f, (col, _, _)
+                           in data.items() if col == c})
+                for c in ("hot", "cold")}
+        fids_of = {}
+        for f, (col, _, _) in data.items():
+            fids_of.setdefault(parse_fid(f).volume_id, []).append(f)
+        dat_bytes = {}
+        for vs in servers:
+            for vid, v in list(vs.store.locations[0].volumes.items()):
+                v.sync()
+                dat_bytes[vid] = os.path.getsize(v.file_name() + ".dat")
+        out["write"] = dict(needles=len(data), bytes=sum(sizes),
+                            seconds=write_s,
+                            MBps=sum(sizes) / write_s / 1e6,
+                            hot_volumes=vids["hot"],
+                            cold_volumes=vids["cold"])
+        log(f"  (a) leader {leader.url}; {len(data)} needles, {sum(sizes)} "
+            f"B as tenant good from {SERVICE_THREADS} threads in "
+            f"{write_s:.3f} s = {sum(sizes) / write_s / 1e6:.1f} MB/s "
+            f"(paced at {LIFECYCLE_GOOD_RATE:.0f}/s under the "
+            f"{LIFECYCLE_QOS_RATE:.0f}/s budget); hot volumes "
+            f"{vids['hot']}, cold {vids['cold']} [{card}]")
+        if not vids["cold"] or not vids["hot"]:
+            raise AssertionError("both collections need volumes")
+        if set(vids["hot"]) & set(vids["cold"]):
+            raise AssertionError("a volume in both collections")
+
+        # (b) dry run: the engine decides, and acts zero times. With the
+        # cap at 4 a dry run would decide the same four volumes every
+        # pass, so the cap covers every volume until the run goes live
+        engine = leader.lifecycle
+        for m in masters:
+            m.lifecycle.cfg = m.lifecycle.cfg._replace(
+                max_inflight=len(vids["hot"]) + len(vids["cold"]))
+
+        def dry_run():
+            def decided():
+                st = json.loads(http_client.request(
+                    "GET", f"{leader.url}/cluster/lifecycle").body)
+                return st, {d["vid"] for d in st["decisions"]
+                            if d["kind"] == "encode" and
+                            d["outcome"] == "dry_run"}
+            t0 = time.perf_counter()
+            wait_until(lambda: set(vids["cold"]) <= decided()[1], 10,
+                       "a dry-run encode decision for every cold volume")
+            return decided(), time.perf_counter() - t0
+
+        ((st, dry), dry_s), _ = launches.run("lifecycle_dry_run", dry_run,
+                                             none=True)
+        if dry & set(vids["hot"]) or st["transitions_ok"] or \
+                engine.transitions_ok or groups:
+            raise AssertionError(f"dry run: decided {sorted(dry)}, "
+                                 f"acted {st['transitions_ok']}")
+        out["dry_run"] = dict(seconds=dry_s, decided=sorted(dry),
+                              passes=st["passes"])
+        log(f"  (b) dry run: encode decisions for every cold volume "
+            f"{sorted(dry)} within {dry_s:.3f} s, none for a hot one; "
+            f"the engine acted 0 times, 0 gf_linear launches [{card}]")
+
+        # (c) live: the idle volumes encoded on the card, fused in groups
+        def encoded(m, vs_):
+            """Every vid EC with its layout settled in m's topology: the
+            original retired and each of the 14 shards on one server (a
+            reader that caches shard locations mid-spread keeps stale
+            ones for minutes)."""
+            return all(not m.topo.lookup(v) and
+                       sum(b.count for b in m.topo.lookup_ec(v).values())
+                       == 14 for v in vs_)
+
+        def read_all(fids, what):
+            for fid in fids:
+                r = good.get(f"{locate(fid)}/{fid}")
+                if r.status != 200 or r.body != want(fid):
+                    raise AssertionError(f"{what} {fid}: http {r.status} "
+                                         f"{r.body[:300]!r}")
+
+        def read_back_paused(fids, vids_, what):
+            """Read fids back with the engine paused: the reads heat the
+            just-moved volumes, so it resumes only once the leader's
+            heat map has cooled again (else it would move them back)."""
+            engine = leader_now().lifecycle
+            engine.pause()
+            t0 = time.perf_counter()
+            read_all(fids, what)
+            secs = time.perf_counter() - t0
+
+            def local_heat(v):
+                return sum(vs.heat.window_reads(v) for vs in live_servers())
+
+            wait_until(lambda: not any(local_heat(v) for v in vids_), 30,
+                       f"the {what} volumes' heat windows emptied")
+            # then every server's next heartbeat carries the cooled heat
+            t_cool = time.time()
+            for vs in live_servers():
+                vs.trigger_heartbeat()
+            wait_until(lambda: all(n.last_seen > t_cool
+                                   for n in leader_now().topo.nodes()), 30,
+                       "a heartbeat from every server after the cooling")
+            engine.resume()
+            return secs
+
+        t_live = time.perf_counter()
+        for m in masters:
+            m.lifecycle.cfg = m.lifecycle.cfg._replace(dry_run=False,
+                                                       max_inflight=4)
+
+        def go_live():
+            wait_until(lambda: encoded(leader_now(), vids["cold"]), 120,
+                       "every cold volume EC")
+            wait_until(lambda: sum(len(g[2]) for g in groups
+                                   if g[1] == "encode") ==
+                       len(vids["cold"]), 30, "the engine's encode groups")
+            return time.perf_counter() - t_live
+
+        live_s, _ = launches.run("lifecycle_encode", go_live)
+        enc_groups = [g for g in groups if g[1] == "encode"]
+        if any(len(g[2]) > 4 for g in enc_groups) or \
+                sorted(v for g in enc_groups for v in g[2]) != \
+                vids["cold"]:
+            raise AssertionError(f"encode groups {enc_groups}")
+        if backend == "cuda" and \
+                launches.per_phase["lifecycle_encode"] < len(enc_groups):
+            raise AssertionError("fewer K1 launches than encode groups")
+        for vs in servers:
+            left = [n for n in os.listdir(vs.store.locations[0].directory)
+                    if n.endswith(".dat") and n.startswith("cold_")]
+            if left:
+                raise AssertionError(f"{vs.url}: .dat left: {left}")
+        cold_fids = [f for f, (c, _, _) in data.items() if c == "cold"]
+        cold_read_s = read_back_paused(cold_fids, vids["cold"], "cold")
+        enc_wall = sum(g[4] for g in enc_groups)
+        enc_bytes = sum(dat_bytes[v] for v in vids["cold"])
+        metrics = parse_prometheus(http_client.request(
+            "GET", "127.0.0.1:%d/metrics" %
+            metrics_srv[leader_now().url].server_address[1]).body.decode())
+        ok = metrics.get('SeaweedFS_lifecycle_transitions_total'
+                         '{kind="encode",outcome="ok"}')
+        if ok != len(vids["cold"]):
+            raise AssertionError(f"transitions_total encode ok = {ok}")
+        out["encode"] = dict(
+            seconds_to_last=live_s, groups=[len(g[2]) for g in enc_groups],
+            group_seconds=[g[4] for g in enc_groups], dat_bytes=enc_bytes,
+            GBps=enc_bytes / enc_wall / 1e9, cold_reads=len(cold_fids),
+            cold_read_seconds=cold_read_s,
+            launches=launches.per_phase["lifecycle_encode"])
+        log(f"  (c) live: every cold volume EC {live_s:.3f} s after the dry "
+            f"run went off, in {len(enc_groups)} fused ec.encode groups "
+            f"{[len(g[2]) for g in enc_groups]} ({enc_bytes} B of .dat in "
+            f"{enc_wall:.3f} s of ec.encode = "
+            f"{enc_bytes / enc_wall / 1e9:.3f} GB/s), "
+            f"{launches.per_phase['lifecycle_encode']} gf_linear launches; "
+            f"every .dat retired; {len(cold_fids)} cold needles read back "
+            f"byte-identical in {cold_read_s:.3f} s; transitions_total "
+            f"encode ok = {ok:.0f} at the leader's /metrics [{card}]")
+
+        # (d) QoS: a noisy tenant at about 4x the request rate
+        noisy = TenantClient("noisy")
+        hot_fids = list(hot_written)
+
+        def latencies(seconds, stop=None):
+            lat = []
+            t_end = time.monotonic() + seconds
+            i = 0
+            while time.monotonic() < t_end and not (stop and stop()):
+                fid = hot_fids[(i * 7919) % len(hot_fids)]
+                i += 1
+                r, dt = good.get_timed(f"{locate(fid)}/{fid}")
+                lat.append(dt)
+                if r.status != 200 or r.body != want(fid):
+                    raise AssertionError(f"good {fid}: http {r.status}")
+                time.sleep(0.02)
+            return lat
+
+        def qos_step():
+            before = latencies(LIFECYCLE_NOISY_SECONDS)
+            gap = LIFECYCLE_NOISY_THREADS / (4 * LIFECYCLE_QOS_RATE)
+            t_end = time.monotonic() + LIFECYCLE_NOISY_SECONDS
+
+            def flood(k):
+                i = k
+                nxt = time.monotonic()
+                while time.monotonic() < t_end:
+                    fid = hot_fids[(i * 104729) % len(hot_fids)]
+                    i += LIFECYCLE_NOISY_THREADS
+                    r = noisy.get(f"{locate(fid)}/{fid}")
+                    if r.status == 200 and r.body != want(fid):
+                        raise AssertionError(f"noisy {fid}: wrong bytes")
+                    nxt += gap
+                    time.sleep(max(0.0, nxt - time.monotonic()))
+
+            with concurrent.futures.ThreadPoolExecutor(
+                    LIFECYCLE_NOISY_THREADS + 1) as pool:
+                futs = [pool.submit(flood, k)
+                        for k in range(LIFECYCLE_NOISY_THREADS)]
+                during = latencies(LIFECYCLE_NOISY_SECONDS)
+                for f in futs:
+                    f.result()
+            return before, during
+
+        (before, during), qos_s = launches.run("lifecycle_qos", qos_step,
+                                               none=True)
+        n_noisy = noisy.sent()
+        if not noisy.codes[429] or noisy.without_retry_after or \
+                set(noisy.codes) - {200, 429}:
+            raise AssertionError(f"noisy: {dict(noisy.codes)}, "
+                                 f"{noisy.without_retry_after} 429s "
+                                 "without Retry-After")
+        if set(good.codes) - {200, 201}:
+            raise AssertionError(f"good: {dict(good.codes)}")
+        status = qos.manager().status()["tenants"]
+        internal = status.get("_internal", {}).get("shed", {})
+        if any(internal.values()):
+            raise AssertionError(f"_internal shed: {internal}")
+        # the hot reader is held between two reads while the ledger is
+        # read, so both sides count the same requests
+        with hot_reader.busy:
+            text = Shell(leader_now().url).run_command("cluster.qos")
+            good_sent = good.sent()
+
+        def ledger(name):
+            line = next(ln for ln in text.splitlines()
+                        if ln.strip().startswith(name + " "))
+            admitted = int(line.split("admitted:")[1].split()[0])
+            shed = line.split("shed:")[1].split(" conns:")[0]
+            shed = 0 if shed == "0" else sum(
+                int(x.split(":")[1]) for x in shed.split())
+            return admitted, shed
+
+        got = {"good": ledger("good"), "noisy": ledger("noisy")}
+        want_ledger = {"good": (good_sent, 0),
+                       "noisy": (noisy.codes[200], noisy.codes[429])}
+        if got != want_ledger:
+            raise AssertionError(f"cluster.qos {got} != the clients' "
+                                 f"{want_ledger}:\n{text}")
+        out["qos"] = dict(
+            noisy_sent=n_noisy, noisy_rate=n_noisy / LIFECYCLE_NOISY_SECONDS,
+            noisy_admitted=noisy.codes[200], noisy_shed=noisy.codes[429],
+            good_sent=good_sent, good_shed=0,
+            good_p50_ms_before=float(np.percentile(before, 50) * 1e3),
+            good_p99_ms_before=float(np.percentile(before, 99) * 1e3),
+            good_p50_ms_during=float(np.percentile(during, 50) * 1e3),
+            good_p99_ms_during=float(np.percentile(during, 99) * 1e3),
+            seconds=qos_s)
+        log(f"  (d) noisy: {n_noisy} reads in {LIFECYCLE_NOISY_SECONDS:.0f} "
+            f"s from {LIFECYCLE_NOISY_THREADS} threads "
+            f"({n_noisy / LIFECYCLE_NOISY_SECONDS:.0f}/s against "
+            f"{LIFECYCLE_QOS_RATE:.0f}/s): {noisy.codes[200]} admitted, "
+            f"{noisy.codes[429]} shed with 429 + Retry-After; good: "
+            f"{good_sent} requests, 0 shed, p50/p99 "
+            f"{np.percentile(before, 50) * 1e3:.2f}/"
+            f"{np.percentile(before, 99) * 1e3:.2f} ms before, "
+            f"{np.percentile(during, 50) * 1e3:.2f}/"
+            f"{np.percentile(during, 99) * 1e3:.2f} ms during; _internal 0 "
+            f"shed; cluster.qos equals the clients' counts [{card}]")
+
+        # (e) re-heat two EC volumes through a lost server
+        def data_shards(vid):
+            """{shard id: [fids whose needle lies on it]} of an EC vid."""
+            ecv = next(vs.store.find_ec_volume(vid) for vs in servers
+                       if vs.store.find_ec_volume(vid) is not None)
+            on = {}
+            for fid in fids_of[vid]:
+                for iv in ecv.locate_needle(parse_fid(fid).key)[2]:
+                    sid = iv.to_shard_and_offset(ecv.large_block,
+                                                 ecv.small_block)[0]
+                    on.setdefault(sid, []).append(fid)
+            return on
+
+        layout = {v: data_shards(v) for v in vids["cold"]}
+        best = None
+        # the victim may hold at most four shards of any EC volume, so
+        # every one stays readable
+        for vs in [vs for vs in servers
+                   if all(len(held(vs, v)) <= 4 for v in vids["cold"])]:
+            hit = sorted(((sum(len(layout[v].get(s, ()))
+                               for s in held(vs, v)), v)
+                          for v in vids["cold"]), reverse=True)[:2]
+            if len(hit) == 2 and hit[1][0] > 0 and \
+                    (best is None or hit[1][0] > best[0][1][0]):
+                best = (hit, vs)
+        if best is None:
+            raise AssertionError("no server with at most four shards of "
+                                 "every volume holds needles of two")
+        (h1, h2), victim = best
+        reheat = sorted([h1[1], h2[1]])
+        lost = {v: held(victim, v) for v in reheat}
+        crossing = [f for v in reheat for s in lost[v]
+                    for f in layout[v].get(s, ())]
+        only_victim = {v for v in vids["hot"]
+                       if holders(leader, v) == [victim.url]}
+        engine = leader_now().lifecycle
+        engine.pause()
+        with hot_reader.busy:
+            hot_reader.set([f for f in hot_written
+                            if parse_fid(f).volume_id not in only_victim])
+            victim.stop()
+            stopped.append(victim)
+        srv = metrics_srv.pop(victim.url)
+        srv.shutdown()
+        srv.server_close()
+        wait_until(lambda: victim.url not in
+                   {n.url for n in leader_now().topo.nodes()}, 30,
+                   "the master dropping the stopped server")
+        reheat_fids = [f for v in reheat for f in fids_of[v]]
+        d0 = sum(vs.degraded.dispatches for vs in live_servers())
+
+        trace_file = os.path.join(workdir, "degraded_read_trace.json")
+
+        def reheat_reads():
+            read_all(reheat_fids, "re-heat")
+            # one degraded read more, named by the sampled list and
+            # stitched by cluster.trace now, while the process-wide rings
+            # (256 kept requests) still hold it; checked in (g)
+            fid = crossing[0]
+            via = locate(fid)
+            read_all([fid], "traced")
+            sampled = json.loads(http_client.request(
+                "GET", f"{via}/debug/trace?sampled=1").body)["sampled"]
+            tid = next(s["trace_id"] for s in sampled
+                       if s["path"] == f"/{fid}")
+            text = Shell(leader_now().url).run_command(
+                f"cluster.trace -traceId={tid} -out={trace_file}")
+            # the stitching took a moment: heat both volumes until the
+            # leader's heat map holds them above the warm threshold
+            def seen():
+                read_all([f for v in reheat for f in fids_of[v][:4]],
+                         "re-heat")
+                heat = leader_now().topo.cluster_heat()
+                return all(heat.get(v, {}).get("reads_window", 0.0) >=
+                           cfg.warm_threshold for v in reheat)
+
+            wait_until(seen, 30, "the re-heat in the leader's heat map")
+            return tid, text
+
+        (trace_id, trace_text), reads_s = launches.run(
+            "lifecycle_reheat_reads", reheat_reads)
+        dispatches = sum(vs.degraded.dispatches
+                         for vs in live_servers()) - d0
+        if not dispatches:
+            raise AssertionError("re-heat reads: no decode fleet dispatch")
+        with open(trace_file) as f:
+            stitched = json.load(f)
+        lanes = sorted(e["args"]["name"] for e in stitched["traceEvents"]
+                       if e["ph"] == "M")
+        n_spans = sum(1 for e in stitched["traceEvents"] if e["ph"] == "X")
+        engine.resume()
+        engine.run_pass_now()
+        t_dec = time.perf_counter()
+
+        def decodes():
+            m = leader_now()
+            wait_until(lambda: all(m.topo.lookup(v) and not
+                                   m.topo.lookup_ec(v) for v in reheat),
+                       120, "both re-heated volumes decoded")
+            wait_until(lambda: sum(len(g[2]) for g in groups
+                                   if g[1] == "decode") == 2, 30,
+                       "the engine's decode groups")
+            return time.perf_counter() - t_dec
+
+        dec_s, _ = launches.run("lifecycle_reheat_decode", decodes)
+        read_all(reheat_fids, "decoded")
+        metrics = parse_prometheus(http_client.request(
+            "GET", "127.0.0.1:%d/metrics" %
+            metrics_srv[leader_now().url].server_address[1]).body.decode())
+        dec_ok = metrics.get('SeaweedFS_lifecycle_transitions_total'
+                             '{kind="decode",outcome="ok"}')
+        if dec_ok != 2:
+            raise AssertionError(f"transitions_total decode ok = {dec_ok}")
+        # the re-heated volumes stay read to the end of the phase (else
+        # an idle one would be encoded a second time)
+        reheat_reader = Reader(good, LIFECYCLE_REHEAT_READS_PER_S, locate,
+                               want).start(reheat_fids)
+        readers.append(reheat_reader)
+        out["reheat"] = dict(
+            victim=victim.url, volumes=reheat,
+            lost_shards={str(v): sorted(s) for v, s in lost.items()},
+            reads=len(reheat_fids), read_seconds=reads_s,
+            dispatches=dispatches,
+            read_launches=launches.per_phase["lifecycle_reheat_reads"],
+            decode_seconds=dec_s,
+            decode_launches=launches.per_phase["lifecycle_reheat_decode"],
+            hot_only_on_victim=sorted(only_victim))
+        log(f"  (e) {victim.url} stopped (shards {out['reheat']['lost_shards']} "
+            f"of volumes {reheat}); {len(reheat_fids)} reads as good "
+            f"in {reads_s:.3f} s: {dispatches} decode fleet dispatches, "
+            f"{launches.per_phase['lifecycle_reheat_reads']} gf_linear "
+            f"launches; both decoded back {dec_s:.3f} s after the engine "
+            f"resumed, {launches.per_phase['lifecycle_reheat_decode']} "
+            f"gf_linear launches rebuilding the lost data shards; every "
+            f"needle byte-identical; transitions_total decode ok = "
+            f"{dec_ok:.0f}; hot volumes only on it: {sorted(only_victim)} "
+            f"[{card}]")
+
+        # (f) failover: the new leader reconciles, then encodes hot
+        old = leader_now()
+        t_stop = time.perf_counter()
+        old.stop()
+        stopped.append(old)
+        metrics_srv.pop(old.url).shutdown()
+        live_hot = [v for v in vids["hot"] if v not in only_victim]
+        warm = [v for v in vids["cold"] if v not in reheat]
+
+        def failover():
+            new = wait_until(lambda: leader_of(masters), 60, "a new leader")
+            elected = time.perf_counter() - t_stop
+            wait_until(lambda: len(new.topo.nodes()) == len(live_servers()),
+                       60, "the servers at the new leader")
+            want_states = {**{v: "warm" for v in warm},
+                           **{v: "hot" for v in live_hot + reheat}}
+            wait_until(lambda: all(
+                (new.lifecycle.states.get(v) or (None,))[0] == s
+                for v, s in want_states.items()), 60,
+                "the new leader's engine reconciled")
+            reconciled = time.perf_counter() - t_stop
+            n_groups = len(groups)
+            hot_reader.stop()
+            wait_until(lambda: encoded(new, live_hot), 120,
+                       "the new leader encoding the hot volumes")
+            wait_until(lambda: sum(len(g[2]) for g in groups[n_groups:]
+                                   if g[1] == "encode") == len(live_hot),
+                       30, "the new leader's encode groups")
+            first = min(g[3] for g in groups[n_groups:]) - t_stop
+            return new, elected, reconciled, first, n_groups
+
+        (new, elected, reconciled, first, n_groups), fo_s = launches.run(
+            "lifecycle_failover", failover)
+        again = [g for g in groups[n_groups:] if g[1] != "encode" or
+                 set(g[2]) - set(live_hot)]
+        if again:
+            raise AssertionError(f"the new leader moved {again}")
+        done = [(g[1], v) for g in groups for v in g[2]]
+        if len(done) != len(set(done)):
+            raise AssertionError(f"a volume moved twice: {done}")
+        read_back_paused([f for v in live_hot for f in fids_of[v]],
+                         live_hot, "hot")
+        out["failover"] = dict(
+            new_leader=new.url, elected_seconds=elected,
+            reconciled_seconds=reconciled,
+            first_transition_seconds=first, seconds=fo_s,
+            encoded=live_hot,
+            launches=launches.per_phase["lifecycle_failover"])
+        log(f"  (f) leader {old.url} stopped; {new.url} elected after "
+            f"{elected:.3f} s, its engine reconciled after {reconciled:.3f} "
+            f"s (warm {warm} stay warm, nothing moved twice); hot reader "
+            f"stopped; first transition {first:.3f} s after the stop; hot "
+            f"volumes {live_hot} EC and read back, "
+            f"{launches.per_phase['lifecycle_failover']} gf_linear "
+            f"launches [{card}]")
+
+        # (g) what an operator sees
+        def observe():
+            sh = Shell(new.url)
+            live_vids = sorted({v for n in new.topo.nodes()
+                                for v in list(n.volumes) +
+                                list(n.ec_shards)})
+            scraped = {}
+            for url, srv in metrics_srv.items():
+                text = http_client.request(
+                    "GET", "127.0.0.1:%d/metrics" %
+                    srv.server_address[1]).body.decode()
+                scraped[url] = parse_prometheus(text)
+            for url, samples in scraped.items():
+                keys = list(samples)
+                for v in live_vids:
+                    if f'SeaweedFS_volume_heat{{vid="{v}"}}' not in samples:
+                        raise AssertionError(f"{url}: no heat for {v}")
+                for prefix in (
+                        "SeaweedFS_cluster_volume_heat{",
+                        'SeaweedFS_lifecycle_transitions_total{kind="encode"',
+                        "SeaweedFS_lifecycle_pass_seconds_count",
+                        "SeaweedFS_lifecycle_volume_states{",
+                        'SeaweedFS_qos_admitted_total{tenant="good"}',
+                        'SeaweedFS_qos_shed_total{tenant="noisy",'
+                        'reason="requests"}',
+                        'SeaweedFS_request_total{type="volumeServer",'
+                        'name="get"}',
+                        'SeaweedFS_request_total{type="master"',
+                        "SeaweedFS_trace_requests_total{"):
+                    if not any(k.startswith(prefix) for k in keys):
+                        raise AssertionError(f"{url}: no {prefix}")
+            heat = sh.run_command("cluster.heat")
+            tiers = {}
+            for line in heat.splitlines():
+                if line.startswith("volume "):
+                    vid = int(line.split()[1].rstrip(":"))
+                    tiers[vid] = line.split("state:")[1].split()[0]
+            want_tiers = {**{v: "warm" for v in warm + live_hot},
+                          **{v: "hot" for v in reheat}}
+            if any(tiers.get(v) != s for v, s in want_tiers.items()):
+                raise AssertionError(f"cluster.heat {tiers}:\n{heat}")
+            lc = sh.run_command("volume.lifecycle -status")
+            sh.run_command("volume.lifecycle -pause")
+            paused = "PAUSED" in sh.run_command("volume.lifecycle")
+            sh.run_command("volume.lifecycle -resume")
+            if not paused or new.lifecycle.paused or "lifecycle:" not in lc:
+                raise AssertionError(f"volume.lifecycle:\n{lc}")
+            requests = sh.run_command("cluster.requests")
+            return len(scraped), len(live_vids), tiers, requests
+
+        (n_scraped, n_vids, tiers, requests), obs_s = launches.run(
+            "lifecycle_observe", observe, none=True)
+        servers_in_trace = {n.split(" ", 1)[1] for n in lanes}
+        if len(servers_in_trace) < 2:
+            raise AssertionError(f"cluster.trace {trace_id}: lanes {lanes}"
+                                 f"\n{trace_text}")
+        out["observe"] = dict(scraped=n_scraped, vids=n_vids,
+                              trace_id=trace_id, trace_lanes=lanes,
+                              trace_spans=n_spans, seconds=obs_s)
+        log(f"  (g) {n_scraped} /metrics scrapes parse as Prometheus text "
+            f"with the heat of all {n_vids} live volumes and the cluster "
+            f"heat, lifecycle, QoS, trace and request families; "
+            f"cluster.heat tiers {tiers}; volume.lifecycle status, pause "
+            f"and resume; cluster.requests answered "
+            f"({len(requests.splitlines())} lines); cluster.trace "
+            f"-traceId={trace_id} of one degraded read of (e): {n_spans} "
+            f"spans over {lanes}, Chrome JSON at {trace_file} [{card}]")
+    finally:
+        for r in readers:
+            r.stop_event.set()
+        for r in readers:
+            r.thread.join(timeout=30)
+        for vs in servers:
+            if vs not in stopped:
+                vs.stop()
+        for m in masters:
+            if m not in stopped:
+                m.stop()
+        for srv in metrics_srv.values():
+            srv.shutdown()
+            srv.server_close()
+        qos.reset()
+        cluster_trace.disable()
+        cluster_trace.reset()
+        http_client.close_all()
+        rpc.close_channels()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(launches.per_phase)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--needles", type=int, default=1 << 20)
@@ -3663,12 +4580,24 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"  phase 11 took {chunked['seconds']:.3f} s [{card}]")
+    log("phase 12: the lifecycle cluster (three masters with the "
+        "lifecycle engine, four servers tracking heat, QoS and cluster "
+        "tracing on)")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    try:
+        lifecycle = phase_lifecycle(workdir, args.seed, "cuda", card=card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phase 12 took {lifecycle['seconds']:.3f} s [{card}]")
     service["replication"] = {k: v for k, v in repl.items()
                               if k != "launches"}
     service["chunked"] = {k: v for k, v in chunked.items()
                           if k != "launches"}
     service["launches"].update(repl["launches"])
     service["launches"].update(chunked["launches"])
+    service["lifecycle"] = {k: v for k, v in lifecycle.items()
+                            if k != "launches"}
+    service["launches"].update(lifecycle["launches"])
     main_launches = sum(m["launches"][p] for p in
                         ("generate", "rebuild", "degraded_read", "decode"))
     service_launches = sum(service["launches"].values())

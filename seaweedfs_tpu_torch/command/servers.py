@@ -17,6 +17,13 @@ Both read master.toml (``util/config.py``: the working directory, then
 ``[storage.backend.<scheme>.<id>]`` tier targets. ``master -peers`` names
 every master of a raft set (an even count is warned about: it can split
 its votes); ``volume -mserver`` may name all of them.
+
+Observability and policy, each off unless its flag is given: both take
+``-metricsPort`` (a Prometheus ``/metrics`` listener, with ``/healthz``
+and ``/debug/*``), ``-trace.sample``/``-trace.slowMs`` (cluster tracing)
+and ``-qos`` with its ``-qos.*`` knobs (per-tenant admission and fair
+queues); the volume server takes ``-heat.track``/``-heat.windowSeconds``
+and the master ``-lifecycle`` with its ``-lifecycle.*`` knobs.
 """
 
 from __future__ import annotations
@@ -38,6 +45,29 @@ def _setup_tls(role: str) -> None:
     security/tls.go; plaintext without them)."""
     from seaweedfs_tpu_torch.command import setup_client_tls
     setup_client_tls(role)
+
+
+def _maybe_start_metrics(opts, role: str = ""):
+    """Expose Prometheus text metrics on -metricsPort (reference
+    stats/metrics.go:172 StartMetricsServer; one shared registry per
+    process), plus /healthz and /debug/*. None without the flag."""
+    port = getattr(opts, "metrics_port", 0)
+    if not port:
+        return None
+    from seaweedfs_tpu_torch.stats.metrics import start_metrics_server
+    srv = start_metrics_server(port, role=role)
+    log.info("metrics exposed on :%d/metrics", port)
+    return srv
+
+
+def _serve_with_metrics(server, opts, role: str) -> int:
+    srv = _maybe_start_metrics(opts, role=role)
+    try:
+        return _serve_until_signalled(server)
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
 
 
 def _serve_until_signalled(server) -> int:
@@ -93,14 +123,246 @@ def _master_parser() -> argparse.ArgumentParser:
     p.add_argument("-scrubMBps", dest="scrub_throttle_mbps", type=float,
                    default=0.0,
                    help="IO budget handed to each scheduled scrub")
+    _add_lifecycle_args(p)
+    p.add_argument("-metricsPort", dest="metrics_port", type=int,
+                   default=0, help="Prometheus /metrics pull port")
+    _add_trace_args(p)
+    _add_qos_args(p)
     return p
+
+
+def _add_lifecycle_args(p: argparse.ArgumentParser) -> None:
+    """Master-only -lifecycle.* flags (lifecycle/): the heat-driven
+    policy engine that EC-encodes cold volumes on the card, un-cools
+    re-heated ones, and tier-offloads frozen ones. Off by default: a
+    master without -lifecycle constructs no engine at all."""
+    p.add_argument("-lifecycle", dest="lifecycle", action="store_true",
+                   help="enable the heat-driven lifecycle policy "
+                        "engine (leader-only; needs volume servers "
+                        "running -heat.track)")
+    p.add_argument("-lifecycle.dryRun", dest="lifecycle_dry_run",
+                   action="store_true",
+                   help="log and ledger every decision WITHOUT acting "
+                        "— run this first on any real cluster")
+    p.add_argument("-lifecycle.intervalSeconds",
+                   dest="lifecycle_interval_s", type=float, default=60.0,
+                   help="policy pass cadence")
+    p.add_argument("-lifecycle.coolThreshold",
+                   dest="lifecycle_cool_threshold", type=float,
+                   default=0.0,
+                   help="window reads at or below this (AND a matching "
+                        "EWMA) make a volume a cool-down candidate")
+    p.add_argument("-lifecycle.warmThreshold",
+                   dest="lifecycle_warm_threshold", type=float,
+                   default=50.0,
+                   help="window reads at or above this heat a volume "
+                        "back up (must exceed coolThreshold — the gap "
+                        "is the hysteresis band)")
+    p.add_argument("-lifecycle.hotDwellSeconds",
+                   dest="lifecycle_hot_dwell_s", type=float,
+                   default=600.0,
+                   help="minimum residence in HOT before an encode "
+                        "(also the write-quiet guard)")
+    p.add_argument("-lifecycle.warmDwellSeconds",
+                   dest="lifecycle_warm_dwell_s", type=float,
+                   default=600.0,
+                   help="minimum residence in WARM before any move")
+    p.add_argument("-lifecycle.coldDwellSeconds",
+                   dest="lifecycle_cold_dwell_s", type=float,
+                   default=3600.0,
+                   help="minimum residence in COLD before a download")
+    p.add_argument("-lifecycle.freezeSeconds",
+                   dest="lifecycle_freeze_s", type=float, default=0.0,
+                   help="WARM volumes idle this long offload to the "
+                        "cold backend (0 = never freeze)")
+    p.add_argument("-lifecycle.coldBackend",
+                   dest="lifecycle_cold_backend", default="",
+                   help="storage backend for the COLD tier, e.g. "
+                        "memory.cold (empty = COLD disabled)")
+    p.add_argument("-lifecycle.maxInflight",
+                   dest="lifecycle_max_inflight", type=int, default=2,
+                   help="cluster-wide cap on transitions in motion "
+                        "per pass")
+    p.add_argument("-lifecycle.throttleMBps",
+                   dest="lifecycle_throttle_mbps", type=float,
+                   default=0.0,
+                   help="byte budget pacing transition admission "
+                        "(0 = unthrottled)")
+
+
+def _lifecycle_config(opts):
+    if not getattr(opts, "lifecycle", False):
+        return None
+    from seaweedfs_tpu_torch.lifecycle import LifecycleConfig
+    return LifecycleConfig(
+        dry_run=opts.lifecycle_dry_run,
+        interval_s=opts.lifecycle_interval_s,
+        cool_threshold=opts.lifecycle_cool_threshold,
+        warm_threshold=opts.lifecycle_warm_threshold,
+        hot_dwell_s=opts.lifecycle_hot_dwell_s,
+        warm_dwell_s=opts.lifecycle_warm_dwell_s,
+        cold_dwell_s=opts.lifecycle_cold_dwell_s,
+        freeze_s=opts.lifecycle_freeze_s,
+        cold_backend=opts.lifecycle_cold_backend,
+        max_inflight=opts.lifecycle_max_inflight,
+        throttle_mbps=opts.lifecycle_throttle_mbps)
+
+
+def _add_trace_args(p: argparse.ArgumentParser) -> None:
+    """Shared -trace.* flags (see stats/cluster_trace.py). Off by
+    default: the cluster tracer costs one flag check per seam until
+    enabled."""
+    p.add_argument("-trace.sample", dest="trace_sample", type=float,
+                   default=-1.0,
+                   help="enable cluster tracing; head-sample this "
+                        "fraction of requests unconditionally (0 = "
+                        "tail-only: keep slow/errored requests; "
+                        "negative = tracing disabled)")
+    p.add_argument("-trace.slowMs", dest="trace_slow_ms", type=float,
+                   default=200.0,
+                   help="floor for the tail-sampling keep threshold: a "
+                        "request slower than max(this, the tracked "
+                        "per-verb p95) pins its span detail")
+
+
+def _configure_trace(opts) -> None:
+    if getattr(opts, "trace_sample", -1.0) >= 0:
+        from seaweedfs_tpu_torch.stats import cluster_trace
+        cluster_trace.enable(sample_fraction=opts.trace_sample,
+                             slow_threshold_ms=opts.trace_slow_ms)
+        log.info("cluster tracing on (sample=%.3f slowMs=%.0f)",
+                 cluster_trace.sample, cluster_trace.slow_ms)
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name, "")
+    try:
+        return float(v) if v else default
+    except ValueError:
+        return default
+
+
+def _add_qos_args(p: argparse.ArgumentParser) -> None:
+    """Shared -qos.* flags (see qos/). Everything defaults OFF: with QoS
+    disabled no bucket exists, no tenant is resolved, and every seam
+    costs one identity check. SEAWEED_QOS* environment variables supply
+    fleet-wide defaults the flags override per process."""
+    p.add_argument("-qos", dest="qos", action="store_true",
+                   default=_env_flag("SEAWEED_QOS"),
+                   help="enable multi-tenant QoS: per-tenant admission "
+                        "buckets, weighted-fair pool scheduling, and "
+                        "explicit 429+Retry-After backpressure (env "
+                        "default SEAWEED_QOS)")
+    p.add_argument("-qos.requestRate", dest="qos_request_rate",
+                   type=float,
+                   default=_env_float("SEAWEED_QOS_REQUEST_RATE", 0.0),
+                   help="per-tenant admitted requests/second (0 = "
+                        "unlimited; env default SEAWEED_QOS_REQUEST_RATE)")
+    p.add_argument("-qos.requestBurst", dest="qos_request_burst",
+                   type=float, default=0.0,
+                   help="per-tenant request burst cap (0 = 2x rate)")
+    p.add_argument("-qos.bytesMBps", dest="qos_bytes_mbps", type=float,
+                   default=_env_float("SEAWEED_QOS_BYTES_MBPS", 0.0),
+                   help="per-tenant admitted ingress MB/s judged from "
+                        "Content-Length (0 = unlimited; env default "
+                        "SEAWEED_QOS_BYTES_MBPS)")
+    p.add_argument("-qos.bytesBurstS", dest="qos_bytes_burst_s",
+                   type=float, default=2.0,
+                   help="seconds of byte budget a tenant may bank")
+    p.add_argument("-qos.globalRequestRate", dest="qos_global_rate",
+                   type=float, default=0.0,
+                   help="whole-process admitted requests/second across "
+                        "all tenants; when heat shedding is armed a "
+                        "quarter of it is reserved for hot-volume "
+                        "traffic so cold reads shed first (0 = "
+                        "unlimited)")
+    p.add_argument("-qos.weights", dest="qos_weights",
+                   default=os.environ.get("SEAWEED_QOS_WEIGHTS", ""),
+                   help="per-tenant fair-share weights as "
+                        "name:weight,name:weight (env default "
+                        "SEAWEED_QOS_WEIGHTS)")
+    p.add_argument("-qos.defaultWeight", dest="qos_default_weight",
+                   type=float, default=1.0,
+                   help="fair-share weight for tenants not in "
+                        "-qos.weights")
+    p.add_argument("-qos.internalWeight", dest="qos_internal_weight",
+                   type=float, default=0.25,
+                   help="fair-share weight of the _internal tenant "
+                        "(scrub and lifecycle background work)")
+    p.add_argument("-qos.maxTenants", dest="qos_max_tenants", type=int,
+                   default=64,
+                   help="distinct tenants tracked before the overflow "
+                        "tenant _other absorbs the rest (bounds bucket "
+                        "memory and metric label cardinality)")
+    p.add_argument("-qos.heatShed", dest="qos_heat_shed",
+                   type=lambda s: s.lower() not in ("0", "false", "no"),
+                   default=True,
+                   help="under global overload, prefer shedding reads "
+                        "of cold volumes (needs -heat.track on the "
+                        "volume server; false = shed uniformly)")
+
+
+def _parse_qos_weights(spec: str) -> dict:
+    weights = {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, w = part.partition(":")
+        try:
+            weights[name.strip()] = float(w)
+        except ValueError:
+            raise SystemExit(
+                f"-qos.weights: expected name:weight, got {part!r}")
+    return weights
+
+
+def _configure_qos(opts) -> None:
+    """Build and install the process-wide QosManager from the -qos.*
+    flags. Without -qos nothing is imported and every seam stays None
+    (there is exactly one manager per process by design)."""
+    if not getattr(opts, "qos", False):
+        return
+    from seaweedfs_tpu_torch import qos
+    from seaweedfs_tpu_torch.qos.admission import QosConfig
+    qos.configure(QosConfig(
+        request_rate=opts.qos_request_rate,
+        request_burst=opts.qos_request_burst,
+        bytes_mbps=opts.qos_bytes_mbps,
+        bytes_burst_s=opts.qos_bytes_burst_s,
+        global_request_rate=opts.qos_global_rate,
+        weights=_parse_qos_weights(opts.qos_weights),
+        default_weight=opts.qos_default_weight,
+        internal_weight=opts.qos_internal_weight,
+        max_tenants=opts.qos_max_tenants,
+        heat_shed=opts.qos_heat_shed))
+    log.info("qos on (rate=%s/s bytes=%sMB/s global=%s/s)",
+             opts.qos_request_rate or "inf",
+             opts.qos_bytes_mbps or "inf",
+             opts.qos_global_rate or "inf")
+
+
+def _attach_qos_heat(vs) -> None:
+    """Hand the volume server's HeatTracker to the QoS manager so
+    -qos.heatShed can tell hot volumes from cold under global overload.
+    No-op unless BOTH -qos and -heat.track are on."""
+    from seaweedfs_tpu_torch import qos
+    mgr = qos.manager()
+    if mgr is not None and getattr(vs, "heat", None) is not None:
+        mgr.heat = vs.heat
 
 
 @command("master", "start a master server (control plane)")
 def run_master(args) -> int:
     _setup_tls("master")
     opts = _master_parser().parse_args(args)
-    return _serve_until_signalled(_build_master(opts))
+    _configure_trace(opts)
+    _configure_qos(opts)
+    return _serve_with_metrics(_build_master(opts), opts, "master")
 
 
 def _build_master(opts):
@@ -128,6 +390,7 @@ def _build_master(opts):
         maintenance_interval_s=float(sleep_minutes) * 60,
         scrub_interval_s=opts.scrub_interval_s,
         scrub_throttle_mbps=opts.scrub_throttle_mbps,
+        lifecycle=_lifecycle_config(opts),
         sequencer_type=conf.get_string("master.sequencer.type", "memory"),
         sequencer_node_id=conf.get("master.sequencer.node_id"),
         sequencer_etcd_urls=conf.get_string(
@@ -217,6 +480,19 @@ def _volume_parser() -> argparse.ArgumentParser:
                    default=5.0,
                    help="seconds an open breaker waits before the "
                         "half-open probe")
+    p.add_argument("-heat.track", dest="heat_track", action="store_true",
+                   help="per-volume (and sampled per-needle) read-path "
+                        "heat telemetry: SeaweedFS_volume_heat{vid}, "
+                        "and the heat map the master's lifecycle engine "
+                        "decides from")
+    p.add_argument("-heat.windowSeconds", dest="heat_window_s",
+                   type=float, default=60.0,
+                   help="sliding window the heat gauge counts reads "
+                        "over")
+    p.add_argument("-metricsPort", dest="metrics_port", type=int,
+                   default=0, help="Prometheus /metrics pull port")
+    _add_trace_args(p)
+    _add_qos_args(p)
     return p
 
 
@@ -224,7 +500,11 @@ def _volume_parser() -> argparse.ArgumentParser:
 def run_volume(args) -> int:
     _setup_tls("volume")
     opts = _volume_parser().parse_args(args)
-    return _serve_until_signalled(_build_volume(opts))
+    _configure_trace(opts)
+    _configure_qos(opts)
+    vs = _build_volume(opts)
+    _attach_qos_heat(vs)
+    return _serve_with_metrics(vs, opts, "volume")
 
 
 def _build_volume(opts):
@@ -250,5 +530,6 @@ def _build_volume(opts):
         hedge_reads=opts.resilience_hedge,
         hedge_delay_ms=opts.resilience_hedge_delay_ms,
         compaction_mbps=opts.compaction_mbps,
+        heat_track=opts.heat_track, heat_window_s=opts.heat_window_s,
         storage_backends=config.storage_backend_conf(
             config.load_configuration("master")))

@@ -38,6 +38,7 @@ context) until the first decode() call.
 
 from __future__ import annotations
 
+import contextvars
 import logging
 import queue
 import threading
@@ -112,6 +113,14 @@ def _read_remote(remote_reader, sid: int, offset: int,
     except Exception:
         return None
     return b if b is not None and len(b) == length else None
+
+
+def _in_context(ctx, fn: Callable) -> Callable:
+    """``fn`` run in a copy of ``ctx`` on whichever pool thread calls it
+    (one Context cannot be entered by two threads at once)."""
+    def run(*args):
+        return ctx.copy().run(fn, *args)
+    return run
 
 
 def _await_row(fut) -> Optional[bytes]:
@@ -241,6 +250,12 @@ class DegradedReadFleet:
     def _decode_blocking(self, ecv, missing_shard: int, offset: int,
                          length: int,
                          remote_reader: Optional[Callable]) -> bytes:
+        if remote_reader is not None and trace.request_ctx() is not None:
+            # a traced request: its remote row fetches on the pool
+            # threads carry its trace context, so the peers' spans
+            # stitch under it
+            remote_reader = _in_context(contextvars.copy_context(),
+                                        remote_reader)
         req = _Request(ecv, missing_shard, offset, length, remote_reader)
         self._q.put(req)
         if self._stopping:

@@ -17,6 +17,7 @@ from typing import Optional
 # the remaining budget, in seconds, forwarded on an outbound HTTP request
 # (util/http_client.py)
 HEADER = "X-Seaweed-Deadline"
+HEADER_LOWER = "x-seaweed-deadline"
 
 _deadline: "contextvars.ContextVar[Optional[float]]" = \
     contextvars.ContextVar("seaweed_deadline", default=None)
@@ -77,3 +78,17 @@ def budget(seconds: float):
         yield
     finally:
         reset(token)
+
+
+def parse_header(value: str) -> Optional[float]:
+    """Remaining seconds from an X-Seaweed-Deadline value; None on junk
+    (a malformed header must never fail the request, it just carries no
+    budget)."""
+    try:
+        rem = float(value)
+    except (TypeError, ValueError):
+        return None
+    # NaN from a clock-confused peer carries no budget
+    if rem != rem:
+        return None
+    return max(rem, 0.0)

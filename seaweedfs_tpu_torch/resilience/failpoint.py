@@ -37,6 +37,10 @@ from seaweedfs_tpu_torch.stats.metrics import FailpointTriggersCounter
 # everything else in this module is off that path.
 _armed = False
 
+# opt-in for the POST /debug/failpoint control plane of the metrics
+# listener (stats/metrics.start_metrics_server): SEAWEED_FAILPOINTS set
+_http_control = False
+
 _lock = threading.Lock()
 _sites: Dict[str, List["_Spec"]] = {}  # guarded_by(_lock, writes)
 
@@ -159,9 +163,17 @@ def arm_from_string(conf: str) -> None:
         arm(site_part, action, arg=arg, p=p, count=count, match=match)
 
 
+def http_control_enabled() -> bool:
+    return _http_control
+
+
 def _load_env() -> None:
+    global _http_control
     conf = os.environ.get("SEAWEED_FAILPOINTS", "")
-    if conf.strip().lower() not in ("", "1", "on", "true", "yes"):
+    if not conf:
+        return
+    _http_control = True
+    if conf.strip().lower() not in ("1", "on", "true", "yes"):
         arm_from_string(conf)
 
 

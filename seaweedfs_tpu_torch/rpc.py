@@ -8,8 +8,12 @@ sockets, so it runs where neither grpcio nor protobuf is installed.
 Wire format: every frame is ``kind (u8) | length (u32, big-endian) |
 payload``. A call is one connection's exclusive use:
 
-    client -> server   HEAD (timeout f64, method path), MSG*, END
+    client -> server   HEAD (timeout f64, method path[, metadata]), MSG*, END
     server -> client   MSG*, STATUS (code u8, details)
+
+Call metadata (gRPC's invocation metadata: the QoS tenant and the cluster
+trace context) rides the HEAD after the path, one ``\nkey:value`` entry
+each; a call without metadata sends the bare path.
 
 STATUS is always last. A client that gives up (cancel, deadline) closes
 its socket; the server then sees end-of-file, its request iterator ends
@@ -21,8 +25,11 @@ they end cleanly; calls with a request stream never reuse one.
 Conventions kept from the JAX package's ``rpc.py``: ``GRPC_PORT_OFFSET``,
 ``grpc_address``, ``make_server``, ``generic_handler``, ``make_stub``
 (one cached stub and connection pool per target), ``close_channels``,
-``set_server_credentials`` and ``set_channel_credentials``, and the
-``rpc.call`` failpoint and ambient-deadline seams on every outbound call.
+``set_server_credentials`` and ``set_channel_credentials``, the
+``rpc.call`` failpoint and ambient-deadline seams on every outbound call,
+the x-seaweed-trace and x-seaweed-tenant metadata forwarded when cluster
+tracing or QoS is on, and ``stats.metrics.instrument_grpc_method`` around
+every servicer method.
 
 Mutual TLS (``security/tls.py``): with server credentials set, a new
 connection's handshake runs on that connection's own thread, never on the
@@ -45,6 +52,7 @@ from typing import Dict, List, Optional
 
 from seaweedfs_tpu_torch.resilience import deadline as _deadline
 from seaweedfs_tpu_torch.resilience import failpoint as _failpoint
+from seaweedfs_tpu_torch.stats import cluster_trace as _ctrace
 
 log = logging.getLogger(__name__)
 
@@ -55,6 +63,19 @@ CONNECT_TIMEOUT_S = 5.0
 HANDSHAKE_TIMEOUT_S = 5.0
 
 HEAD, MSG, END, STATUS = 1, 2, 3, 4
+
+# a peer's hang-up must fail the call, never end the process: with
+# MSG_NOSIGNAL a send to a closed socket is an OSError (EPIPE) even where
+# SIGPIPE is not ignored (libfuse's signal teardown restores its default
+# action, which kills). grpcio's transport sends the same way.
+_SEND_FLAGS = getattr(socket, "MSG_NOSIGNAL", 0)
+
+# QoS tenant propagation seam: qos.configure() installs the tenant
+# ContextVar here (reset() clears it) so outbound stubs forward the
+# ambient tenant as x-seaweed-tenant metadata. None, the default, keeps
+# invoke() one identity check away from the plain path.
+_qos_tenant = None
+_QOS_TENANT_KEY = "x-seaweed-tenant"
 _HDR = struct.Struct(">BI")
 
 
@@ -206,7 +227,7 @@ class _Conn:
 
     def _sendall(self, data) -> None:
         if self._io is None:
-            self.sock.sendall(data)
+            self.sock.sendall(data, _SEND_FLAGS)
             return
         view = memoryview(data)
         while view:
@@ -394,9 +415,11 @@ class _Call:
     """One call in flight on a client connection."""
 
     def __init__(self, target: str, path: str, resp_cls,
-                 timeout: Optional[float], reuse: bool):
+                 timeout: Optional[float], reuse: bool,
+                 metadata: str = ""):
         self.target = target
         self.path = path
+        self.metadata = metadata
         self.resp_cls = resp_cls
         self.deadline = None if timeout is None \
             else time.monotonic() + timeout
@@ -419,7 +442,8 @@ class _Call:
             max(0.0, self.deadline - time.monotonic())
         try:
             self.conn.settimeout(self._remaining())
-            head = (HEAD, struct.pack(">d", t) + self.path.encode())
+            head = (HEAD, struct.pack(">d", t) +
+                    (self.path + self.metadata).encode())
             if not streaming:
                 self.conn.send(head, (MSG, requests.SerializeToString()),
                                (END, b""))
@@ -531,8 +555,17 @@ def _invoke(target, path, resp_cls, client_streaming, server_streaming):
             if rem <= 0:
                 raise _deadline.DeadlineExceeded(f"rpc {path}")
             timeout = rem if timeout is None else min(timeout, rem)
+        md = ""
+        if _ctrace._enabled:
+            hdr = _ctrace.outbound_header()
+            if hdr is not None:
+                md += f"\n{_ctrace.GRPC_KEY}:{hdr}"
+        if _qos_tenant is not None:
+            tenant = _qos_tenant.get()
+            if tenant is not None:
+                md += f"\n{_QOS_TENANT_KEY}:{tenant}"
         call = _Call(target, path, resp_cls, timeout,
-                     reuse=not client_streaming)
+                     reuse=not client_streaming, metadata=md)
         call.start(request_or_iterator, client_streaming)
         if server_streaming:
             return _ResponseStream(call)
@@ -571,13 +604,32 @@ def make_stub(pb_module, service_name: str, target: str):
 class _Context:
     """The servicer's view of one call (gRPC's ServicerContext)."""
 
-    def __init__(self, conn: _Conn, deadline: Optional[float]):
+    def __init__(self, conn: _Conn, deadline: Optional[float],
+                 metadata: tuple = ()):
         self._conn = conn
         self._deadline = deadline
+        self._metadata = metadata
         self.cancelled = False
 
     def abort(self, code: StatusCode, details: str = ""):
         raise _Abort(code, details)
+
+    def time_remaining(self) -> Optional[float]:
+        """Seconds left of the caller's deadline; None without one."""
+        if self._deadline is None:
+            return None
+        return max(0.0, self._deadline - time.monotonic())
+
+    def invocation_metadata(self) -> tuple:
+        """The caller's (key, value) metadata pairs."""
+        return self._metadata
+
+    def peer(self) -> str:
+        try:
+            host, port = self._conn.sock.getpeername()[:2]
+        except OSError:
+            return ""
+        return f"{host}:{port}"
 
     def is_active(self) -> bool:
         if self.cancelled:
@@ -634,10 +686,23 @@ class _Method:
         self.fn = fn
 
 
-def generic_handler(pb_module, service_name: str, servicer) -> dict:
+def generic_handler(pb_module, service_name: str, servicer,
+                    stats_role: Optional[str] = None) -> dict:
     """{method path: handler} routing each method of one service to the
     same-named method of ``servicer``; a method the servicer lacks
-    answers UNIMPLEMENTED."""
+    answers UNIMPLEMENTED.
+
+    Every implemented method is wrapped with the shared request
+    counter/latency instrumentation (stats.metrics.instrument_grpc_method)
+    under the ``stats_role`` type label, lowerCamel of the service name
+    when the caller passes none."""
+    from seaweedfs_tpu_torch.stats.metrics import instrument_grpc_method
+    if stats_role is None:
+        stats_role = service_name[:1].lower() + service_name[1:]
+    # the cluster tracer labels request spans with the serving node's
+    # address, so the stitcher groups RPC and HTTP ingress of one server
+    # into the same process lane
+    server_url = getattr(servicer, "url", "")
     handlers = {}
     for name, req, resp, cs, ss in pb_module.SERVICES[service_name]:
         fn = getattr(servicer, name, None)
@@ -645,6 +710,11 @@ def generic_handler(pb_module, service_name: str, servicer) -> dict:
             def fn(request, context, _name=name):  # noqa: ARG001
                 context.abort(StatusCode.UNIMPLEMENTED,
                               f"method {_name} not implemented")
+        else:
+            fn = instrument_grpc_method(fn, stats_role, name,
+                                        server_streaming=ss,
+                                        server=server_url,
+                                        client_streaming=cs)
         path = f"/{pb_module.PACKAGE}.{service_name}/{name}"
         handlers[path] = _Method(name, req, resp, cs, ss, fn)
     return handlers
@@ -727,9 +797,11 @@ class RpcServer:
     def _call(self, conn: _Conn, head: bytes) -> bool:
         """Run one call; False when the connection cannot carry another."""
         timeout = struct.unpack(">d", head[:8])[0]
-        path = head[8:].decode("utf-8", "replace")
+        path, *md = head[8:].decode("utf-8", "replace").split("\n")
         deadline = None if timeout < 0 else time.monotonic() + timeout
-        ctx = _Context(conn, deadline)
+        ctx = _Context(conn, deadline,
+                       tuple(tuple(e.split(":", 1)) for e in md
+                             if ":" in e))
         method = self._routes.get(path)
         reqs = _Requests(conn, method.req_cls if method else None, ctx)
         try:

@@ -203,10 +203,16 @@ class ScrubDaemon:
             raise ScrubPaused()
 
     def _run(self) -> None:
+        # the whole daemon runs as the _internal QoS tenant: its replica
+        # and shard fetches are weighted low on every fan-out pool and
+        # exempt from admission shed (repair trades latency for
+        # durability, never the other way). No-op context when QoS off.
+        from seaweedfs_tpu_torch import qos
         vids, mbps = self._pass_volume_ids, self._pass_mbps
         while not self._stopping:
             try:
-                self.run_pass(vids, mbps=mbps)
+                with qos.internal_context():
+                    self.run_pass(vids, mbps=mbps)
             except ScrubPaused:
                 return
             except Exception:

@@ -77,11 +77,18 @@ def heartbeat_from_pb(hb: master_pb2.Heartbeat) -> dict:
         "volumes": [volume_info_from_pb(v) for v in hb.volumes],
         "ec_shards": [ec_info_from_pb(e) for e in hb.ec_shards],
     }
+    if hb.volume_heats:
+        d["volume_heats"] = [
+            {"id": h.id, "reads_window": h.reads_window, "ewma": h.ewma}
+            for h in hb.volume_heats]
     return d
 
 
 def heartbeat_to_pb(hb: dict, data_center: str = "",
                     rack: str = "") -> master_pb2.Heartbeat:
+    # volume_heats stays absent unless -heat.track populated it: a
+    # heat-disabled server's heartbeat serializes byte-identically to
+    # the heat-less wire format
     return master_pb2.Heartbeat(
         ip=hb["ip"],
         port=hb["port"],
@@ -91,7 +98,12 @@ def heartbeat_to_pb(hb: dict, data_center: str = "",
         data_center=data_center,
         rack=rack,
         volumes=[volume_info_to_pb(v) for v in hb.get("volumes", [])],
-        ec_shards=[ec_info_to_pb(e) for e in hb.get("ec_shards", [])])
+        ec_shards=[ec_info_to_pb(e) for e in hb.get("ec_shards", [])],
+        volume_heats=[master_pb2.VolumeHeatMessage(
+            id=int(h["id"]),
+            reads_window=int(h.get("reads_window", 0)),
+            ewma=float(h.get("ewma", 0.0)))
+            for h in hb.get("volume_heats", [])])
 
 
 def topology_to_pb(topo_map: dict) -> master_pb2.TopologyInfo:

@@ -22,9 +22,18 @@ through the shell every ``sleep_minutes`` (reference
 master_server.go:187-263), and the scrub scheduler opens one scrub pass
 on every volume server per ``-scrub.intervalSeconds``, staggered over
 the window. Neither thread exists unless its scripts or interval are
-set, and both act only on the leader.
+set, and both act only on the leader. A third, the heat-driven lifecycle
+engine (``lifecycle/``, ``-lifecycle``), exists only when configured and
+acts only while this master leads: it joins the topology with the heat
+map the volume servers' heartbeats carry (``Topology.cluster_heat``)
+and ``ec.encode``s idle volumes in fused groups, ``ec.decode``s re-heated
+ones and moves frozen ones to a tier backend, through the shell.
 
-Left out: lifecycle, heat and QoS views, ``/status`` and the UI.
+``/cluster/heat``, ``/cluster/qos`` and ``/cluster/lifecycle`` go to the
+leader like every other path; ``/qos/status``, ``/debug/trace`` and
+``/debug/requests`` answer for this process and are never proxied.
+
+Left out: ``/status`` and the UI.
 
 Reference: weed/server/master_server.go, master_grpc_server.go
 (SendHeartbeat :20-176, KeepConnected :178-233),
@@ -126,7 +135,8 @@ class MasterServer:
                  scrub_throttle_mbps: float = 0.0,
                  sequencer_type: str = "memory",
                  sequencer_node_id: Optional[int] = None,
-                 sequencer_etcd_urls: str = "127.0.0.1:2379"):
+                 sequencer_etcd_urls: str = "127.0.0.1:2379",
+                 lifecycle=None):
         self.ip = ip
         self.port = port
         self.meta_dir = meta_dir
@@ -193,6 +203,13 @@ class MasterServer:
         self.scrub_throttle_mbps = scrub_throttle_mbps
         self._scrub_thread: Optional[threading.Thread] = None
         self._scrub_wake = threading.Event()
+        # the heat-driven lifecycle engine (-lifecycle, a LifecycleConfig):
+        # absent, not merely idle, unless configured, so a default master
+        # makes no engine object and no thread
+        self.lifecycle = None
+        if lifecycle is not None:
+            from seaweedfs_tpu_torch.lifecycle import LifecycleEngine
+            self.lifecycle = LifecycleEngine(self, lifecycle)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -203,8 +220,10 @@ class MasterServer:
     def start(self) -> None:
         if self.port == 0:
             raise ValueError("master port must be fixed (rpc = port+10000)")
-        handler = rpc.generic_handler(master_pb2, "Seaweed", self)
-        raft_handler = rpc.generic_handler(raft_pb2, "Raft", self.raft)
+        handler = rpc.generic_handler(master_pb2, "Seaweed", self,
+                                      stats_role="master")
+        raft_handler = rpc.generic_handler(raft_pb2, "Raft", self.raft,
+                                           stats_role="raft")
         self._grpc_server = rpc.make_server(
             f"{self.ip}:{self.port + rpc.GRPC_PORT_OFFSET}",
             [handler, raft_handler])
@@ -227,6 +246,8 @@ class MasterServer:
             self._scrub_thread = threading.Thread(
                 target=self._scrub_loop, name="master-scrub", daemon=True)
             self._scrub_thread.start()
+        if self.lifecycle is not None:
+            self.lifecycle.start()
         log.info("master %s started (rpc :%d)", self.url,
                  self.port + rpc.GRPC_PORT_OFFSET)
 
@@ -235,6 +256,8 @@ class MasterServer:
         self._stopping = True
         self._maint_wake.set()
         self._scrub_wake.set()
+        if self.lifecycle is not None:
+            self.lifecycle.stop()
         for th in (self._maint_thread, self._scrub_thread):
             if th is not None:
                 th.join(timeout=30)
@@ -860,6 +883,76 @@ class MasterServer:
                 "Leader": self.raft.leader() or "",
                 "Peers": self.raft.peers}
 
+    def http_cluster_heat(self) -> dict:
+        """GET /cluster/heat: the heartbeat-fed cluster heat map, with
+        each vid's observed tier — what `cluster.heat` renders."""
+        heat = self.topo.cluster_heat()
+        ec_vids = set(self.topo.ec_locations)
+        vol_vids = {vid for n in self.topo.nodes() for vid in n.volumes}
+        out = {}
+        for vid in sorted(vol_vids | ec_vids | set(heat)):
+            rec = dict(heat.get(vid, {"reads_window": 0.0, "ewma": 0.0,
+                                      "servers": []}))
+            rec["tier"] = "warm" if vid in ec_vids and vid not in vol_vids \
+                else "hot"
+            if self.lifecycle is not None:
+                st = self.lifecycle.states.get(vid)
+                if st is not None:
+                    rec["state"] = st.state
+            out[str(vid)] = rec
+        return {"volumes": out}
+
+    def http_cluster_qos(self) -> dict:
+        """GET /cluster/qos: this master's own QoS block plus every data
+        node's /qos/status, fanned out with short per-node timeouts —
+        what `cluster.qos` renders. A node that does not answer reports
+        an error entry instead of failing the whole view."""
+        from seaweedfs_tpu_torch import qos
+        mgr = qos.manager()
+        out = {"master": mgr.status() if mgr is not None
+               else {"enabled": False}, "nodes": {}}
+        for n in self.topo.nodes():
+            try:
+                resp = http_client.request(
+                    "GET", f"{n.url}/qos/status", timeout=2.0)
+                out["nodes"][n.url] = json.loads(resp.body)
+            except (OSError, ValueError) as e:
+                out["nodes"][n.url] = {"error": str(e)}
+        return out
+
+    def http_lifecycle(self, params: dict, method: str = "GET") -> dict:
+        """GET/POST /cluster/lifecycle: status (default), and the
+        volume.lifecycle verbs — pause / resume / run / force."""
+        if self.lifecycle is None:
+            return {"enabled": False,
+                    "error": "lifecycle disabled (start the master "
+                             "with -lifecycle)"}
+        action = params.get("action", [""])[0]
+        if not action or action == "status":
+            return self.lifecycle.status()
+        if method != "POST":
+            return {"error": f"action {action!r} requires POST"}
+        if action == "pause":
+            self.lifecycle.pause()
+            return {"paused": True}
+        if action == "resume":
+            self.lifecycle.resume()
+            return {"paused": False}
+        if action == "run":
+            self.lifecycle.run_pass_now()
+            return {"triggered": True}
+        if action == "force":
+            try:
+                vid = int(params.get("volumeId", ["0"])[0])
+                kind = self.lifecycle.force(
+                    vid, params.get("target", [""])[0])
+            except ValueError as e:
+                return {"error": str(e)}
+            self.lifecycle.run_pass_now()
+            return {"queued": kind, "volumeId": vid}
+        return {"error": f"unknown action {action!r} (status | pause | "
+                         "resume | run | force)"}
+
 
 def _make_http_handler(ms: MasterServer):
     class Handler(FastHandler):
@@ -898,6 +991,21 @@ def _make_http_handler(ms: MasterServer):
         def do_GET(self):
             upath, sep, query = self.path.partition("?")
             params = parse_qs(query) if sep else {}
+            if upath in ("/debug/trace", "/debug/requests"):
+                # local collector and flight-recorder state, never
+                # proxied to the leader (each process answers for itself)
+                from seaweedfs_tpu_torch.stats import cluster_trace
+                self._json(cluster_trace.debug_payload(
+                    self.path, "master", ms.url))
+                return
+            if upath == "/qos/status":
+                # this process's own QoS admission state, never proxied
+                # (the gathered cluster view is /cluster/qos)
+                from seaweedfs_tpu_torch import qos
+                mgr = qos.manager()
+                self._json(mgr.status() if mgr is not None
+                           else {"enabled": False})
+                return
             if upath != "/cluster/status" and self._proxy_to_leader():
                 return
             if upath == "/dir/assign":
@@ -915,9 +1023,16 @@ def _make_http_handler(ms: MasterServer):
                                                    else None)})
             elif upath == "/cluster/status":
                 self._json(ms.http_cluster_status())
+            elif upath == "/cluster/heat":
+                self._json(ms.http_cluster_heat())
+            elif upath == "/cluster/qos":
+                self._json(ms.http_cluster_qos())
+            elif upath == "/cluster/lifecycle":
+                self._json(ms.http_lifecycle(params, self.command))
             else:
                 self._json({"error": f"unknown path {upath}"}, code=404)
 
         do_POST = do_GET
 
-    return Handler
+    from seaweedfs_tpu_torch.stats.metrics import instrument_http_handler
+    return instrument_http_handler(Handler, "master")

@@ -39,9 +39,18 @@ one; ``GET``/``HEAD`` resolve it into the file it lists (unless
 the master the heartbeat follows, whole or by range; ``DELETE`` deletes
 every chunk before the manifest; ``BatchDelete`` refuses a manifest.
 
-Left out (each queued in ROADMAP.md): heat, QoS, the async core's
-sendfile path, image resizing, and the ``/ui``, ``/debug/*`` and
-``/qos/status`` pages.
+Observability and policy: with ``heat_track`` (``-heat.track``) every
+served read, normal or EC, is counted per volume in a sliding window
+(``stats/heat.py``) whose summary rides the heartbeat to the master's
+lifecycle engine; an unmount, delete or EC change forgets the vid. The
+HTTP and RPC planes go through the shared request instrumentation
+(``stats.metrics.instrument_http_handler``, ``rpc.generic_handler``), so
+``-qos`` admission, cluster tracing and the request counters reach them;
+``/qos/status``, ``/debug/trace`` and ``/debug/requests`` answer on the
+data port.
+
+Left out (each queued in ROADMAP.md): the async core's sendfile path,
+image resizing, the ``/ui`` page and the Heat block of ``/status``.
 
 Reference: weed/server/volume_server.go, volume_server_handlers_*.go,
 volume_grpc_*.go, volume_grpc_client_to_master.go.
@@ -140,7 +149,9 @@ class VolumeServer:
                  hedge_reads: bool = False, hedge_delay_ms: float = 10.0,
                  compaction_mbps: float = 0.0,
                  storage_backends: Optional[dict] = None,
-                 replicate_parallel: int = 8):
+                 replicate_parallel: int = 8,
+                 heat_track: bool = False,
+                 heat_window_s: float = 60.0):
         self.ec_encoder = check_encoder(ec_encoder)
         if storage_backends:
             # tier targets (master.toml [storage.backend.<scheme>.<id>]);
@@ -202,6 +213,10 @@ class VolumeServer:
             self.hedger = Hedger(
                 delay_floor_s=max(hedge_delay_ms, 0.1) / 1000.0,
                 name=f"hedge-volume-{port}")
+        # read-path heat telemetry (-heat.track): absent, not merely idle,
+        # unless enabled, so the read path without it pays one None check
+        from seaweedfs_tpu_torch.stats.heat import make_tracker
+        self.heat = make_tracker(heat_track, window_s=heat_window_s)
         self.volume_size_limit = 30 << 30
         self._ec_locations: Dict[int, Tuple[float, Dict[int, List[str]]]] = {}
         self._grpc_server = None
@@ -256,6 +271,8 @@ class VolumeServer:
     def stop(self) -> None:
         log.info("volume server %s:%d stopping", self.ip, self.port)
         self._stopping = True
+        if self.heat is not None:
+            self.heat.close()
         self.degraded.stop()
         self.scrub.stop()
         self._replicate_pool.stop()
@@ -275,8 +292,15 @@ class VolumeServer:
 
     def _heartbeat_gen(self):
         while not self._stopping:
-            yield convert.heartbeat_to_pb(self.store.collect_heartbeat(),
-                                          self.data_center, self.rack)
+            hb = self.store.collect_heartbeat()
+            if self.heat is not None:
+                # the heat summary rides the heartbeat: the master's
+                # topology sums every server's window reads and decayed
+                # EWMA into the cluster heat map the lifecycle engine
+                # decides from. Absent (not empty) when -heat.track is
+                # off, so the heartbeat's bytes are unchanged.
+                hb["volume_heats"] = self.heat.summary()
+            yield convert.heartbeat_to_pb(hb, self.data_center, self.rack)
             self._hb_wake.wait(timeout=self.pulse_seconds)
             self._hb_wake.clear()
 
@@ -346,6 +370,7 @@ class VolumeServer:
     def VolumeDelete(self, request, context):
         self.store.delete_volume(request.volume_id)
         self._invalidate_volume_cache(request.volume_id, "rebuild")
+        self._forget_heat(request.volume_id)
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeDeleteResponse()
 
@@ -388,6 +413,7 @@ class VolumeServer:
     def VolumeUnmount(self, request, context):
         for loc in self.store.locations:
             loc.unload_volume(request.volume_id)
+        self._forget_heat(request.volume_id)
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeUnmountResponse()
 
@@ -395,8 +421,16 @@ class VolumeServer:
         for vid in self.store.delete_collection(request.collection):
             self.compact_states.pop(vid, None)
             self._invalidate_volume_cache(vid, "rebuild")
+            self._forget_heat(vid)
         self.trigger_heartbeat()
         return volume_server_pb2.DeleteCollectionResponse()
+
+    def _forget_heat(self, vid: int) -> None:
+        """Heat hygiene on a volume's departure or conversion: without
+        it a dead vid's SeaweedFS_volume_heat{vid} child and counters
+        linger forever (unbounded label growth)."""
+        if self.heat is not None:
+            self.heat.forget(vid)
 
     def _volume_or_abort(self, context, vid: int):
         v = self.store.find_volume(vid)
@@ -808,8 +842,10 @@ class VolumeServer:
             context.abort(rpc.StatusCode.NOT_FOUND, str(e))
         for vid in vids:
             # a new EC incarnation: nothing cached of an earlier one (a
-            # decode, vacuum and re-encode moves every needle) may serve
+            # decode, vacuum and re-encode moves every needle) may serve;
+            # and the EC era's heat ledger starts from zero
             self._invalidate_volume_cache(vid, "rebuild")
+            self._forget_heat(vid)
         return volume_server_pb2.VolumeEcShardsGenerateResponse()
 
     def VolumeEcShardsRebuild(self, request, context):
@@ -902,8 +938,10 @@ class VolumeServer:
         except EcShardNotFound as e:
             context.abort(rpc.StatusCode.FAILED_PRECONDITION, str(e))
         # the vid serves from a normal volume now: no EC-era entry may
-        # outlive the change (writes can land again)
+        # outlive the change (writes can land again), and the EC era's
+        # heat ledger resets with the tier
         self._invalidate_volume_cache(request.volume_id, "rebuild")
+        self._forget_heat(request.volume_id)
         self.trigger_heartbeat()
         return volume_server_pb2.VolumeEcShardsToVolumeResponse()
 
@@ -948,6 +986,11 @@ class VolumeServer:
     # -- needle data ops (shared by the HTTP handlers) -----------------------
 
     def read_needle(self, vid: int, n: Needle) -> Needle:
+        if self.heat is not None:
+            # counted at admission, not success: a read of a dead needle
+            # still heats the volume (the lifecycle policy cares about
+            # demand, not hit rate)
+            self.heat.record(vid, n.id)
         if self.store.has_volume(vid):
             got = self.store.read_needle(vid, n)
         elif self.store.find_ec_volume(vid) is not None:
@@ -1295,6 +1338,22 @@ def _make_http_handler(vs: VolumeServer):
                     if vs.read_cache is not None else {"enabled": False},
                 })
                 return
+            if upath == "/qos/status":
+                # the data plane's own QoS admission state (the master
+                # gathers these under /cluster/qos)
+                from seaweedfs_tpu_torch import qos
+                mgr = qos.manager()
+                self._json(mgr.status() if mgr is not None
+                           else {"enabled": False})
+                return
+            if upath in ("/debug/trace", "/debug/requests"):
+                # the cluster-trace collector and flight recorder on the
+                # data port: cluster.trace fans out over topology node
+                # urls, which are HTTP ports, not metrics ports
+                from seaweedfs_tpu_torch.stats import cluster_trace
+                self._json(cluster_trace.debug_payload(
+                    self.path, "volumeServer", vs.url))
+                return
             try:
                 f, params = self._parse_path()
             except ValueError as e:
@@ -1585,4 +1644,7 @@ def _make_http_handler(vs: VolumeServer):
                 return
             self._json({"size": size}, code=202)
 
-    return Handler
+    # request counter + latency + trace span (+ QoS admission) per HTTP
+    # verb, through the shared role wrapper
+    from seaweedfs_tpu_torch.stats.metrics import instrument_http_handler
+    return instrument_http_handler(Handler, "volumeServer")

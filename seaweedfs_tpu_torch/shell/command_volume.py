@@ -1,14 +1,14 @@
 """Volume ops-plane commands: list, balance, move, copy, evacuate,
-leave, scrub, vacuum, mark, delete, mount/unmount, the tier moves, and
-fix.replication and configure.replication.
+leave, scrub, vacuum, mark, delete, mount/unmount, the tier moves,
+fix.replication, configure.replication and lifecycle.
 
 The port of the part of ``seaweedfs_tpu.shell.command_volume`` that
-needs no filer or lifecycle engine (reference
-weed/shell/command_volume_*.go). Balance, evacuation and replica-fix
-planning is pure over the TopologyInfo snapshot, testable on fabricated
-views. ``volume.lifecycle`` arrives with the lifecycle engine (ROADMAP
-Queue 1 item 11) and ``volume.fsck`` with the filer (item 13): until
-then each answers with an error that says so.
+needs no filer (reference weed/shell/command_volume_*.go). Balance,
+evacuation and replica-fix planning is pure over the TopologyInfo
+snapshot, testable on fabricated views. ``volume.lifecycle`` drives the
+master's lifecycle engine over ``/cluster/lifecycle``. ``volume.fsck``
+arrives with the filer (ROADMAP Queue 1 item 13): until then it answers
+with an error that says so.
 """
 
 from __future__ import annotations
@@ -670,8 +670,77 @@ def volume_configure_replication(env: CommandEnv, argv: List[str],
         env.release_lock()
 
 
-for _name, _item in (
-        ("volume.lifecycle",
-         "the heat-driven lifecycle engine (ROADMAP Queue 1 item 11)"),
-        ("volume.fsck", "the filer (ROADMAP Queue 1 item 13)")):
-    refuse(_name, _item)
+@command("volume.lifecycle", "status / pause / force the heat-driven "
+                             "lifecycle policy engine")
+def volume_lifecycle(env: CommandEnv, argv: List[str], out) -> None:
+    """Control plane for the master's lifecycle engine
+    (lifecycle/): print the state machine's status (the
+    default), pause/resume the policy loop, or force one volume
+    through a transition (bypasses thresholds and dwell, still honors
+    dry-run). Talks to the master's /cluster/lifecycle endpoint, which
+    proxies to the raft leader like every master HTTP verb."""
+    import json as _json
+
+    from seaweedfs_tpu_torch.util import http_client
+    p = argparse.ArgumentParser(prog="volume.lifecycle")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("-status", action="store_true",
+                   help="print engine status (default)")
+    g.add_argument("-pause", action="store_true",
+                   help="hold the policy loop (no new transitions)")
+    g.add_argument("-resume", action="store_true")
+    g.add_argument("-force", action="store_true",
+                   help="queue one forced transition now")
+    p.add_argument("-volumeId", type=int, default=0,
+                   help="volume for -force")
+    p.add_argument("-target", default="",
+                   help="target state for -force: hot | warm | cold")
+    args = p.parse_args(argv)
+
+    def call(method="GET", **params):
+        q = "&".join(f"{k}={v}" for k, v in params.items())
+        resp = http_client.request(
+            method, f"{env.master_url}/cluster/lifecycle"
+                    + (f"?{q}" if q else ""), timeout=30)
+        body = _json.loads(resp.body)
+        if body.get("error"):
+            raise RuntimeError(body["error"])
+        return body
+
+    if args.pause:
+        call("POST", action="pause")
+        out.write("lifecycle paused\n")
+        return
+    if args.resume:
+        call("POST", action="resume")
+        out.write("lifecycle resumed\n")
+        return
+    if args.force:
+        if not args.volumeId or not args.target:
+            raise ValueError("-force needs -volumeId and -target")
+        body = call("POST", action="force", volumeId=args.volumeId,
+                    target=args.target)
+        out.write(f"volume {args.volumeId}: {body['queued']} queued\n")
+        return
+    st = call()
+    if not st.get("enabled"):
+        out.write("lifecycle disabled (start the master with "
+                  "-lifecycle)\n")
+        return
+    states = st.get("states", {})
+    out.write(
+        f"lifecycle: {'PAUSED' if st.get('paused') else 'running'}"
+        f"{' (dry run)' if st.get('dry_run') else ''} "
+        f"passes:{st.get('passes', 0)} "
+        f"interval:{st.get('interval_s', 0):.0f}s\n"
+        f"volumes: hot:{states.get('hot', 0)} "
+        f"warm:{states.get('warm', 0)} cold:{states.get('cold', 0)}\n"
+        f"transitions: ok:{st.get('transitions_ok', 0)} "
+        f"err:{st.get('transitions_err', 0)} "
+        f"queued:{st.get('queued_forced', 0)}\n")
+    for d in st.get("decisions", [])[-10:]:
+        out.write(f"  vol {d['vid']}: {d['kind']} -> {d['target']} "
+                  f"[{d['outcome']}] {d['reason']}\n")
+
+
+refuse("volume.fsck", "the filer (ROADMAP Queue 1 item 13)")

@@ -1,31 +1,82 @@
-"""Lightweight span tracer for the fleet schedulers.
+"""Lightweight span tracer: where the pipeline's time actually goes.
 
-The counterpart of ``seaweedfs_tpu.stats.trace``, cut to what the port's
-fleets use: named, tagged ``[t0, t0 + dur)`` intervals per thread, nested
-within a thread by a thread-local stack and across threads by explicit
-handoff tokens (the packing thread mints a token, a writer lane opens its
-span under it), kept in a bounded ring buffer.
+The counterpart of ``seaweedfs_tpu.stats.trace``. The fleet scheduler
+(ec/fleet.py) runs as reader pool -> fused RS dispatch on the card ->
+tagged retire -> per-volume writer lanes, four thread families handing
+work to each other. This module records *spans*: named, tagged
+[t0, t0+dur) intervals per thread, with parent/child nesting inside a
+thread (thread-local stack) and explicit handoff tokens across threads
+(the packing thread mints a token, the writer lane opens its span under
+it), exported as Chrome trace-event JSON that chrome://tracing and
+Perfetto load directly.
 
-Tracing is off by default: ``span()`` checks the module flag before it
-allocates anything and returns a shared no-op context manager. Set
-``SEAWEED_TRACE=1`` to enable it at import, or call ``enable()``.
+Cost discipline: tracing is OFF by default and `span()` checks the
+module flags before allocating anything — the disabled path is one
+function call returning a shared no-op context manager. Enabled spans
+land in a bounded ring buffer (deque append is atomic under the GIL; no
+lock on the hot path), so a forgotten-enabled tracer costs
+memory-bounded ring slots, never unbounded growth.
+
+Set SEAWEED_TRACE=1 to enable at import (for server subprocesses);
+in-process callers use enable()/disable(). `/debug/trace` on the
+metrics port serves the Chrome JSON of everything currently in the
+ring.
 """
 
 from __future__ import annotations
 
+import contextvars
 import itertools
+import json
 import os
+import random
 import threading
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
+# Ring capacity: a fleet encode of 64 volumes emits a few spans per
+# chunk — tens of thousands of spans for a big run. 1<<17 slots keep
+# the whole run while bounding memory (~100 bytes/span -> ~13MB worst
+# case).
 DEFAULT_CAPACITY = 1 << 17
 
 _enabled = bool(os.environ.get("SEAWEED_TRACE", "") not in ("", "0"))
 _ring: deque = deque(maxlen=DEFAULT_CAPACITY)
 _ids = itertools.count(1)      # .__next__ is atomic under the GIL
+# Span ids are 64-bit and unique ACROSS processes: a per-process random
+# high word (bit 62 forced so ids never collide with the small ids of a
+# process that lost its randomness) ORed with the local counter. The
+# cluster stitcher dedupes by span id, so two processes must never mint
+# the same one.
+_ID_BASE = (random.getrandbits(30) | (1 << 29)) << 33
 _tls = threading.local()
+_thread_names: Dict[int, str] = {}
+
+# perf_counter -> wall-clock offset, taken once at import: the cluster
+# collector exports span timestamps on the epoch timebase so spans from
+# different PROCESSES line up in one stitched view (NTP-grade skew is
+# acceptable at the millisecond scale these traces are read at).
+EPOCH_OFFSET = time.time() - time.perf_counter()
+
+# Cluster-trace hook (stats/cluster_trace.py): when on, spans are also
+# appended to the ambient request's bounded buffer, carried across
+# threads by contextvars (FanOutPool copies the context at submit).
+# Kept as one module flag + one ContextVar so the fully-disabled span()
+# fast path stays two attribute checks.
+_cluster_enabled = False
+_req_ctx: "contextvars.ContextVar[Optional[object]]" = \
+    contextvars.ContextVar("seaweed_trace_req", default=None)
+
+
+def next_span_id() -> int:
+    """A fresh 64-bit process-unique span/trace id."""
+    return _ID_BASE | next(_ids)
+
+
+def request_ctx():
+    """The ambient cluster-trace request context (or None)."""
+    return _req_ctx.get()
 
 
 def is_enabled() -> bool:
@@ -47,6 +98,7 @@ def disable() -> None:
 
 def clear() -> None:
     _ring.clear()
+    _thread_names.clear()
 
 
 class _NoopSpan:
@@ -68,24 +120,38 @@ NOOP = _NoopSpan()
 
 
 class Span:
-    __slots__ = ("name", "tags", "id", "parent_id", "t0", "dur", "tid")
+    __slots__ = ("name", "tags", "id", "parent_id", "t0", "dur", "tid",
+                 "trace_id")
 
     def __init__(self, name: str, parent: Optional[int], tags: dict):
         self.name = name
         self.tags = tags
-        self.id = next(_ids)
+        self.id = _ID_BASE | next(_ids)
         self.parent_id = parent
         self.t0 = 0.0
         self.dur = 0.0
         self.tid = 0
+        self.trace_id = 0
 
     def __enter__(self) -> "Span":
-        self.tid = threading.get_ident()
+        tid = threading.get_ident()
+        self.tid = tid
+        if tid not in _thread_names:
+            _thread_names[tid] = threading.current_thread().name
         stack = getattr(_tls, "stack", None)
         if stack is None:
             stack = _tls.stack = []
         if self.parent_id is None and stack:
             self.parent_id = stack[-1]
+        if _cluster_enabled:
+            ctx = _req_ctx.get()
+            if ctx is not None:
+                self.trace_id = ctx.trace_id
+                ctx.current = self.name   # flight-recorder "where is it"
+                if self.parent_id is None:
+                    # first span on a pool/hedge worker thread: parent
+                    # to the request span across the thread boundary
+                    self.parent_id = ctx.span_id
         stack.append(self.id)
         self.t0 = time.perf_counter()
         return self
@@ -97,6 +163,10 @@ class Span:
             stack.pop()
         if _enabled:
             _ring.append(self)
+        if _cluster_enabled:
+            ctx = _req_ctx.get()
+            if ctx is not None:
+                ctx.add_span(self)
         return False
 
     def token(self) -> int:
@@ -107,21 +177,29 @@ class Span:
 
 def span(name: str, parent: Optional[int] = None, **tags):
     """Context manager recording one span; no-op while disabled.
-    ``parent`` is a handoff token from ``Span.token()`` or ``handoff()``
-    for nesting across threads; nesting within a thread is automatic."""
-    if not _enabled:
+
+    `parent` is a handoff token from Span.token() (or handoff()) for
+    cross-thread nesting; same-thread nesting is automatic. Callers on
+    paths hot enough that even the kwargs dict matters should gate on
+    is_enabled() themselves.
+
+    Enabled means EITHER the local span ring (SEAWEED_TRACE) or the
+    cluster tracer (stats/cluster_trace.py) is on — with both off the
+    fast path is two module-flag checks returning the shared no-op.
+    """
+    if not _enabled and not _cluster_enabled:
         return NOOP
     return Span(name, parent, tags)
 
 
 def active() -> bool:
-    """True when span() would record anything right now: the guard hot
-    callers use before building a tags dict."""
-    return _enabled
+    """True when span() would record anything right now — the guard
+    hot callers use before building a tags dict."""
+    return _enabled or (_cluster_enabled and _req_ctx.get() is not None)
 
 
 def handoff() -> Optional[int]:
-    """Token of the innermost open span of THIS thread (None when
+    """Token for the innermost open span of THIS thread (None when
     disabled or no span is open): hand it to the thread that continues
     the work so its spans parent here."""
     if not _enabled:
@@ -130,7 +208,105 @@ def handoff() -> Optional[int]:
     return stack[-1] if stack else None
 
 
+# -- export -------------------------------------------------------------------
+
 def spans() -> List[Span]:
     """Snapshot of the ring, oldest first."""
     return list(_ring)
 
+
+def chrome_trace(extra: Sequence[Span] = ()) -> dict:
+    """Chrome trace-event JSON object (the 'JSON Object Format':
+    {"traceEvents": [...]}), loadable by chrome://tracing / Perfetto.
+
+    Spans become 'X' (complete) events; thread names become 'M'
+    metadata events so Perfetto labels the lanes. ts/dur are in
+    microseconds on the perf_counter timebase (arbitrary origin is fine
+    for these viewers).
+    """
+    pid = os.getpid()
+    events: List[dict] = []
+    for tid, tname in list(_thread_names.items()):
+        events.append({"ph": "M", "pid": pid, "tid": tid,
+                       "name": "thread_name", "args": {"name": tname}})
+    for s in list(_ring) + list(extra):
+        ev = {"ph": "X", "pid": pid, "tid": s.tid, "name": s.name,
+              "ts": round(s.t0 * 1e6, 3), "dur": round(s.dur * 1e6, 3)}
+        args = dict(s.tags) if s.tags else {}
+        args["id"] = s.id
+        if s.parent_id is not None:
+            args["parent"] = s.parent_id
+        if s.trace_id:
+            args["trace"] = f"{s.trace_id:016x}"
+        ev["args"] = args
+        events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def span_dict(s: Span) -> dict:
+    """One span as the cluster collector exports it: epoch-based
+    microsecond timestamps (comparable across processes), hex ids."""
+    d = {"name": s.name,
+         "ts_us": round((s.t0 + EPOCH_OFFSET) * 1e6, 3),
+         "dur_us": round(s.dur * 1e6, 3),
+         "id": f"{s.id:016x}",
+         "tid": s.tid}
+    if s.parent_id:
+        d["parent"] = f"{s.parent_id:016x}"
+    if s.trace_id:
+        d["trace"] = f"{s.trace_id:016x}"
+    if s.tags:
+        d["tags"] = {k: str(v) for k, v in s.tags.items()}
+    return d
+
+
+def chrome_trace_json() -> str:
+    return json.dumps(chrome_trace())
+
+
+# -- rollups ------------------------------------------------------------------
+
+def rollup(items: Optional[Sequence[Span]] = None) -> Dict[str, dict]:
+    """Per-span-name totals: {name: {count, total_s, max_s}} — the
+    stage-attribution summary a run attaches to its report."""
+    out: Dict[str, dict] = {}
+    for s in (spans() if items is None else items):
+        r = out.get(s.name)
+        if r is None:
+            r = out[s.name] = {"count": 0, "total_s": 0.0, "max_s": 0.0}
+        r["count"] += 1
+        r["total_s"] += s.dur
+        r["max_s"] = max(r["max_s"], s.dur)
+    for r in out.values():
+        r["total_s"] = round(r["total_s"], 6)
+        r["max_s"] = round(r["max_s"], 6)
+    return out
+
+
+def busy_union_s(items: Sequence[Span], t0: float, t1: float,
+                 prefixes: Optional[Sequence[str]] = None) -> float:
+    """Seconds of [t0, t1] covered by at least one span (optionally
+    restricted to names starting with any of `prefixes`): the coverage
+    measure of how much of a window the spans explain. Spans run
+    on many threads, so this is interval union, not a sum."""
+    ivals = []
+    for s in items:
+        if prefixes is not None and \
+                not any(s.name.startswith(p) for p in prefixes):
+            continue
+        a, b = max(s.t0, t0), min(s.t0 + s.dur, t1)
+        if b > a:
+            ivals.append((a, b))
+    ivals.sort()
+    covered = 0.0
+    cur_a = cur_b = None
+    for a, b in ivals:
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                covered += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        covered += cur_b - cur_a
+    return covered

@@ -56,6 +56,9 @@ class DataNode:
         self.volumes: Dict[int, VolumeInfo] = {}
         self.ec_shards: Dict[int, ShardBits] = {}  # vid -> mounted shards
         self.ec_collections: Dict[int, str] = {}
+        # vid -> (reads_window, ewma) from the heartbeat heat payload
+        # (empty unless the server runs -heat.track)
+        self.heat: Dict[int, tuple] = {}
         self.rack: Optional["Rack"] = None
         self.last_seen = time.time()
 
@@ -88,6 +91,21 @@ class DataNode:
         self.volumes = incoming
         self.last_seen = time.time()
         return new, deleted
+
+    def update_heat(self, infos: List[dict]) -> bool:
+        """Full sync of the heartbeat heat payload: the node's view is
+        replaced wholesale, so a vid the server forgot (deleted volume,
+        EC conversion) drops out of the cluster heat map on the very
+        next pulse instead of freezing at its last value. Returns True
+        when the VID SET changed — gauge children read values through
+        scrape-time callables, so only membership changes need the
+        (cluster-wide) gauge registry resync."""
+        incoming = {int(h["id"]): (float(h.get("reads_window", 0)),
+                                   float(h.get("ewma", 0.0)))
+                    for h in infos}
+        changed = incoming.keys() != self.heat.keys()
+        self.heat = incoming
+        return changed
 
     def update_ec_shards(self, infos: List[dict]) -> tuple:
         """Full sync of EC shard bits; returns (new, deleted) as

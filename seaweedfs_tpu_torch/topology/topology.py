@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import random
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 from seaweedfs_tpu_torch.ec.shard_bits import ShardBits
@@ -18,6 +19,45 @@ from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement
 from seaweedfs_tpu_torch.topology.node import DataCenter, DataNode, VolumeInfo
 from seaweedfs_tpu_torch.topology.sequence import MemorySequencer
 from seaweedfs_tpu_torch.topology.volume_layout import VolumeLayout
+
+# Topologies that have ever seen heartbeat heat, for the
+# SeaweedFS_cluster_volume_heat{vid} gauge: children read through a
+# weak set at scrape time (the stats/heat.py pattern) so a stopped
+# master's topology is collectable and two in-process masters SUM
+# rather than clobber. Registration happens only on heartbeats that
+# carry heat, so heat-disabled clusters never touch any of this.
+_HEAT_TOPOS: "weakref.WeakSet[Topology]" = weakref.WeakSet()
+_heat_registered: set = set()  # guarded_by(_heat_reg_lock)
+_heat_reg_lock = threading.Lock()
+
+
+def _cluster_vid_heat(vid: int) -> float:
+    total = 0.0
+    for t in list(_HEAT_TOPOS):
+        for n in t.nodes():
+            h = n.heat.get(vid)
+            if h is not None:
+                total += h[0]
+    return total
+
+
+def _sync_cluster_heat_gauge(topo: "Topology") -> None:
+    """Register gauge children for newly-heated vids and drop children
+    for vids no longer reported anywhere — label hygiene at the
+    cluster aggregate, mirroring HeatTracker.forget server-side."""
+    from seaweedfs_tpu_torch.stats.metrics import ClusterVolumeHeatGauge
+    _HEAT_TOPOS.add(topo)
+    live = {vid for t in list(_HEAT_TOPOS)
+            for n in t.nodes() for vid in n.heat}
+    with _heat_reg_lock:
+        for vid in live - _heat_registered:
+            ClusterVolumeHeatGauge.labels(str(vid)).set_function(
+                lambda vid=vid: _cluster_vid_heat(vid))
+        for vid in _heat_registered - live:
+            ClusterVolumeHeatGauge.remove(str(vid))
+        _heat_registered.clear()
+        _heat_registered.update(live)
+
 
 def _layout_key(info: VolumeInfo) -> tuple:
     return info.collection, info.replica_placement, info.ttl
@@ -109,6 +149,15 @@ class Topology:
             for v in deleted:
                 self.unregister_volume(v, node)
             self._sync_ec(node, hb.get("ec_shards", []))
+            heats = hb.get("volume_heats")
+            if heats is not None or node.heat:
+                # one dict-key check per pulse when heat is disabled;
+                # the `or node.heat` arm clears a node whose operator
+                # turned -heat.track off mid-flight. The gauge-registry
+                # resync runs only when this node's heat MEMBERSHIP
+                # changed — values flow through scrape-time callables
+                if node.update_heat(heats or []):
+                    _sync_cluster_heat_gauge(self)
             return node
 
     def register_volume(self, info: VolumeInfo, dn: DataNode) -> None:
@@ -155,6 +204,9 @@ class Topology:
                         self.ec_collections.pop(vid, None)
             if node.rack is not None:
                 node.rack.nodes.pop(node.id, None)
+            if node.heat:
+                node.heat = {}
+                _sync_cluster_heat_gauge(self)
 
     # -- lookup / assign ------------------------------------------------------
 
@@ -172,6 +224,24 @@ class Topology:
     def lookup_ec(self, vid: int) -> Dict[str, ShardBits]:
         with self._lock:
             return dict(self.ec_locations.get(vid, {}))
+
+    # -- cluster heat map ----------------------------------------------------
+
+    def cluster_heat(self) -> Dict[int, dict]:
+        """vid -> {reads_window, ewma, servers}: the live cluster heat
+        map summed over every node's heartbeat heat payload — what the
+        lifecycle policy engine (and `cluster.heat`) decides from."""
+        with self._lock:
+            out: Dict[int, dict] = {}
+            for n in self._nodes.values():
+                for vid, (window, ewma) in n.heat.items():
+                    rec = out.setdefault(
+                        vid, {"reads_window": 0.0, "ewma": 0.0,
+                              "servers": []})
+                    rec["reads_window"] += window
+                    rec["ewma"] += ewma
+                    rec["servers"].append(n.url)
+            return out
 
     def has_writable(self, collection: str, replica_byte: int,
                      ttl: str = "") -> bool:

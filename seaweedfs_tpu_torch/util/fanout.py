@@ -1,10 +1,11 @@
 """A bounded worker pool that costs nothing until its first task.
 
 The counterpart of ``seaweedfs_tpu.util.fanout`` (the JAX package's
-substitute for the reference's goroutine fan-outs), without that module's
-weighted-fair QoS seam: the port has no QoS. In the port the hedger
-(``resilience/hedge.py``) runs its candidate fetches on one, and the
-volume server its replica POSTs (``-replicate.parallel``).
+substitute for the reference's goroutine fan-outs). In the port the hedger
+(``resilience/hedge.py``) runs its candidate fetches on one, the volume
+server its replica POSTs (``-replicate.parallel``) and the client its
+delete fan-out. With ``-qos`` on, a pool's backlog is ordered by the QoS
+manager's weighted-fair queue (``qos/fair.py``) instead of FIFO.
 
 Constructing a FanOutPool makes a queue and a lock, no thread. Workers are
 made one per submit up to the cap on the first tasks and then stay
@@ -18,6 +19,16 @@ import contextvars
 import queue
 import threading
 from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+# Weighted-fair scheduling seam: qos.configure() installs its manager
+# here (reset() clears it). None, the default, keeps submit() one
+# identity check away from the plain FIFO path.
+_qos_sched = None
+
+# queue token standing in for one task parked in the pool's weighted-
+# fair queue: the SimpleQueue stays the worker WAKEUP channel (stop()
+# sentinel semantics untouched), the WFQ decides the ORDER
+_WFQ_TOKEN = object()
 
 
 class Future:
@@ -54,6 +65,9 @@ class FanOutPool:
         # thread_count() reads lock-free (introspection may be stale)
         self._threads: List[threading.Thread] = []  # guarded_by(self._lock, writes)
         self._stopping = False  # guarded_by(self._lock)
+        # weighted-fair backlog, built lazily on the first submit made
+        # while QoS is on (None forever otherwise)
+        self._wfq = None  # guarded_by(self._lock, writes)
 
     def thread_count(self) -> int:
         return len(self._threads)
@@ -63,6 +77,11 @@ class FanOutPool:
             item = self._q.get()
             if item is None:   # stop() sentinel
                 return
+            if item is _WFQ_TOKEN:
+                wfq = self._wfq
+                item = wfq.pop() if wfq is not None else None
+                if item is None:
+                    continue
             self._run_task(*item)
 
     @staticmethod
@@ -84,11 +103,23 @@ class FanOutPool:
         # stop(): a task queued under the lock sits AHEAD of stop()'s
         # sentinels and always gets a worker; a submit that sees
         # _stopping runs inline instead
+        qos = _qos_sched
         with self._lock:
             stopping = self._stopping
             if not stopping:
-                # lint: block-ok(SimpleQueue.put never blocks; the lock orders enqueue against stop's sentinels)
-                self._q.put((fut, ctx, fn, args))
+                if qos is not None:
+                    # weighted-fair path: the task parks in the WFQ
+                    # (ordered by tenant weight), a token wakes one
+                    # worker; transport and stop semantics unchanged
+                    wfq = self._wfq
+                    if wfq is None:
+                        wfq = self._wfq = qos.make_wfq(self.name)
+                    wfq.put((fut, ctx, fn, args))
+                    # lint: block-ok(SimpleQueue.put never blocks; the lock orders enqueue against stop's sentinels)
+                    self._q.put(_WFQ_TOKEN)
+                else:
+                    # lint: block-ok(SimpleQueue.put never blocks; the lock orders enqueue against stop's sentinels)
+                    self._q.put((fut, ctx, fn, args))
                 if len(self._threads) < self.size:
                     t = threading.Thread(
                         target=self._worker, daemon=True,

@@ -12,9 +12,9 @@ rides Go's pooled http.Client, weed/util/http_util.go:17-29):
 
 Its outcomes are the circuit breaker's only source
 (``resilience/breaker.py``). The pool makes no thread at all: idle
-connections are reaped on get and put. Only plain http is spoken; the
-JAX package's QoS tenant and cluster-trace headers are not (ROADMAP
-Queue 1 item 11).
+connections are reaped on get and put. Only plain http is spoken. With
+QoS on, the ambient tenant rides X-Seaweed-Tenant; with cluster tracing
+on, the trace context rides X-Seaweed-Trace.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from seaweedfs_tpu_torch.resilience import breaker, deadline, failpoint
+from seaweedfs_tpu_torch.stats import cluster_trace as _ctrace
 from seaweedfs_tpu_torch.util.http_server import HeaderDict, parse_header_block
 
 _pool_lock = threading.Lock()
@@ -53,6 +54,14 @@ def _export_pool_gauge() -> None:
 
 
 _export_pool_gauge()
+
+# QoS seam: qos.configure() installs the ambient-tenant contextvar here
+# (reset() clears it). When armed, every outbound request forwards the
+# caller's tenant in X-Seaweed-Tenant, so a replica fan-out or a shard
+# fetch is charged to the ORIGINAL tenant at the next hop. None (the
+# default) keeps the request path one identity check away from unchanged.
+_qos_tenant = None
+_TENANT_HEADER = "X-Seaweed-Tenant"
 
 
 class ConnectError(OSError):
@@ -212,6 +221,9 @@ def request(method: str, url: str, body: Optional[bytes] = None,
       - an enabled circuit breaker fails fast on an open peer and is fed
         by this call's outcome (any HTTP response is proof of life; only
         a connection-level OSError is a failure);
+      - an ambient QoS tenant is forwarded in X-Seaweed-Tenant, and an
+        ambient cluster trace in X-Seaweed-Trace under a client-side
+        ``http.client`` span;
       - ``busy_raises=True`` turns a 429/503 into ServerBusy carrying the
         server's Retry-After, AFTER the breaker recorded the answer as
         alive, so backpressure never opens a breaker;
@@ -232,31 +244,58 @@ def request(method: str, url: str, body: Optional[bytes] = None,
         merged = dict(headers) if headers else {}
         merged[deadline.HEADER] = f"{rem:.4f}"
         headers = merged
-    if breaker.enabled:
-        breaker.check(netloc)   # raises BreakerOpen while open
+    if _qos_tenant is not None:
+        tenant = _qos_tenant.get()
+        if tenant is not None and not (headers and
+                                       _TENANT_HEADER in headers):
+            merged = dict(headers) if headers else {}
+            merged[_TENANT_HEADER] = tenant
+            headers = merged
+    tsp = None
+    if _ctrace._enabled:
+        from seaweedfs_tpu_torch.stats import trace as _trace
+        if _trace.request_ctx() is not None:
+            # client-side hop span opened FIRST so the remote request
+            # span (minted by the peer's ingress wrapper from this
+            # header) nests under it in the stitched view
+            tsp = _trace.Span("http.client", None,
+                              {"peer": netloc, "method": method})
+            tsp.__enter__()
+            merged = dict(headers) if headers else {}
+            merged[_ctrace.HEADER] = _ctrace.outbound_header()
+            headers = merged
     try:
-        resp = _request_once_retried(netloc, path, method, body, headers,
-                                     timeout, pooled)
-    except deadline.DeadlineExceeded:
-        # a spent budget says nothing about the PEER's health
-        raise
-    except OSError as e:
-        # ...and neither does a timeout the budget cut below the caller's
-        # own: impatient clients must not open a slow peer's breaker
-        if breaker.enabled and not (budget_shrunk and
-                                    isinstance(e, RequestTimeout)):
-            breaker.record(netloc, False)
-        raise
-    if breaker.enabled:
-        breaker.record(netloc, True)
-    if busy_raises and resp.status in (429, 503):
-        raise ServerBusy(f"{method} {netloc}{path}: {resp.status} busy",
-                         status=resp.status,
-                         retry_after=retry_after_seconds(resp))
-    if failpoint._armed:
-        resp.body = failpoint.mangle("http.response", resp.body,
-                                     peer=netloc, status=str(resp.status))
-    return resp
+        if breaker.enabled:
+            breaker.check(netloc)   # raises BreakerOpen while open
+        try:
+            resp = _request_once_retried(netloc, path, method, body,
+                                         headers, timeout, pooled)
+        except deadline.DeadlineExceeded:
+            # a spent budget says nothing about the PEER's health
+            raise
+        except OSError as e:
+            # ...and neither does a timeout the budget cut below the
+            # caller's own: impatient clients must not open a slow
+            # peer's breaker
+            if breaker.enabled and not (budget_shrunk and
+                                        isinstance(e, RequestTimeout)):
+                breaker.record(netloc, False)
+            raise
+        if breaker.enabled:
+            breaker.record(netloc, True)
+        if busy_raises and resp.status in (429, 503):
+            raise ServerBusy(
+                f"{method} {netloc}{path}: {resp.status} busy",
+                status=resp.status,
+                retry_after=retry_after_seconds(resp))
+        if failpoint._armed:
+            resp.body = failpoint.mangle("http.response", resp.body,
+                                         peer=netloc,
+                                         status=str(resp.status))
+        return resp
+    finally:
+        if tsp is not None:
+            tsp.__exit__(None, None, None)
 
 
 def _request_once_retried(netloc: str, path: str, method: str,

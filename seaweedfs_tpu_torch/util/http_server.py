@@ -304,6 +304,9 @@ class FastHandler(BaseHTTPRequestHandler):
         """One response head as a single bytes blob; a length of None
         frames the body with chunked transfer encoding."""
         reason = _REASONS.get(code, "")
+        # mirrored by the instrumented send_response hook: the cluster
+        # tracer's tail sampler keeps 5xx requests by final status
+        self.last_status = code
         parts = [f"HTTP/1.1 {code} {reason}\r\nDate: {http_date()}\r\n"]
         if ctype:
             parts.append(f"Content-Type: {ctype}\r\n")

@@ -648,3 +648,45 @@ def test_tls_client_against_plaintext_server_fails(server, tls_contexts):
         assert time.monotonic() - t0 < 2.0
     finally:
         rpc.set_channel_credentials(None)
+
+
+_HANGUP_SCRIPT = r"""
+import signal, sys, time
+signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+from seaweedfs_tpu_torch import rpc
+from seaweedfs_tpu_torch.pb import volume_server_pb2
+
+class Svc:
+    def VolumeEcShardRead(self, request, context):
+        while True:
+            yield volume_server_pb2.VolumeEcShardReadResponse(
+                data=b"x" * (1 << 20))
+
+srv = rpc.make_server("127.0.0.1:0", [
+    rpc.generic_handler(volume_server_pb2, "VolumeServer", Svc())])
+stream = rpc.make_stub(volume_server_pb2, "VolumeServer",
+                       f"127.0.0.1:{srv.bound_port}").VolumeEcShardRead(
+    volume_server_pb2.VolumeEcShardReadRequest(volume_id=1))
+next(stream)
+stream.cancel()
+time.sleep(1.0)     # the server goes on sending into the closed socket
+srv.stop()
+print("alive")
+"""
+
+
+def test_peer_hangup_never_kills_the_process_without_sigpipe_ignored():
+    """A server stream whose client hung up gets EPIPE, and the process
+    lives on even where SIGPIPE has its default action (a libfuse mount's
+    teardown restores it): the JAX package's grpc transport never raises
+    SIGPIPE either."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _HANGUP_SCRIPT], cwd=repo,
+                       env=dict(os.environ, PYTHONPATH=repo),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "alive", \
+        (r.returncode, r.stderr[-2000:])
+
