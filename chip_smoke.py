@@ -227,7 +227,32 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    resume; ``cluster.requests``; the stitched trace of (e) spans at least
    two servers. gf_linear's launch count must rise in (c), (e)'s reads,
    (e)'s decodes and (f), and stay 0 in (a), (b), (d) and (g).
-13. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+13. The async serving core (``-serve.async``). (a) Each serving model in
+   processes of its own: ``python -m seaweedfs_tpu_torch master`` and
+   ``volume`` (``-metricsPort``), threaded and with ``-serve.async``;
+   from this process one selector thread over keep-alive connections
+   GETs 4 KiB at 8 connections, 1 MiB at 4 (the sendfile path) and 4 KiB
+   at 256, in rounds of 2 s in the order threaded, async, async,
+   threaded: req/s, MB/s, p50/p99, errors (must be 0, every body
+   checked), the server's threads from /proc at the round's middle, and
+   ``SeaweedFS_serve_sendfile_bytes_total`` from its /metrics (> 0 in
+   the async 1 MiB rounds). (b) One master and four volume servers in
+   this process, all on the async core (``-serve.keepAliveBudget 64``),
+   volumes of 64 MiB, 000: 32 MiB of 1 KiB needles in two volumes and 16
+   needles of 1-4 MiB; (1) ``ec.encode`` of both; (2) a server holding
+   at most 4 shards of each stopped; (3) 1,024 GETs of needles on its
+   shards from 16 keep-alive connections, bodies equal, p50/p99, decode
+   fleet dispatches; (4) 256 idle keep-alive connections to one server:
+   at least 192 LRU closes while reads answer; (5) the stopped server
+   back with ``-serve.maxConns 64`` and QoS at good:4, hog:1: the hog's
+   second GETs on 56 held connections shed at frame time (429, the
+   admission seam's bytes, ``ServeShedCounter{kind="qos"}``), good's
+   GETs 200; (6) plain, range, If-None-Match, gzip with and without
+   ``Accept-Encoding``, chunk manifest, missing and cookie-mismatch GETs
+   equal byte for byte (Date aside) to a threaded server's over a copy
+   of the same volume files, the plain ones through sendfile.
+   gf_linear's launch count must rise in (1) and (3) and stay 0 in (6).
+14. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -4500,6 +4525,796 @@ def phase_lifecycle(workdir: str, seed: int, backend: str, card: str = "",
     return out
 
 
+# --- phase 13 -----------------------------------------------------------------
+
+# (a) the two serving models, each a master and a volume server as
+# subprocesses, driven from this process by one selector thread over
+# keep-alive connections (the JAX package's bench.py:1182 workloads): 4 KiB
+# GETs at 8 connections, 1 MiB GETs at 4 (the sendfile path), 4 KiB GETs
+# at 256, each in rounds of SERVE_ROUND_S in the order threaded, async,
+# async, threaded.
+SERVE_ROUND_S = 2.0
+SERVE_ORDER = ("threaded", "async", "async", "threaded")
+SERVE_WORKLOADS = (("small_c8", 4096, 8), ("large_c4", 1 << 20, 4),
+                   ("small_c256", 4096, 256))
+# (b) degraded reads through the async core on the card: one master and
+# four volume servers in this process, volumes of 64 MiB, placement 000,
+# about 32 MiB of 1 KiB needles (upstream `weed benchmark -size 1024 -c 16`)
+# in two volumes plus 16 needles of 1-4 MiB.
+SERVE_VOLUME_MB = 64
+SERVE_SMALL_BYTES = 32 << 20
+SERVE_LARGE = 16
+SERVE_DEGRADED_READS = 1024
+SERVE_DEGRADED_CONNS = 16
+SERVE_IDLE_CONNS = 256
+SERVE_KEEPALIVE_BUDGET = 64
+SERVE_QOS_MAX_CONNS = 64
+SERVE_HOG_CONNS = 56          # past 7/8 of -serve.maxConns with good's
+SERVE_GOOD_CONNS = 4
+# needle keys written straight into the stores, far above the master's
+# sequencer, so no assigned key meets one
+SERVE_KEY0 = 1 << 40
+
+
+class _PumpConn:
+    __slots__ = ("sock", "jobs", "i", "buf", "need", "head_end", "t0")
+
+    def __init__(self, sock, jobs):
+        self.sock = sock
+        self.jobs = jobs
+        self.i = 0
+        self.buf = bytearray()
+        self.need = -1
+        self.head_end = 0
+        self.t0 = 0.0
+
+
+def get_request(path: str, extra: str = "") -> bytes:
+    return f"GET /{path} HTTP/1.1\r\nHost: s\r\n{extra}\r\n".encode()
+
+
+def keepalive_pump(conn_jobs, seconds: float = 0.0, midway=None) -> dict:
+    """One selector thread drives one keep-alive socket per entry of
+    ``conn_jobs``, a list of (port, request bytes, wanted status, wanted
+    body or None) that the connection sends one at a time, reading each
+    reply whole. With ``seconds`` every connection is opened and answers
+    one request before the next is opened (a burst of connects overflows
+    a listen backlog, and the kernel's SYN retries would then be what is
+    timed), then cycles its list until the time is up, and its last
+    request is answered before it closes (a close with a reply in flight
+    resets the server's socket); without, it sends its list once.
+    ``midway`` is called once halfway through a timed run. Returns the
+    counts within the time, the latencies' p50/p99 and the replies that
+    were not what was wanted."""
+    import selectors
+    import socket
+    sel = selectors.DefaultSelector()
+    conns, lat, errors = [], [], []
+    nbytes = 0
+    for jobs in conn_jobs:
+        s = socket.create_connection(("127.0.0.1", jobs[0][0]), timeout=30)
+        if seconds:
+            s.sendall(jobs[0][1])
+            if not read_reply(s).startswith(b"HTTP/1.1 %d " % jobs[0][2]):
+                errors.append("the opening request failed")
+        s.setblocking(False)
+        c = _PumpConn(s, jobs)
+        conns.append(c)
+        sel.register(s, selectors.EVENT_READ, c)
+    t_start = time.perf_counter()
+    deadline = t_start + seconds if seconds else None
+    for c in conns:
+        c.t0 = time.perf_counter()
+        c.sock.sendall(c.jobs[0][1])
+    live = len(conns)
+    timed_out = False
+
+    def drop(c, why):
+        nonlocal live
+        errors.append(why)
+        sel.unregister(c.sock)
+        live -= 1
+
+    while live:
+        now = time.perf_counter()
+        if deadline is not None and now >= deadline + 30:
+            timed_out = True
+            break
+        if midway is not None and now >= t_start + seconds / 2:
+            midway()
+            midway = None
+        for key, _ in sel.select(0.05):
+            c = key.data
+            try:
+                data = c.sock.recv(1 << 20)
+            except BlockingIOError:
+                continue
+            except OSError as e:
+                drop(c, f"recv: {e}")
+                continue
+            if not data:
+                drop(c, "closed by the server")
+                continue
+            c.buf += data
+            while True:
+                if c.need < 0:
+                    end = c.buf.find(b"\r\n\r\n")
+                    if end < 0:
+                        break
+                    head = bytes(c.buf[:end]).lower()
+                    i = head.find(b"\r\ncontent-length:")
+                    j = head.find(b"\r\n", i + 2)
+                    clen = int(head[i + 17:j if j > 0 else len(head)]) \
+                        if i >= 0 else 0
+                    c.head_end = end + 4
+                    c.need = end + 4 + clen
+                if len(c.buf) < c.need:
+                    break
+                _port, _req, status, want = c.jobs[c.i]
+                if not c.buf.startswith(b"HTTP/1.1 %d " % status) or \
+                        (want is not None and
+                         c.buf[c.head_end:c.need] != want):
+                    errors.append(bytes(c.buf[:min(c.need, 300)]))
+                done = time.perf_counter()
+                if deadline is None or done <= deadline:
+                    lat.append(done - c.t0)
+                    nbytes += c.need - c.head_end
+                del c.buf[:c.need]
+                c.need = -1
+                c.i += 1
+                if c.i == len(c.jobs):
+                    c.i = 0
+                    if deadline is None:
+                        sel.unregister(c.sock)
+                        live -= 1
+                        break
+                if deadline is not None and done >= deadline:
+                    sel.unregister(c.sock)   # answered; nothing in flight
+                    live -= 1
+                    break
+                c.t0 = time.perf_counter()
+                try:
+                    c.sock.sendall(c.jobs[c.i][1])
+                except OSError as e:
+                    drop(c, f"send: {e}")
+                    break
+    wall = min(time.perf_counter(), deadline or float("inf")) - t_start
+    for c in conns:
+        c.sock.close()
+    sel.close()
+    if timed_out:
+        errors.append(f"{live} connections unanswered 30 s past the end")
+    a = np.asarray(lat or [0.0]) * 1e3
+    return dict(reqs=len(lat), seconds=wall, rps=len(lat) / wall,
+                MBps=nbytes / wall / 1e6, p50_ms=float(np.percentile(a, 50)),
+                p99_ms=float(np.percentile(a, 99)), errors=len(errors),
+                first_errors=[repr(e)[:300] for e in errors[:3]])
+
+
+def proc_threads(pid: int) -> int:
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("Threads:"):
+                return int(line.split()[1])
+    raise AssertionError(f"/proc/{pid}/status has no Threads line")
+
+
+def raise_nofile(want: int) -> tuple:
+    """Lift the soft open-file limit to the hard one when it is below
+    ``want``; fails when the hard limit cannot hold ``want``."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < want and soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    now = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    if now != resource.RLIM_INFINITY and now < want:
+        raise AssertionError(f"RLIMIT_NOFILE {now} (hard {hard}) cannot "
+                             f"hold {want} descriptors")
+    return soft, now
+
+
+def serve_models(workdir: str, backend: str, card: str, seed: int,
+                 round_s: float) -> dict:
+    """Phase 13 (a): each serving model in its own master and volume
+    server processes; SERVE_WORKLOADS in SERVE_ORDER."""
+    import signal
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.util import http_client
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    rng = np.random.default_rng(seed + 41)
+    bodies = {size: rng.bytes(size) for _, size, _ in SERVE_WORKLOADS}
+    procs, logs, srv = {}, {}, {}
+    for model in ("threaded", "async"):
+        mport, vport = free_port_pair(), free_port_pair()
+        mp = free_port_pair()
+        srv[model] = dict(murl=f"127.0.0.1:{mport}", vport=vport,
+                          metrics=f"127.0.0.1:{mp}")
+        extra = ["-serve.async"] if model == "async" else []
+        for role, args in (
+                ("master", ["master", "-port", str(mport), "-mdir",
+                            os.path.join(workdir, f"{model}_m"),
+                            "-volumeSizeLimitMB", str(SERVE_VOLUME_MB),
+                            "-pulseSeconds", "1", *extra]),
+                ("volume", ["volume", "-port", str(vport), "-dir",
+                            os.path.join(workdir, f"{model}_v"),
+                            "-mserver", f"127.0.0.1:{mport}", "-max", "8",
+                            "-pulseSeconds", "1", "-ec.encoder", backend,
+                            "-metricsPort", str(mp), *extra])):
+            logs[model, role] = os.path.join(workdir, f"{model}_{role}.log")
+            with open(logs[model, role], "wb") as err:
+                procs[model, role] = subprocess.Popen(
+                    [sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+                    cwd=root, env=env, stdout=subprocess.DEVNULL,
+                    stderr=err)
+    rounds = {w: {m: [] for m in ("threaded", "async")}
+              for w, _, _ in SERVE_WORKLOADS}
+
+    def sendfile_bytes(model) -> float:
+        text = operations.http_request(
+            "GET", f"{srv[model]['metrics']}/metrics").body.decode()
+        return parse_prometheus(text).get(
+            'SeaweedFS_serve_sendfile_bytes_total{role="volume"}', 0.0)
+
+    t0 = time.perf_counter()
+    try:
+        for model, info in srv.items():
+            vurl = f"127.0.0.1:{info['vport']}"
+
+            def registered(murl=info["murl"], vurl=vurl):
+                try:
+                    topo = json.loads(operations.http_request(
+                        "GET", f"{murl}/dir/status").body)["Topology"]
+                except (OSError, ValueError, KeyError):
+                    return False
+                return any(n["url"] == vurl for dc in topo["data_centers"]
+                           for r in dc["racks"] for n in r["nodes"])
+
+            wait_until(registered, 120, f"the {model} volume server")
+            info["fids"] = {size: operations.upload(info["murl"], body,
+                                                    collection="serve")
+                            for size, body in bodies.items()}
+        start_s = time.perf_counter() - t0
+        for wname, size, n_conns in SERVE_WORKLOADS:
+            for model in SERVE_ORDER:
+                info = srv[model]
+                req = get_request(info["fids"][size])
+                jobs = [[(info["vport"], req, 200, bodies[size])]
+                        for _ in range(n_conns)]
+                threads = []
+                pid = procs[model, "volume"].pid
+                before = sendfile_bytes(model)
+                r = keepalive_pump(jobs, seconds=round_s, midway=lambda:
+                                   threads.append(proc_threads(pid)))
+                r["threads"] = threads[0] if threads else None
+                r["sendfile_bytes"] = sendfile_bytes(model) - before
+                if r["errors"]:
+                    raise AssertionError(f"{wname} {model}: {r['errors']} "
+                                         f"bad replies: {r['first_errors']}")
+                if wname.startswith("large") and model == "async" and \
+                        r["sendfile_bytes"] <= 0:
+                    raise AssertionError(f"{wname} async: no byte went "
+                                         "out through sendfile")
+                rounds[wname][model].append(r)
+                log(f"  (a) {wname} {model}: {r['rps']:.1f} req/s, "
+                    f"{r['MBps']:.1f} MB/s, p50 {r['p50_ms']:.3f} ms, "
+                    f"p99 {r['p99_ms']:.3f} ms, {r['errors']} errors, "
+                    f"{r['threads']} server threads, sendfile "
+                    f"{r['sendfile_bytes']:.0f} B [{card}]")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        codes = {k: p.wait(timeout=60) for k, p in procs.items()}
+        http_client.close_all()
+    for key, code in codes.items():
+        text = open(logs[key], errors="replace").read()
+        if code != 0 or "Traceback" in text:
+            raise AssertionError(f"{key} exited {code}:\n{text[-4000:]}")
+    summary = {}
+    for wname, by_model in rounds.items():
+        summary[wname] = {}
+        for model, rs in by_model.items():
+            summary[wname][model] = {
+                k: float(np.median([r[k] for r in rs]))
+                for k in ("rps", "MBps", "p50_ms", "p99_ms")}
+            summary[wname][model]["errors"] = sum(r["errors"] for r in rs)
+            summary[wname][model]["threads"] = [r["threads"] for r in rs]
+            summary[wname][model]["sendfile_bytes"] = sum(
+                r["sendfile_bytes"] for r in rs)
+        summary[wname]["async_over_threaded_rps"] = \
+            summary[wname]["async"]["rps"] / \
+            summary[wname]["threaded"]["rps"]
+    return dict(seconds=time.perf_counter() - t0, start_seconds=start_s,
+                round_seconds=round_s, rounds=rounds, summary=summary)
+
+
+def read_reply(sock) -> bytes:
+    """One whole reply from a blocking keep-alive socket (its head, then
+    Content-Length bytes)."""
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        d = sock.recv(1 << 20)
+        if not d:
+            raise AssertionError(f"connection closed mid-reply: {buf!r}")
+        buf += d
+    head, _, body = buf.partition(b"\r\n\r\n")
+    n = next(int(line.split(b":", 1)[1]) for line in head.split(b"\r\n")
+             if line.lower().startswith(b"content-length:"))
+    while len(body) < n:
+        d = sock.recv(1 << 20)
+        if not d:
+            raise AssertionError("connection closed mid-body")
+        body += d
+    return head + b"\r\n\r\n" + body
+
+
+def raw_get(url: str, path: str, extra: str = "") -> bytes:
+    """One GET on a fresh connection, read to the server's close: the
+    reply's bytes with the Date line taken out."""
+    import re
+    import socket
+    host, port = url.split(":")
+    with socket.create_connection((host, int(port)), timeout=60) as s:
+        s.sendall(f"GET /{path} HTTP/1.1\r\nHost: {host}\r\n{extra}"
+                  "Connection: close\r\n\r\n".encode())
+        out = bytearray()
+        while True:
+            d = s.recv(1 << 20)
+            if not d:
+                break
+            out += d
+    return re.sub(rb"\r\nDate: [^\r]*", b"", bytes(out), count=1)
+
+
+def phase_serve(workdir: str, seed: int, backend: str, card: str = "",
+                small_bytes: int = SERVE_SMALL_BYTES,
+                round_s: float = SERVE_ROUND_S) -> dict:
+    """Phase 13: the async serving core. (a) threaded against async in
+    server processes of their own; (b) degraded reads through the async
+    core of an in-process cluster, K1 rebuilding the lost intervals on
+    the card; the keep-alive budget, QoS at frame time, and the async
+    GET bytes against a threaded server's."""
+    import gzip
+    import io
+    from seaweedfs_tpu_torch import qos, rpc
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.operation.file_id import format_fid, parse_fid
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.shell import Shell
+    from seaweedfs_tpu_torch.stats.metrics import (ServeSendfileBytesCounter,
+                                                   ServeShedCounter)
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.util import http_client
+    from seaweedfs_tpu_torch.util.http_server import FastHandler, ServeConfig
+
+    card = card or backend
+    t_phase = time.perf_counter()
+    soft, now = raise_nofile(4 * SERVE_IDLE_CONNS + 1024)
+    log(f"  RLIMIT_NOFILE soft {soft} -> {now}")
+    out = {"nofile": [soft, now]}
+    out["models"] = serve_models(workdir, backend, card, seed, round_s)
+    for wname, by in out["models"]["summary"].items():
+        log(f"  (a) {wname}: async/threaded req/s "
+            f"{by['async_over_threaded_rps']:.3f}; threads at the round's "
+            f"middle threaded {by['threaded']['threads']}, async "
+            f"{by['async']['threads']} [{card}]")
+
+    launches = Launches(backend)
+    rng = np.random.default_rng(seed + 42)
+    if backend == "cuda":
+        import torch
+        torch.zeros(1, device="cuda")
+    async_cfg = ServeConfig(async_mode=True,
+                            keepalive_budget=SERVE_KEEPALIVE_BUDGET)
+    master = MasterServer(port=free_port_pair(),
+                          meta_dir=os.path.join(workdir, "m"),
+                          volume_size_limit_mb=SERVE_VOLUME_MB,
+                          pulse_seconds=1.0,
+                          serve=ServeConfig(async_mode=True))
+    servers, stopped = [], []
+    copy_vs = None
+
+    def volume_server(d, port, serve):
+        return VolumeServer(master.url, [d], port=port,
+                            max_volume_counts=[16], pulse_seconds=1.0,
+                            ec_encoder=backend, serve=serve)
+
+    def topo_has(urls):
+        return {n.url for n in master.topo.nodes()} == set(urls)
+
+    try:
+        master.start()
+        for i in range(SERVICE_SERVERS):
+            d = os.path.join(workdir, f"vol{i}")
+            os.makedirs(d)
+            vs = volume_server(d, free_port_pair(), async_cfg)
+            vs.start()
+            servers.append(vs)
+        wait_until(lambda: topo_has(vs.url for vs in servers), 60,
+                   "four servers at the master")
+
+        # the data: two volumes, 1 KiB needles straight into the stores,
+        # the 1-4 MiB ones through the HTTP upload path
+        grown = json.loads(operations.http_request(
+            "GET", f"{master.url}/vol/grow?collection=serve&count=2"
+        ).body)["volumeIds"]
+        holders = {vid: next(vs for vs in servers if vs.store.has_volume(vid))
+                   for vid in grown}
+        n_small = small_bytes // 1024
+        small = rng.bytes(n_small * 1024)
+        cookies = rng.integers(1, 1 << 32, n_small)
+        want = {}
+        t0 = time.perf_counter()
+        for i in range(n_small):
+            vid = grown[i % len(grown)]
+            data = small[i * 1024:(i + 1) * 1024]
+            holders[vid].store.write_needle(vid, Needle(
+                id=SERVE_KEY0 + i, cookie=int(cookies[i]), data=data))
+            want[format_fid(vid, SERVE_KEY0 + i, int(cookies[i]))] = data
+        write_s = time.perf_counter() - t0
+        # the master's sequencer passes the written keys when a heartbeat
+        # collected after the last write reports its max key: an assign
+        # before that could hand out a written key
+        wait_until(lambda: master.topo.sequence.peek >=
+                   SERVE_KEY0 + n_small, 30,
+                   "the sequencer past the written keys")
+        large = {}
+        for i in range(SERVE_LARGE):
+            data = rng.bytes(int(rng.integers(1 << 20, (4 << 20) + 1)))
+            large[operations.upload(master.url, data,
+                                    collection="serve")] = data
+        want.update(large)
+        vids = sorted({parse_fid(f).volume_id for f in want})
+        if vids != sorted(grown):
+            raise AssertionError(f"needles in {vids}, grown {grown}")
+        out["data"] = dict(small=n_small, large=len(large),
+                           bytes=sum(len(d) for d in want.values()),
+                           write_seconds=write_s, volumes=vids)
+        log(f"  (b) {n_small} needles of 1 KiB into volumes {vids} in "
+            f"{write_s:.3f} s, {len(large)} of 1-4 MiB over HTTP [{card}]")
+
+        # 1. ec.encode every volume on the card
+        for vid in vids:
+            holders[vid].store.find_volume(vid).sync()
+        sh = Shell(master.url)
+        text, enc_s = launches.run(
+            "serve_encode", sh.run_command,
+            f"ec.encode -collection=serve "
+            f"-volumeId={','.join(map(str, vids))}")
+        for vid in vids:
+            if f"volume {vid}: ec.encode done" not in text:
+                raise AssertionError(f"ec.encode:\n{text}")
+        wait_until(lambda: all(
+            not master.topo.lookup(v) and
+            sum(b.count for b in master.topo.lookup_ec(v).values()) == 14
+            for v in vids), 60, "the EC layout settled")
+        out["encode"] = dict(seconds=enc_s,
+                             launches=launches.per_phase["serve_encode"])
+        log(f"  (b1) ec.encode of {vids}: {enc_s:.3f} s, "
+            f"{launches.per_phase['serve_encode']} gf_linear launches "
+            f"[{card}]")
+
+        # 2. a server holding at most 4 shards of each volume stopped
+        ecvs = {v: next(x.store.find_ec_volume(v) for x in servers
+                        if x.store.find_ec_volume(v) is not None)
+                for v in vids}
+        shards_of = {}   # fid -> the shard ids its intervals lie on
+        pool = list(large) + [f for f in want if f not in large][:8192]
+        for fid in pool:
+            f = parse_fid(fid)
+            ecv = ecvs[f.volume_id]
+            shards_of[fid] = {iv.to_shard_and_offset(
+                ecv.large_block, ecv.small_block)[0]
+                for iv in ecv.locate_needle(f.key)[2]}
+
+        def on_shards(vs, fids):
+            return [f for f in fids
+                    if shards_of[f] & held(vs, parse_fid(f).volume_id)]
+
+        candidates = [vs for vs in servers
+                      if all(len(held(vs, v)) <= 4 for v in vids)]
+        if not candidates:
+            raise AssertionError("no server holds at most 4 shards of "
+                                 "every volume")
+        lost_fids = {vs.url: on_shards(vs, pool) for vs in candidates}
+        victim = max(candidates, key=lambda vs: len(lost_fids[vs.url]))
+        degraded = lost_fids[victim.url]
+        if not degraded:
+            raise AssertionError("no needle lies on the victim's shards")
+        victim_shards = {v: sorted(held(victim, v)) for v in vids}
+        victim_dir = victim.store.locations[0].directory
+        victim.stop()
+        servers.remove(victim)
+        stopped.append(victim)
+        wait_until(lambda: topo_has(vs.url for vs in servers), 60,
+                   "the master dropping the stopped server")
+        live = [vs.url for vs in servers]
+
+        # 3. 1,024 GETs of needles on its shards, 16 keep-alive conns
+        big = [f for f in degraded if f in large]
+        picks = (big + [f for f in degraded if f not in large])
+        picks = [picks[i % len(picks)] for i in range(SERVE_DEGRADED_READS)]
+        jobs = [[] for _ in range(SERVE_DEGRADED_CONNS)]
+        for i, fid in enumerate(picks):
+            jobs[i % SERVE_DEGRADED_CONNS].append(fid)
+        conn_jobs = []
+        for k, fids in enumerate(jobs):
+            port = int(live[k % len(live)].split(":")[1])
+            conn_jobs.append([(port, get_request(f), 200, want[f])
+                              for f in fids])
+        d0 = sum(vs.degraded.dispatches for vs in servers)
+        r, secs = launches.run("serve_degraded_reads", keepalive_pump,
+                               conn_jobs)
+        dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+        if r["errors"] or r["reqs"] != SERVE_DEGRADED_READS:
+            raise AssertionError(f"degraded reads: {r['reqs']} answered, "
+                                 f"{r['errors']} bad: {r['first_errors']}")
+        if not dispatches:
+            raise AssertionError("degraded reads: no decode dispatch")
+        out["degraded_reads"] = dict(
+            r, dispatches=dispatches, distinct=len(set(picks)),
+            large=len(big), victim_shards=victim_shards,
+            launches=launches.per_phase["serve_degraded_reads"])
+        log(f"  (b3) {victim.url} stopped (shards "
+            f"{out['degraded_reads']['victim_shards']}); "
+            f"{r['reqs']} GETs of {len(set(picks))} needles on its shards "
+            f"({len(big)} of 1-4 MiB) from {SERVE_DEGRADED_CONNS} "
+            f"keep-alive connections through the async core: "
+            f"p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
+            f"{r['rps']:.1f} req/s, bytes equal; {dispatches} decode fleet "
+            f"dispatches, {launches.per_phase['serve_degraded_reads']} "
+            f"gf_linear launches [{card}]")
+
+        # 4. 256 idle keep-alive connections against a budget of 64
+        import socket
+        target = servers[0]
+        tport = int(target.url.split(":")[1])
+        shed_idle = ServeShedCounter.labels("volume", "keepalive")
+        sample = degraded[:64]
+
+        def idle_flood():
+            before = shed_idle.value
+            idle, answered = [], 0
+            for i in range(SERVE_IDLE_CONNS):
+                s = socket.create_connection(("127.0.0.1", tport),
+                                             timeout=30)
+                idle.append(s)
+                if i % 32 == 31:
+                    # reads keep answering meanwhile, on connections of
+                    # their own
+                    fid = sample[(i // 32) % len(sample)]
+                    body = raw_get(target.url, fid).partition(
+                        b"\r\n\r\n")[2]
+                    if body != want[fid]:
+                        raise AssertionError(f"{fid} during the flood")
+                    answered += 1
+            wait_until(lambda: shed_idle.value - before >=
+                       SERVE_IDLE_CONNS - SERVE_KEEPALIVE_BUDGET, 30,
+                       "the keep-alive budget's closes")
+            closed = shed_idle.value - before
+            for s in idle:
+                s.close()
+            return closed, answered
+
+        (closed, answered), idle_s = launches.run("serve_keepalive",
+                                                  idle_flood, maybe=True)
+        out["keepalive"] = dict(connections=SERVE_IDLE_CONNS,
+                                budget=SERVE_KEEPALIVE_BUDGET,
+                                lru_closes=closed, reads=answered,
+                                seconds=idle_s)
+        log(f"  (b4) {SERVE_IDLE_CONNS} idle keep-alive connections to "
+            f"{target.url} (budget {SERVE_KEEPALIVE_BUDGET}): {closed:.0f} "
+            f"closed LRU, {answered} reads answered meanwhile [{card}]")
+
+        # 5. the victim back with -serve.maxConns 64 and QoS at two
+        # tenants: a hog past its share is shed at frame time
+        qos.configure(qos.QosConfig(weights={"good": 4.0, "hog": 1.0}))
+        back = volume_server(victim_dir, int(victim.url.split(":")[1]),
+                             ServeConfig(async_mode=True,
+                                         max_conns=SERVE_QOS_MAX_CONNS,
+                                         keepalive_budget=
+                                         SERVE_KEEPALIVE_BUDGET))
+        back.start()
+        servers.append(back)
+        stopped.remove(victim)
+        wait_until(lambda: topo_has(vs.url for vs in servers) and all(
+            sum(b.count for b in master.topo.lookup_ec(v).values()) == 14
+            for v in vids), 60, "the server back with its shards")
+        bport = int(back.url.split(":")[1])
+        shed_qos = ServeShedCounter.labels("volume", "qos")
+        # 1 KiB needles whose intervals lie on the returned server's shards
+        mine = [f for f in on_shards(back, pool)
+                if f not in large][:SERVE_HOG_CONNS]
+
+        def tenant_jobs(name, fids):
+            hdr = f"X-Seaweed-Tenant: {name}\r\n"
+            return [(bport, get_request(f, hdr), 200, want[f])
+                    for f in fids]
+
+        def frame_shed():
+            before = shed_qos.value
+
+            def ask(socks, name):
+                for i, sk in enumerate(socks):
+                    sk.sendall(tenant_jobs(name, [mine[i % len(mine)]])[0][1])
+                return [read_reply(sk) for sk in socks]
+
+            def dial(n):
+                return [socket.create_connection(("127.0.0.1", bport),
+                                                 timeout=30)
+                        for _ in range(n)]
+
+            hog = dial(SERVE_HOG_CONNS)
+            good = dial(SERVE_GOOD_CONNS)
+            try:
+                first = ask(hog, "hog")       # under the high water: 200
+                good1 = ask(good, "good")     # good holds its connections
+                replies = ask(hog, "hog")     # the hog asks again
+                good2 = ask(good, "good")
+            finally:
+                for sk in hog + good:
+                    sk.close()
+            return first, replies, good1 + good2, shed_qos.value - before
+
+        (first, replies, goods, shed_n), qos_s = launches.run(
+            "serve_qos", frame_shed, maybe=True)
+        mgr = qos.manager()
+        stub = FastHandler.__new__(FastHandler)
+        stub.wfile = io.BytesIO()
+        stub.command, stub.close_connection = "GET", False
+        mgr.shed_reply(stub, "volume", "hog", 1.0, "conns")
+        import re
+        expect = re.sub(rb"\r\nDate: [^\r]*", b"", stub.wfile.getvalue(),
+                        count=1)
+        shed = [b for b in replies if b.startswith(b"HTTP/1.1 429")]
+
+        def ok(b, i):
+            return b.startswith(b"HTTP/1.1 200 ") and \
+                b.endswith(want[mine[i % len(mine)]])
+
+        bad = [b[:200] for i, b in enumerate(replies)
+               if not b.startswith(b"HTTP/1.1 429") and not ok(b, i)]
+        bad += [b[:200] for i, b in enumerate(first) if not ok(b, i)]
+        bad += [b[:200] for i, b in enumerate(goods)
+                if not ok(b, i % SERVE_GOOD_CONNS)]
+        if bad or not shed or shed_n != len(shed) or any(
+                re.sub(rb"\r\nDate: [^\r]*", b"", b, count=1) != expect
+                for b in shed):
+            raise AssertionError(f"frame-time shed: {len(shed)} 429s, "
+                                 f"counter {shed_n}, wrong replies {bad}, "
+                                 f"first {shed[:1]!r}, want {expect!r}")
+        out["qos"] = dict(hog_conns=SERVE_HOG_CONNS, hog_shed=len(shed),
+                          hog_admitted=len(replies) - len(shed),
+                          shed_counter=shed_n, good_gets=len(goods),
+                          seconds=qos_s)
+        log(f"  (b5) {back.url} back with -serve.maxConns "
+            f"{SERVE_QOS_MAX_CONNS}, QoS good:4 hog:1: the hog's second "
+            f"GETs on {SERVE_HOG_CONNS} connections: {len(shed)} shed at "
+            f"frame time (429, the admission seam's bytes; "
+            f"ServeShedCounter qos +{shed_n:.0f}), "
+            f"{len(replies) - len(shed)} admitted; good's {len(goods)} "
+            f"GETs on {SERVE_GOOD_CONNS} held connections all 200 [{card}]")
+        qos.reset()
+
+        # 6. every kind of GET: the async bytes against a threaded
+        # server's over a copy of the same volume files
+        plain = rng.bytes(300000)
+        text = rng.bytes(4000).hex().encode()
+        chunked = rng.bytes((5 << 20) // 2)
+        kinds = {"plain": operations.upload(master.url, plain,
+                                            filename="p.bin",
+                                            collection="kinds")}
+        a = operations.assign(master.url, collection="kinds")
+        r = operations.http_request(
+            "POST", f"{a.url}/{a.fid}", gzip.compress(text, mtime=0),
+            headers={"Content-Type": "text/plain",
+                     "Content-Encoding": "gzip"})
+        if r.status != 201:
+            raise AssertionError(f"gzip upload: http {r.status}")
+        kinds["gzip"] = a.fid
+        kinds["manifest"] = operations.submit(
+            master.url, chunked, filename="big.bin", mime="application/x-big",
+            max_mb=1, collection="kinds")
+
+        def kinds_compare():
+            from seaweedfs_tpu_torch.operation.chunked_file import \
+                load_chunk_manifest
+            nonlocal copy_vs
+            holder = {k: next(vs for vs in servers if vs.store.has_volume(
+                parse_fid(f).volume_id)) for k, f in kinds.items()}
+            cm = load_chunk_manifest(raw_get(
+                holder["manifest"].url, kinds["manifest"] + "?cm=false"
+            ).partition(b"\r\n\r\n")[2])
+            vids_k = {parse_fid(f).volume_id for f in kinds.values()} | \
+                {parse_fid(c.fid).volume_id for c in cm.chunks}
+            copy_dir = os.path.join(workdir, "threaded_copy")
+            os.makedirs(copy_dir)
+            for vs in servers:
+                d = vs.store.locations[0].directory
+                for name in os.listdir(d):
+                    base, ext = os.path.splitext(name)
+                    if ext in (".dat", ".idx", ".vif") and \
+                            int(base.rsplit("_", 1)[-1]) in vids_k:
+                        vs.store.find_volume(
+                            int(base.rsplit("_", 1)[-1])).sync()
+                        shutil.copy(os.path.join(d, name), copy_dir)
+            copy_vs = volume_server(copy_dir, free_port_pair(),
+                                    ServeConfig())
+            copy_vs.start()
+            wait_until(lambda: copy_vs.url in
+                       {n.url for n in master.topo.nodes()}, 60,
+                       "the threaded copy registered")
+            pfid = kinds["plain"]
+            etag = http_client.request(
+                "GET", f"{holder['plain'].url}/{pfid}").header("etag")
+            missing = format_fid(parse_fid(pfid).volume_id,
+                                 parse_fid(pfid).key + 999,
+                                 parse_fid(pfid).cookie)
+            variants = {
+                "plain": (pfid, ""),
+                "range": (pfid, "Range: bytes=1000-200999\r\n"),
+                "if_none_match": (pfid, f"If-None-Match: {etag}\r\n"),
+                "gzip_accepted": (kinds["gzip"],
+                                  "Accept-Encoding: gzip\r\n"),
+                "gzip_not_accepted": (kinds["gzip"], ""),
+                "chunk_manifest": (kinds["manifest"], ""),
+                "missing": (missing, ""),
+                "cookie_mismatch": (pfid[:-8] + "deadbeef", ""),
+            }
+            sent0 = ServeSendfileBytesCounter.labels("volume").value
+            got = {}
+            for name, (fid, extra) in variants.items():
+                kind = "manifest" if name == "chunk_manifest" else \
+                    "gzip" if name.startswith("gzip") else "plain"
+                a_bytes = raw_get(holder[kind].url, fid, extra)
+                t_bytes = raw_get(copy_vs.url, fid, extra)
+                if a_bytes != t_bytes:
+                    raise AssertionError(f"{name}: async {a_bytes[:300]!r}"
+                                         f" != threaded {t_bytes[:300]!r}")
+                got[name] = a_bytes
+            sent = ServeSendfileBytesCounter.labels("volume").value - sent0
+            checks = {
+                "plain": got["plain"].endswith(plain),
+                "range": got["range"].startswith(b"HTTP/1.1 206") and
+                got["range"].endswith(plain[1000:201000]),
+                "if_none_match": got["if_none_match"].startswith(
+                    b"HTTP/1.1 304"),
+                "gzip_accepted": b"Content-Encoding: gzip" in
+                got["gzip_accepted"],
+                "gzip_not_accepted": got["gzip_not_accepted"].endswith(text),
+                "chunk_manifest": got["chunk_manifest"].endswith(chunked),
+                "missing": got["missing"].startswith(b"HTTP/1.1 404"),
+                "cookie_mismatch": got["cookie_mismatch"].startswith(
+                    b"HTTP/1.1 404"),
+                "sendfile": sent >= len(plain) + 200000,
+            }
+            if not all(checks.values()):
+                raise AssertionError(f"GET kinds: {checks}")
+            return sorted(variants), sent
+
+        (names, sent), kinds_s = launches.run("serve_kinds", kinds_compare,
+                                              none=True)
+        out["kinds"] = dict(variants=names, sendfile_bytes=sent,
+                            seconds=kinds_s)
+        log(f"  (b6) async GET bytes == a threaded server's over a copy of "
+            f"the same volume files, Date aside, for {', '.join(names)}; "
+            f"{sent:.0f} B through sendfile [{card}]")
+    finally:
+        qos.reset()
+        if copy_vs is not None:
+            copy_vs.stop()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        http_client.close_all()
+        rpc.close_channels()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(launches.per_phase)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--needles", type=int, default=1 << 20)
@@ -4589,6 +5404,15 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"  phase 12 took {lifecycle['seconds']:.3f} s [{card}]")
+    log("phase 13: the async serving core (threaded against async server "
+        "processes; degraded reads, the keep-alive budget and QoS at "
+        "frame time through the async core of four servers)")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        serve = phase_serve(workdir, args.seed, "cuda", card=card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phase 13 took {serve['seconds']:.3f} s [{card}]")
     service["replication"] = {k: v for k, v in repl.items()
                               if k != "launches"}
     service["chunked"] = {k: v for k, v in chunked.items()
@@ -4598,6 +5422,8 @@ def main() -> int:
     service["lifecycle"] = {k: v for k, v in lifecycle.items()
                             if k != "launches"}
     service["launches"].update(lifecycle["launches"])
+    service["serve"] = {k: v for k, v in serve.items() if k != "launches"}
+    service["launches"].update(serve["launches"])
     main_launches = sum(m["launches"][p] for p in
                         ("generate", "rebuild", "degraded_read", "decode"))
     service_launches = sum(service["launches"].values())

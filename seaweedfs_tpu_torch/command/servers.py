@@ -24,6 +24,12 @@ and ``/debug/*``), ``-trace.sample``/``-trace.slowMs`` (cluster tracing)
 and ``-qos`` with its ``-qos.*`` knobs (per-tenant admission and fair
 queues); the volume server takes ``-heat.track``/``-heat.windowSeconds``
 and the master ``-lifecycle`` with its ``-lifecycle.*`` knobs.
+
+Both take the ``-serve.*`` flags: ``-serve.async`` serves HTTP on the
+selector loop of ``util/async_server.py`` (``-serve.maxConns``,
+``-serve.keepAliveBudget``, ``-serve.workers``; the volume server's GETs
+ride ``os.sendfile`` unless ``-serve.sendfile false``). Off by default:
+the threaded model serves and the async module is never imported.
 """
 
 from __future__ import annotations
@@ -126,9 +132,55 @@ def _master_parser() -> argparse.ArgumentParser:
     _add_lifecycle_args(p)
     p.add_argument("-metricsPort", dest="metrics_port", type=int,
                    default=0, help="Prometheus /metrics pull port")
+    _add_serve_args(p)
     _add_trace_args(p)
     _add_qos_args(p)
     return p
+
+
+def _add_serve_args(p: argparse.ArgumentParser) -> None:
+    """Shared -serve.* flags (util/async_server.py). Off by default: the
+    threaded model serves and no async machinery is made."""
+    p.add_argument("-serve.async", dest="serve_async",
+                   action="store_true",
+                   help="serve HTTP on the selector event loop (one "
+                        "poll loop + a bounded worker pool) instead "
+                        "of a thread per connection; responses are "
+                        "byte-identical, GET payloads ride zero-copy "
+                        "os.sendfile")
+    p.add_argument("-serve.maxConns", dest="serve_max_conns",
+                   type=int, default=0,
+                   help="open-connection cap for -serve.async; past "
+                        "it the listener stops accepting until "
+                        "connections close (0 = built-in 4096)")
+    p.add_argument("-serve.keepAliveBudget",
+                   dest="serve_keepalive_budget", type=int, default=0,
+                   help="idle keep-alive connections retained by "
+                        "-serve.async; past it the least-recently-"
+                        "active idle connection is closed (0 = "
+                        "built-in 1024)")
+    p.add_argument("-serve.workers", dest="serve_workers", type=int,
+                   default=0,
+                   help="handler worker threads for -serve.async "
+                        "(spawned lazily on the first requests; 0 = "
+                        "built-in 16)")
+    p.add_argument("-serve.sendfile", dest="serve_sendfile",
+                   type=lambda s: s.lower() not in ("0", "false", "no"),
+                   default=True,
+                   help="zero-copy GET payloads via os.sendfile under "
+                        "-serve.async (false = copy through userspace)")
+
+
+def _serve_config(opts):
+    """The ServeConfig of the -serve.* flags (the threaded default
+    without -serve.async)."""
+    from seaweedfs_tpu_torch.util.http_server import ServeConfig
+    return ServeConfig(
+        async_mode=opts.serve_async,
+        max_conns=opts.serve_max_conns,
+        keepalive_budget=opts.serve_keepalive_budget,
+        workers=opts.serve_workers,
+        sendfile=opts.serve_sendfile)
 
 
 def _add_lifecycle_args(p: argparse.ArgumentParser) -> None:
@@ -391,6 +443,7 @@ def _build_master(opts):
         scrub_interval_s=opts.scrub_interval_s,
         scrub_throttle_mbps=opts.scrub_throttle_mbps,
         lifecycle=_lifecycle_config(opts),
+        serve=_serve_config(opts),
         sequencer_type=conf.get_string("master.sequencer.type", "memory"),
         sequencer_node_id=conf.get("master.sequencer.node_id"),
         sequencer_etcd_urls=conf.get_string(
@@ -491,6 +544,7 @@ def _volume_parser() -> argparse.ArgumentParser:
                         "over")
     p.add_argument("-metricsPort", dest="metrics_port", type=int,
                    default=0, help="Prometheus /metrics pull port")
+    _add_serve_args(p)
     _add_trace_args(p)
     _add_qos_args(p)
     return p
@@ -531,5 +585,6 @@ def _build_volume(opts):
         hedge_delay_ms=opts.resilience_hedge_delay_ms,
         compaction_mbps=opts.compaction_mbps,
         heat_track=opts.heat_track, heat_window_s=opts.heat_window_s,
+        serve=_serve_config(opts),
         storage_backends=config.storage_backend_conf(
             config.load_configuration("master")))

@@ -7,9 +7,10 @@ Three planes, one manager:
   admission    per-tenant token buckets (request rate + bytes rate,
                burst-capped) at the shared HTTP/RPC instrumentation
                seams (stats/metrics.instrument_http_handler and
-               instrument_grpc_method). The per-tenant connection
-               budgets (conn_*) are carried as logic; the port has no
-               async serving core to call them yet
+               instrument_grpc_method), plus weighted per-tenant
+               connection budgets in the async serving core
+               (util/async_server.py): a tenant past its share is shed
+               at frame time, before a worker thread runs
   scheduling   weighted-fair queueing on util/fanout.FanOutPool (one
                seam covers the replica fan-out, the hedger's fetches
                and the delete fan-out); scrub and lifecycle run as the
@@ -23,12 +24,13 @@ Cost discipline (checked by tests/test_torch_qos.py):
 with -qos off NOTHING here is constructed. configure() installs the
 manager into each consumer seam as a module global; every seam's
 disabled path is a single ``is None`` check and the tenant contextvar
-is never set, so the pool submit path and both instrument wrappers are
-unchanged.
+is never set, so the pool submit path, the serving loop and both
+instrument wrappers are unchanged.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 from seaweedfs_tpu_torch.qos import tenant
@@ -74,6 +76,15 @@ def _install(mgr: Optional[QosManager]) -> None:
     from seaweedfs_tpu_torch import rpc
     from seaweedfs_tpu_torch.stats import metrics
     from seaweedfs_tpu_torch.util import fanout, http_client
+    if mgr is not None:
+        from seaweedfs_tpu_torch.util import async_server
+        async_server._qos = mgr
+    else:
+        # clearing the seam never imports the async core
+        async_server = sys.modules.get(
+            "seaweedfs_tpu_torch.util.async_server")
+        if async_server is not None:
+            async_server._qos = None
     fanout._qos_sched = mgr
     metrics._qos_http = mgr
     tv = tenant.current if mgr is not None else None

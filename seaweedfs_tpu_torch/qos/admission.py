@@ -204,8 +204,8 @@ class QosManager:
         return WeightedFairQueue(self, pool_name)
 
     def resolve(self, headers, path: str = "") -> str:
-        """Tenant identity from request metadata (for a serving loop in
-        util/, which never imports the qos package)."""
+        """Tenant identity from request metadata (the async serving loop
+        calls this, so util/ modules never import the qos package)."""
         return tenant_mod.resolve(headers, path)
 
     def observe_queued(self, state: TenantState, waited: float) -> None:
@@ -333,7 +333,7 @@ class QosManager:
                 % (name, reason, retry_after)).encode()
         handler.fast_reply(429, body, hdrs, ctype="text/plain")
 
-    # -- connection accounting (for an async serving core) --------------------
+    # -- connection accounting (async serving core) ---------------------------
 
     def conn_opened(self, name: str) -> None:
         with self._lock:

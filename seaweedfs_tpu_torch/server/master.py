@@ -30,10 +30,12 @@ and ``ec.encode``s idle volumes in fused groups, ``ec.decode``s re-heated
 ones and moves frozen ones to a tier backend, through the shell.
 
 ``/cluster/heat``, ``/cluster/qos`` and ``/cluster/lifecycle`` go to the
-leader like every other path; ``/qos/status``, ``/debug/trace`` and
-``/debug/requests`` answer for this process and are never proxied.
-
-Left out: ``/status`` and the UI.
+leader like every other path; ``/status`` (this master's Lifecycle and
+Heat blocks), ``/qos/status``, ``/debug/trace`` and ``/debug/requests``
+answer for this process and are never proxied. ``/`` and ``/ui`` are a
+plain page of the topology. With ``serve=ServeConfig(async_mode=True)``
+(``-serve.async``) the HTTP plane runs on the selector loop of
+``util/async_server.py``.
 
 Reference: weed/server/master_server.go, master_grpc_server.go
 (SendHeartbeat :20-176, KeepConnected :178-233),
@@ -66,7 +68,7 @@ from seaweedfs_tpu_torch.topology.volume_growth import (NoFreeSlots,
                                                        VolumeGrowth,
                                                        growth_count)
 from seaweedfs_tpu_torch.util import http_client, wlog
-from seaweedfs_tpu_torch.util.http_server import (FastHandler,
+from seaweedfs_tpu_torch.util.http_server import (FastHandler, ServeConfig,
                                                   make_http_server)
 
 log = wlog.logger("master")
@@ -136,7 +138,8 @@ class MasterServer:
                  sequencer_type: str = "memory",
                  sequencer_node_id: Optional[int] = None,
                  sequencer_etcd_urls: str = "127.0.0.1:2379",
-                 lifecycle=None):
+                 lifecycle=None,
+                 serve: Optional[ServeConfig] = None):
         self.ip = ip
         self.port = port
         self.meta_dir = meta_dir
@@ -179,6 +182,9 @@ class MasterServer:
         self._grow_lock = threading.Lock()
         # layouts being grown -> the event their waiters block on
         self._growing: Dict[tuple, threading.Event] = {}  # guarded_by(self._grow_lock)
+        # -serve.*: the async selector core; a default master never
+        # imports util/async_server
+        self.serve = serve or ServeConfig()
         self._grpc_server = None
         self._http_server = None
         self._http_thread = None
@@ -229,7 +235,8 @@ class MasterServer:
             [handler, raft_handler])
         self.raft.start()
         self._http_server = make_http_server(
-            (self.ip, self.port), _make_http_handler(self))
+            (self.ip, self.port), _make_http_handler(self),
+            role="master", serve=self.serve)
         # lint: thread-ok(listener thread; each request mints its own context)
         self._http_thread = threading.Thread(
             target=self._http_server.serve_forever, name="master-http",
@@ -883,6 +890,19 @@ class MasterServer:
                 "Leader": self.raft.leader() or "",
                 "Peers": self.raft.peers}
 
+    def http_status(self) -> dict:
+        """GET /status: this master's role block (the volume server's
+        /status twin): the lifecycle engine's state and the live cluster
+        heat."""
+        return {
+            "Version": "seaweedfs-tpu-torch",
+            "IsLeader": self.raft.is_leader,
+            "Lifecycle": self.lifecycle.status()
+            if self.lifecycle is not None else {"enabled": False},
+            "Heat": {str(vid): rec for vid, rec in
+                     sorted(self.topo.cluster_heat().items())},
+        }
+
     def http_cluster_heat(self) -> dict:
         """GET /cluster/heat: the heartbeat-fed cluster heat map, with
         each vid's observed tier — what `cluster.heat` renders."""
@@ -966,6 +986,14 @@ def _make_http_handler(ms: MasterServer):
             self.fast_reply(code, json.dumps(payload).encode(),
                             ctype="application/json")
 
+        def _html(self, body: str, code: int = 200) -> None:
+            blob = body.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(blob)))
+            self.end_headers()
+            self.wfile.write(blob)
+
         def _proxy_to_leader(self) -> bool:
             """Forward this request to the raft leader (reference
             master_server.go:155-185 proxyToLeader). True when the
@@ -998,6 +1026,10 @@ def _make_http_handler(ms: MasterServer):
                 self._json(cluster_trace.debug_payload(
                     self.path, "master", ms.url))
                 return
+            if upath == "/status":
+                # this master's own role block, never proxied
+                self._json(ms.http_status())
+                return
             if upath == "/qos/status":
                 # this process's own QoS admission state, never proxied
                 # (the gathered cluster view is /cluster/qos)
@@ -1029,6 +1061,8 @@ def _make_http_handler(ms: MasterServer):
                 self._json(ms.http_cluster_qos())
             elif upath == "/cluster/lifecycle":
                 self._json(ms.http_lifecycle(params, self.command))
+            elif upath in ("/", "/ui"):
+                self._html(_master_ui(ms))
             else:
                 self._json({"error": f"unknown path {upath}"}, code=404)
 
@@ -1036,3 +1070,31 @@ def _make_http_handler(ms: MasterServer):
 
     from seaweedfs_tpu_torch.stats.metrics import instrument_http_handler
     return instrument_http_handler(Handler, "master")
+
+
+def _master_ui(ms: MasterServer) -> str:
+    """A plain status page (reference master UI, server/master_ui/). Every
+    interpolated string is escaped: node urls and rack names come from
+    heartbeats, which is remote input."""
+    import html as _html
+    esc = _html.escape
+    rows = []
+    for node in ms.topo.nodes():
+        rows.append(
+            f"<tr><td>{esc(node.url)}</td><td>{len(node.volumes)}"
+            f"/{node.max_volumes}</td><td>{len(node.ec_shards)}</td>"
+            f"<td>{esc(node.rack.id if node.rack else '')}</td></tr>")
+    raft = ms.raft
+    return (
+        "<html><head><title>seaweedfs-tpu master</title></head><body>"
+        f"<h1>Master {esc(ms.url)}</h1>"
+        f"<p>leader: {esc(raft.leader() or '?')} | "
+        f"is_leader: {raft.is_leader}"
+        f" | peers: {esc(', '.join(raft.peers)) or '(single)'}"
+        f" | volume size limit: {ms.topo.volume_size_limit >> 20} MB</p>"
+        "<h2>Topology</h2><table border=1 cellpadding=4>"
+        "<tr><th>volume server</th><th>volumes</th><th>ec shards</th>"
+        "<th>rack</th></tr>" + "".join(rows) + "</table>"
+        "<p><a href=/dir/status>dir status (json)</a> | "
+        "<a href=/cluster/status>cluster status (json)</a></p>"
+        "</body></html>")

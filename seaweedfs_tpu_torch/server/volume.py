@@ -49,8 +49,16 @@ HTTP and RPC planes go through the shared request instrumentation
 ``/qos/status``, ``/debug/trace`` and ``/debug/requests`` answer on the
 data port.
 
-Left out (each queued in ROADMAP.md): the async core's sendfile path,
-image resizing, the ``/ui`` page and the Heat block of ``/status``.
+An image GET with ``width`` or ``height`` is EXIF-fixed and resized
+(``images/``; the stored bytes when PIL is missing, as in the JAX
+package). ``/status`` carries the Heat block and ``/ui`` is a plain page
+of this server's volumes.
+
+With ``serve=ServeConfig(async_mode=True)`` (``-serve.async``) the HTTP
+plane runs on the selector loop of ``util/async_server.py``; a plain GET
+of a local normal volume then leaves through ``os.sendfile``
+(``_try_send_needle_span``), and every reply is byte-identical to the
+threaded model's.
 
 Reference: weed/server/volume_server.go, volume_server_handlers_*.go,
 volume_grpc_*.go, volume_grpc_client_to_master.go.
@@ -100,7 +108,7 @@ from seaweedfs_tpu_torch.storage.volume import VolumeError
 from seaweedfs_tpu_torch.util.fanout import FanOutPool
 from seaweedfs_tpu_torch.util.throttler import Throttler
 from seaweedfs_tpu_torch.util import http_client, wlog
-from seaweedfs_tpu_torch.util.http_server import (FastHandler,
+from seaweedfs_tpu_torch.util.http_server import (FastHandler, ServeConfig,
                                                   make_http_server)
 from seaweedfs_tpu_torch.util.multipart import iter_parts
 
@@ -151,7 +159,8 @@ class VolumeServer:
                  storage_backends: Optional[dict] = None,
                  replicate_parallel: int = 8,
                  heat_track: bool = False,
-                 heat_window_s: float = 60.0):
+                 heat_window_s: float = 60.0,
+                 serve: Optional[ServeConfig] = None):
         self.ec_encoder = check_encoder(ec_encoder)
         if storage_backends:
             # tier targets (master.toml [storage.backend.<scheme>.<id>]);
@@ -218,6 +227,9 @@ class VolumeServer:
         from seaweedfs_tpu_torch.stats.heat import make_tracker
         self.heat = make_tracker(heat_track, window_s=heat_window_s)
         self.volume_size_limit = 30 << 30
+        # -serve.*: the async selector core and its zero-copy GET; a
+        # default server never imports util/async_server
+        self.serve = serve or ServeConfig()
         self._ec_locations: Dict[int, Tuple[float, Dict[int, List[str]]]] = {}
         self._grpc_server = None
         self._http_server = None
@@ -239,7 +251,8 @@ class VolumeServer:
         self._grpc_server = rpc.make_server(
             f"{self.ip}:{self.port + rpc.GRPC_PORT_OFFSET}", [handler])
         self._http_server = make_http_server(
-            (self.ip, self.port), _make_http_handler(self))
+            (self.ip, self.port), _make_http_handler(self),
+            role="volume", serve=self.serve)
         # lint: thread-ok(listener thread; each request mints its own context)
         self._http_thread = threading.Thread(
             target=self._http_server.serve_forever,
@@ -985,11 +998,14 @@ class VolumeServer:
 
     # -- needle data ops (shared by the HTTP handlers) -----------------------
 
-    def read_needle(self, vid: int, n: Needle) -> Needle:
-        if self.heat is not None:
+    def read_needle(self, vid: int, n: Needle,
+                    record_heat: bool = True) -> Needle:
+        if self.heat is not None and record_heat:
             # counted at admission, not success: a read of a dead needle
             # still heats the volume (the lifecycle policy cares about
-            # demand, not hit rate)
+            # demand, not hit rate). record_heat=False when the async
+            # span path already counted this request and fell back here
+            # for the payload.
             self.heat.record(vid, n.id)
         if self.store.has_volume(vid):
             got = self.store.read_needle(vid, n)
@@ -1328,15 +1344,7 @@ def _make_http_handler(vs: VolumeServer):
         def do_GET(self):
             upath = self.path.partition("?")[0]
             if upath == "/status":
-                self._json({
-                    "Version": "seaweedfs-tpu-torch",
-                    "Volumes": [Store.volume_info(v)
-                                for loc in vs.store.locations
-                                for v in list(loc.volumes.values())],
-                    "Scrub": vs.scrub.status(),
-                    "Cache": vs.read_cache.stats()
-                    if vs.read_cache is not None else {"enabled": False},
-                })
+                self._json(self.server_status())
                 return
             if upath == "/qos/status":
                 # the data plane's own QoS admission state (the master
@@ -1354,6 +1362,9 @@ def _make_http_handler(vs: VolumeServer):
                 self._json(cluster_trace.debug_payload(
                     self.path, "volumeServer", vs.url))
                 return
+            if upath in ("/ui", "/ui/"):
+                self._ui()
+                return
             try:
                 f, params = self._parse_path()
             except ValueError as e:
@@ -1363,9 +1374,22 @@ def _make_http_handler(vs: VolumeServer):
                     vs.store.find_ec_volume(f.volume_id) is None:
                 self._redirect(f)
                 return
+            record_heat = True
+            if self.async_conn is not None and vs.serve.sendfile and \
+                    not _failpoint._armed and \
+                    vs.store.has_volume(f.volume_id):
+                # the zero-copy path: the payload rides os.sendfile from
+                # the volume fd to the socket. It hands back to the byte
+                # path whenever the payload itself is needed (compressed,
+                # chunk manifest, image resize, armed failpoints, strict
+                # read verification)
+                if self._try_send_needle_span(f, params):
+                    return
+                record_heat = False   # the span path counted this read
             try:
                 got = vs.read_needle(f.volume_id,
-                                     Needle(id=f.key, cookie=f.cookie))
+                                     Needle(id=f.key, cookie=f.cookie),
+                                     record_heat=record_heat)
                 _deadline.check(f"volume {f.volume_id} read")
             except CookieMismatch:
                 self.fast_reply(404)
@@ -1393,9 +1417,46 @@ def _make_http_handler(vs: VolumeServer):
                     params.get("cm", [""])[0] != "false" and \
                     self._send_chunked(got):
                 return
-            self._send_needle(got)
+            self._send_needle(got, params)
 
         do_HEAD = do_GET
+
+        def server_status(self) -> dict:
+            return {
+                "Version": "seaweedfs-tpu-torch",
+                "Volumes": [Store.volume_info(v)
+                            for loc in vs.store.locations
+                            for v in list(loc.volumes.values())],
+                "Scrub": vs.scrub.status(),
+                "Cache": vs.read_cache.stats()
+                if vs.read_cache is not None else {"enabled": False},
+                "Heat": vs.heat.snapshot()
+                if vs.heat is not None else {"enabled": False},
+            }
+
+        def _ui(self) -> None:
+            """A plain page of this server's volumes (reference
+            volume_server_ui/); the collection names are escaped."""
+            import html as _html
+            st = self.server_status()
+            rows = "".join(
+                f"<tr><td>{v['id']}</td>"
+                f"<td>{_html.escape(v.get('collection') or '')}"
+                f"</td><td>{v['size']}</td><td>{v['file_count']}</td>"
+                f"<td>{'ro' if v.get('read_only') else 'rw'}</td></tr>"
+                for v in st["Volumes"])
+            body = ("<html><head><title>seaweedfs-tpu volume</title>"
+                    f"</head><body><h1>Volume server {vs.url}</h1>"
+                    f"<p>master: {vs.current_master}</p>"
+                    "<table border=1 cellpadding=4><tr><th>vid</th>"
+                    "<th>collection</th><th>size</th><th>files</th>"
+                    "<th>mode</th></tr>" + rows + "</table>"
+                    "</body></html>").encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
         def _send_chunked(self, got: Needle) -> bool:
             """Serve the file a chunk-manifest needle lists (reference
@@ -1478,7 +1539,74 @@ def _make_http_handler(vs: VolumeServer):
             self._json({"error": f"volume {f.volume_id} not found"},
                        code=404)
 
-        def _send_needle(self, got: Needle) -> None:
+        def _try_send_needle_span(self, f, params: dict) -> bool:
+            """The async zero-copy GET: resolve the needle's payload span
+            and reply through send_span (os.sendfile on the async
+            connection). True when a reply went out; False hands the
+            request to the byte path, which must not count its heat
+            again. Every reply here is byte-identical to _send_needle's
+            and do_GET's."""
+            if vs.heat is not None:
+                # counted at admission, where read_needle counts it
+                vs.heat.record(f.volume_id, f.key)
+            n = Needle(id=f.key, cookie=f.cookie)
+            try:
+                got_span = vs.store.read_needle_span(f.volume_id, n)
+            except CookieMismatch:
+                self.fast_reply(404)
+                return True
+            except NeedleError as e:
+                self._json({"error": str(e)}, code=404)
+                return True
+            if got_span is None:
+                return False
+            got, span = got_span
+            try:
+                _deadline.check(f"volume {f.volume_id} read")
+            except _deadline.DeadlineExceeded as e:
+                span.close()
+                self._json({"error": str(e)}, code=504)
+                return True
+            mime = got.mime.decode("utf-8", "replace") if got.mime else ""
+            if got.is_compressed or \
+                    (got.is_chunk_manifest and
+                     params.get("cm", [""])[0] != "false") or \
+                    (mime.startswith("image/") and
+                     ("width" in params or "height" in params)):
+                # the payload itself is needed: the byte path serves it
+                span.close()
+                return False
+            etag = f'"{got.etag}"'
+            if self.headers.get("if-none-match") == etag:
+                span.close()
+                self.fast_reply(304)
+                return True
+            headers = {"ETag": etag, "Accept-Ranges": "bytes"}
+            if got.name:
+                headers["Content-Disposition"] = content_disposition(
+                    got.name.decode("utf-8", "replace"))
+            if mime:
+                headers["Content-Type"] = mime
+            rng = self.headers.get("range")
+            if rng and rng.startswith("bytes="):
+                try:
+                    start, end = parse_byte_range(rng, span.length)
+                except ValueError:
+                    span.close()
+                    # RFC 7233 4.4: a 416 carries the representation size
+                    self.fast_reply(416, headers={
+                        "Content-Range": f"bytes */{span.length}"})
+                    return True
+                headers["Content-Range"] = \
+                    f"bytes {start}-{end}/{span.length}"
+                span.offset += start
+                span.length = end - start + 1
+                self.send_span(206, span, headers)
+                return True
+            self.send_span(200, span, headers)
+            return True
+
+        def _send_needle(self, got: Needle, params: dict) -> None:
             etag = f'"{got.etag}"'
             if self.headers.get("if-none-match") == etag:
                 self.fast_reply(304)
@@ -1491,11 +1619,27 @@ def _make_http_handler(vs: VolumeServer):
             mime = got.mime.decode("utf-8", "replace") if got.mime else ""
             if mime:
                 headers["Content-Type"] = mime
+            want_resize = mime.startswith("image/") and \
+                ("width" in params or "height" in params)
             if got.is_compressed:
-                if "gzip" in (self.headers.get("accept-encoding") or ""):
+                if not want_resize and "gzip" in (
+                        self.headers.get("accept-encoding") or ""):
                     headers["Content-Encoding"] = "gzip"
                 else:
                     data = gzip.decompress(data)
+            if want_resize:
+                # EXIF-upright, then resize, as the reference read
+                # handler does (volume_server_handlers_read.go:219-243)
+                from seaweedfs_tpu_torch.images import (fix_orientation,
+                                                        resized)
+                data = fix_orientation(data, mime)
+                try:
+                    width = int(params.get("width", ["0"])[0] or 0)
+                    height = int(params.get("height", ["0"])[0] or 0)
+                except ValueError:
+                    width = height = 0
+                data, _, _ = resized(data, mime, width=width, height=height,
+                                     mode=params.get("mode", [""])[0])
             rng = self.headers.get("range")
             if rng and rng.startswith("bytes=") and not got.is_compressed:
                 try:

@@ -495,6 +495,23 @@ def swallowed(site: str) -> None:
     SwallowedErrorsCounter.labels(site).inc()
 
 
+# Async serving core families (util/async_server.py, -serve.async): how
+# many sockets the selector loop holds, how much GET payload leaves
+# through zero-copy sendfile, and what backpressure sheds. `kind` is
+# bounded: accept (listener paused at -serve.maxConns) | keepalive (idle
+# LRU closed over -serve.keepAliveBudget) | qos (a tenant refused at
+# frame time).
+ServeConnectionsGauge = REGISTRY.gauge(
+    "SeaweedFS_serve_open_connections",
+    "sockets held open by the async serving core", ("role",))
+ServeSendfileBytesCounter = REGISTRY.counter(
+    "SeaweedFS_serve_sendfile_bytes_total",
+    "GET payload bytes sent zero-copy via os.sendfile", ("role",))
+ServeShedCounter = REGISTRY.counter(
+    "SeaweedFS_serve_shed_total",
+    "connections shed by the async core's backpressure",
+    ("role", "kind"))
+
 # Multi-tenant QoS families (qos/, -qos.*). `tenant` cardinality is
 # bounded by -qos.maxTenants: past the cap every new name charges (and
 # labels as) the shared "_other" tenant. `reason` is bounded: requests |

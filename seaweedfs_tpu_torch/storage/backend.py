@@ -115,6 +115,12 @@ class DiskFile(BackendStorageFile):
     def size(self) -> int:
         return self._size
 
+    def fileno(self) -> int:
+        """The raw fd for zero-copy readers: the volume read path dup()s
+        it into a FileSpan, so a close or a vacuum's file swap cannot
+        pull it from under a sendfile in flight."""
+        return self._fd
+
     def close(self) -> None:
         if self._fd >= 0:
             os.close(self._fd)

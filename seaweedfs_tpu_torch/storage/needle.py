@@ -188,6 +188,63 @@ class Needle:
             verify_needle_integrity(n)
         return n
 
+    @classmethod
+    def from_disk_meta(cls, header: bytes, meta: bytes,
+                       data_size: int,
+                       version: int = VERSION3) -> "Needle":
+        """Parse a needle from its header + post-payload bytes only —
+        the zero-copy read path (``Store.read_needle_span``): the payload
+        stays on disk and ships via sendfile, so only the two small
+        metadata regions are read. ``meta`` starts at the flags byte
+        (immediately after the payload) and runs through the checksum
+        (+ appendAtNs on v3). ``data`` stays empty; callers use the
+        span's length where read_needle callers use len(data)."""
+        if len(header) < t.NEEDLE_HEADER_SIZE:
+            raise NeedleError("needle blob too short")
+        cookie, nid, size_u = struct.unpack_from(">IQI", header, 0)
+        size = t.size_to_int32(size_u)
+        if t.size_is_deleted(size):
+            raise NeedleError(f"needle size {size} marks a tombstone")
+        n = cls(id=nid, cookie=cookie, size=size)
+        off = 0
+        if size > 0:
+            n.flags = meta[off]
+            off += 1
+            if n.flags & FLAG_HAS_NAME:
+                ln = meta[off]
+                off += 1
+                n.name = meta[off:off + ln]
+                off += ln
+            if n.flags & FLAG_HAS_MIME:
+                lm = meta[off]
+                off += 1
+                n.mime = meta[off:off + lm]
+                off += lm
+            if n.flags & FLAG_HAS_LAST_MODIFIED:
+                n.last_modified = int.from_bytes(
+                    meta[off:off + LAST_MODIFIED_BYTES], "big")
+                off += LAST_MODIFIED_BYTES
+            if n.flags & FLAG_HAS_TTL:
+                n.ttl = TTL.from_bytes(meta[off:off + TTL_BYTES])
+                off += TTL_BYTES
+            if n.flags & FLAG_HAS_PAIRS:
+                (ps,) = struct.unpack_from(">H", meta, off)
+                off += 2
+                n.pairs = meta[off:off + ps]
+                off += ps
+        (n.checksum,) = struct.unpack_from(">I", meta, off)
+        if version == VERSION3:
+            (n.append_at_ns,) = struct.unpack_from(">Q", meta, off + 4)
+        # consistency guard: the attr walk must land exactly on the
+        # checksum the size field promises (a torn/garbled record
+        # would misparse silently otherwise)
+        expect_attrs = size - 4 - data_size if size > 0 else 0
+        if off != expect_attrs:
+            raise NeedleError(
+                f"needle {nid:x}: meta walk ended at {off}, "
+                f"expected {expect_attrs}")
+        return n
+
     def _parse_body(self, body: bytes) -> None:
         if not body:
             return

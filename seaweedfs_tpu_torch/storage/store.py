@@ -146,6 +146,15 @@ class Store:
             raise NeedleError(f"volume {vid} not found")
         return v.read_needle(n)
 
+    def read_needle_span(self, vid: int, n: Needle):
+        """The zero-copy variant for the async serving core: (needle
+        metadata, payload FileSpan), or None when the volume cannot serve
+        spans, and the caller falls back to read_needle."""
+        v = self.find_volume(vid)
+        if v is None:
+            return None
+        return v.read_needle_span(n)
+
     def delete_needle(self, vid: int, n: Needle) -> int:
         v = self.find_volume(vid)
         if v is None:

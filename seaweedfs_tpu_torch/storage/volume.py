@@ -551,6 +551,74 @@ class Volume:
             verify_needle_integrity(got)
         return got
 
+    def read_needle_span(self, n: Needle):
+        """Zero-copy read: the needle's metadata from two small preads,
+        its payload left on disk. Returns (needle, FileSpan): the needle
+        carries cookie, flags, name, mime, checksum and ttl but empty
+        data; the span (a dup'd fd, the payload's offset and length) is
+        the caller's to sendfile and close. Returns None when this volume
+        cannot serve spans: a .dat in an object store or the memory tier
+        (a RemoteFile), or SEAWEED_VERIFY_READS, which asks for a payload
+        CRC check that a copy-free send never reads. Raises what
+        read_needle raises (NeedleError, CookieMismatch). The span trades
+        the read-time CRC check for the copy-free send; the scrub owns
+        integrity at rest."""
+        from seaweedfs_tpu_torch.util.http_server import FileSpan
+        if _VERIFY_READS:
+            return None
+        with self._lock:
+            dat = self._dat
+            if dat is None or dat.is_remote or \
+                    not isinstance(dat, DiskFile):
+                return None
+            nv = self.nm.get(n.id)
+            if nv is None or not t.size_is_valid(nv.size):
+                raise NeedleError(f"needle {n.id:x} not found")
+            offset = nv.offset
+            hdr = dat.read_at(t.NEEDLE_HEADER_SIZE + 4, offset)
+            if len(hdr) < t.NEEDLE_HEADER_SIZE:
+                raise NeedleError(
+                    f"short read at {offset}: {len(hdr)} < "
+                    f"{t.NEEDLE_HEADER_SIZE}")
+            size = t.size_to_int32(
+                int.from_bytes(hdr[12:16], "big"))
+            if size > 0:
+                if len(hdr) < t.NEEDLE_HEADER_SIZE + 4:
+                    raise NeedleError(
+                        f"short read at {offset}: {len(hdr)} < "
+                        f"{t.NEEDLE_HEADER_SIZE + 4}")
+                data_size = int.from_bytes(hdr[16:20], "big")
+                data_off = offset + t.NEEDLE_HEADER_SIZE + 4
+            else:
+                data_size = 0
+                data_off = offset + t.NEEDLE_HEADER_SIZE
+            meta_off = data_off + data_size
+            # attrs + checksum (+ts on v3); the padding tail is
+            # irrelevant to the parse
+            meta_len = (size - 4 - data_size if size > 0 else 0) + \
+                4 + (t.TIMESTAMP_SIZE if self.version == VERSION3
+                     else 0)
+            meta = dat.read_at(meta_len, meta_off)
+            if len(meta) < meta_len:
+                raise NeedleError(
+                    f"short read at {meta_off}: {len(meta)} < "
+                    f"{meta_len}")
+            got = Needle.from_disk_meta(hdr, meta, data_size,
+                                        self.version)
+            span_fd = os.dup(dat.fileno())
+        span = FileSpan(span_fd, data_off, data_size)
+        try:
+            if n.cookie and got.cookie != n.cookie:
+                raise CookieMismatch(
+                    f"needle {n.id:x}: cookie {n.cookie:08x} != "
+                    f"{got.cookie:08x}")
+            if got.has_expired():
+                raise NeedleError(f"needle {n.id:x} expired")
+        except NeedleError:
+            span.close()
+            raise
+        return got, span
+
     def _read_needle_at(self, offset: int, size: int,
                         check_crc: bool = True) -> Needle:
         length = actual_size(size, self.version)

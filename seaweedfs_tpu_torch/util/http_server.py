@@ -17,9 +17,11 @@ per-response Date header (cached per second) are replaced.
 
 from __future__ import annotations
 
+import os
 import socket
 import threading
 import time
+from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -27,8 +29,10 @@ _MAX_LINE = 65536
 _MAX_HEADERS = 100
 # one chunk-size line of a chunked body (hex digits + extensions)
 _MAX_CHUNK_LINE = 1024
-# drain window for request bodies a handler left unread
-_DRAIN = 65536
+# copy window for threaded file-span bodies (an async connection hands
+# the span to os.sendfile instead), and the drain window for request
+# bodies a handler left unread
+_SPAN_COPY = 65536
 
 # status -> reason phrase for fast_reply (same table BaseHTTPRequestHandler
 # uses, flattened once at import)
@@ -145,12 +149,15 @@ def is_chunked(headers) -> bool:
 
 
 class BodyReader:
-    """Framing-aware request-body reader.
+    """Framing-aware request-body reader shared by both server models.
 
-    Wraps the raw connection reader and exposes exactly the request
-    body: reads are capped at the Content-Length, and a
-    ``Transfer-Encoding: chunked`` body is decoded transparently.
-    ``drain()`` consumes whatever the handler left unread, keeping
+    Wraps the raw connection reader (threaded model) or a buffer of the
+    already-received body bytes (async model, ``util/async_server.py``)
+    and exposes exactly the request body: reads are capped at the
+    Content-Length, and a ``Transfer-Encoding: chunked`` body is decoded
+    transparently, by the same code on both models, so a chunked PUT
+    answers byte-identically whichever core serves it. ``drain()``
+    consumes whatever the handler left unread, keeping
     keep-alive/pipelined framing intact."""
 
     __slots__ = ("_raw", "_chunked", "_remaining", "_done")
@@ -221,17 +228,65 @@ class BodyReader:
     def drain(self) -> None:
         """Discard whatever the handler left unread."""
         while not self._done:
-            if not self.read(_DRAIN):
+            if not self.read(_SPAN_COPY):
                 break
 
     def close(self) -> None:
         pass
 
 
-def make_http_server(addr, handler_cls):
+class FileSpan:
+    """A file-backed response body: (fd, offset, length).
+
+    Made by the volume read path's zero-copy seam
+    (``Store.read_needle_span``) and consumed by ``send_span``: an async
+    connection hands it to os.sendfile (the payload never enters
+    Python), a threaded connection streams it in ``_SPAN_COPY`` pread
+    windows. Owns its (dup'd) fd; close() releases it once."""
+
+    __slots__ = ("fd", "offset", "length")
+
+    def __init__(self, fd: int, offset: int, length: int):
+        self.fd = fd
+        self.offset = offset
+        self.length = length
+
+    def close(self) -> None:
+        if self.fd >= 0:
+            try:
+                os.close(self.fd)
+            except OSError:
+                pass
+            self.fd = -1
+
+    def __del__(self):  # leak-proofing; normal paths close explicitly
+        self.close()
+
+
+@dataclass
+class ServeConfig:
+    """The -serve.* flags, one object per server role (0 = the async
+    core's built-in default, ``util/async_server.py``)."""
+    async_mode: bool = False
+    max_conns: int = 0
+    keepalive_budget: int = 0
+    workers: int = 0
+    sendfile: bool = True
+
+
+def make_http_server(addr, handler_cls, role: str = "",
+                     serve: Optional[ServeConfig] = None):
     """The one seam every role builds its HTTP server through: the
-    thread-per-connection TrackingHTTPServer (the JAX package's selector
-    core, ``util/async_server.py``, is not ported)."""
+    selector-based async core under -serve.async, the
+    thread-per-connection TrackingHTTPServer otherwise. The async module
+    is imported only under the flag, so a default server makes no
+    selector, no connection state and no pool."""
+    if serve is not None and serve.async_mode:
+        from seaweedfs_tpu_torch.util.async_server import AsyncHTTPServer
+        return AsyncHTTPServer(addr, handler_cls, role=role,
+                               max_conns=serve.max_conns,
+                               keepalive_budget=serve.keepalive_budget,
+                               workers=serve.workers)
     return TrackingHTTPServer(addr, handler_cls)
 
 
@@ -291,9 +346,20 @@ class FastHandler(BaseHTTPRequestHandler):
     # handler, so buffering coalesces each response into ONE send
     # (Go's net/http response writer buffers the same way).
     wbufsize = 65536
+    # set per request by the async core: the connection driving this
+    # request, None when the threaded model serves. Handlers use it to
+    # choose zero-copy paths (the volume GET's sendfile); everything else
+    # is model-agnostic.
+    async_conn = None
+
     def handle_expect_100(self):
         """The interim 100 Continue must reach the client BEFORE we
-        block reading the body — flush past the buffered wfile."""
+        block reading the body — flush past the buffered wfile. The async
+        core sends the interim reply itself when it parses the head (the
+        body has not arrived yet when the handler re-parses), so a
+        handler marked _expect_sent skips the write."""
+        if getattr(self, "_expect_sent", False):
+            return True
         ok = super().handle_expect_100()
         if ok:
             self.wfile.flush()
@@ -301,8 +367,10 @@ class FastHandler(BaseHTTPRequestHandler):
 
     def _head_bytes(self, code: int, length: Optional[int], headers=None,
                     ctype: str = "") -> bytes:
-        """One response head as a single bytes blob; a length of None
-        frames the body with chunked transfer encoding."""
+        """One response head as a single bytes blob, shared by fast_reply
+        (a body in memory) and send_span (a body in a file), so the two
+        reply styles cannot differ on the wire; a length of None frames
+        the body with chunked transfer encoding."""
         reason = _REASONS.get(code, "")
         # mirrored by the instrumented send_response hook: the cluster
         # tracer's tail sampler keeps 5xx requests by final status
@@ -333,6 +401,34 @@ class FastHandler(BaseHTTPRequestHandler):
                                           ctype))
         if body and self.command != "HEAD":
             self.wfile.write(body)
+
+    def send_span(self, code: int, span: "FileSpan", headers=None,
+                  ctype: str = "") -> None:
+        """A reply whose body is a FileSpan: the head bytes of
+        fast_reply, the body from the file. On an async connection the
+        span rides os.sendfile; on a threaded one it streams in bounded
+        pread windows. The bytes on the wire are the same either way."""
+        self.wfile.write(self._head_bytes(code, span.length, headers,
+                                          ctype))
+        if span.length == 0 or self.command == "HEAD":
+            span.close()
+            return
+        add_span = getattr(self.wfile, "add_span", None)
+        if add_span is not None:  # the async core's response writer
+            add_span(span)
+            return
+        off, remaining = span.offset, span.length
+        try:
+            while remaining > 0:
+                chunk = os.pread(span.fd, min(_SPAN_COPY, remaining), off)
+                if not chunk:
+                    raise OSError(f"file span truncated at {off} "
+                                  f"({remaining} bytes short)")
+                self.wfile.write(chunk)
+                off += len(chunk)
+                remaining -= len(chunk)
+        finally:
+            span.close()
 
     def read_body(self) -> bytes:
         """The full request body, whatever the framing: the installed

@@ -716,8 +716,16 @@ def test_ec_mesh_encode_and_degraded_reads(tmp_path, monkeypatch):
             with c.http(f"{vs.url}/{fid}") as r:
                 return r.read() == d
 
-        with ThreadPoolExecutor(8) as ex:
-            assert all(ex.map(read, enumerate(sample.items())))
+        def shared_decode() -> bool:
+            # a decode rides the mesh only when two reads meet in one
+            # batch, which a loaded host can keep apart in a round: read
+            # the sample again until two did
+            with ThreadPoolExecutor(8) as ex:
+                assert all(ex.map(read, enumerate(sample.items())))
+            return calls["decode"] >= 1
+
+        wait_for(shared_decode, timeout=60,
+                 what="two concurrent reads sharing one mesh decode")
         assert sum(vs.degraded.dispatches for vs in c.volume_servers) > d0
         assert calls["decode"] >= 1
         assert fallbacks() == before

@@ -1037,16 +1037,32 @@ def test_collections_and_cluster_status(tmp_path):
         stats = master_stub(c.master.url).Statistics(
             master_pb2.StatisticsRequest())
 
+        def held() -> int:
+            return sum(v.content_size for vs in c.volume_servers
+                       for loc in vs.store.locations
+                       for v in list(loc.volumes.values()))
+
         def reported():
+            # a grown volume is registered at allocation with size 0; its
+            # superblock's bytes arrive with a later heartbeat, which can
+            # land after the six files are counted, so wait until the
+            # master's sum is the servers' own
             st = master_stub(c.master.url).Statistics(
                 master_pb2.StatisticsRequest())
-            return st if st.file_count == 6 else None
+            return st if st.file_count == 6 and \
+                st.used_size == held() else None
         stats = wait_for(reported, timeout=60,
-                         what="six files in the statistics")
+                         what="the servers' six files and bytes in the "
+                              "statistics")
         out = sh.run_command("cluster.status")
         assert f"used bytes: {stats.used_size}" in out
         assert "files: 6" in out
-        drop = {parse_fid(f).volume_id for f in gone}
+        # every volume grown for "drop", not only those holding its
+        # files: collection.list names a collection while any of its
+        # layouts holds a vid
+        drop = {parse_fid(f).volume_id for f in gone} | {
+            vid for (col, _, _), vl in list(c.master.topo.layouts.items())
+            if col == "drop" for vid in vl.volume_ids()}
         sh.run_command("collection.delete -collection=drop")
         for vs in c.volume_servers:
             assert not [n for n in os.listdir(vs.store.locations[0].directory)
