@@ -252,7 +252,35 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    equal byte for byte (Date aside) to a threaded server's over a copy
    of the same volume files, the plain ones through sendfile.
    gf_linear's launch count must rise in (1) and (3) and stay 0 in (6).
-14. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+14. The filer over EC on the card, in this process: one MasterServer
+   (placement 000, volumes of 64 MiB), four VolumeServers and a
+   FilerServer (``-store sqlite``, ``-maxMB 4``, collection ``filer``).
+   (a) phase 11's twelve files of 1 KiB-40 MiB through ``filer.copy`` of a
+   local directory (a subprocess of the CLI) and 2,048 files of 1-64 KiB
+   in 64 directories by HTTP POST from 16 threads: MB/s, files/s, chunk
+   count; ``fs.ls``, ``fs.du`` and ``fs.tree`` agree with the tree. With
+   ``cryptography``, a second filer with ``-encryptVolumeData`` writes
+   four files (the first filer references the same chunks); without it,
+   its POST answers 500 and stores no chunk. (b) ``ec.encode
+   -collection=filer`` of every volume: GB/s, K1 launches. (c) through
+   the filer: every large file whole, 1,024 sampled small files, 64
+   Range reads at chunk boundaries; p50/p99. (d) a server holding at most
+   four shards of every volume stopped, the filers' chunk caches emptied,
+   (c) again and the encrypted files: decode fleet dispatches and K1
+   launches (at least one per dispatch). (e) ``volume.fsck``: 0 orphans
+   over the EC volumes; 16 needles uploaded with the ``upload`` CLI
+   outside the filer found exactly by ``volume.fsck -v`` and purged by
+   ``-reallyDeleteFromVolume -cutoffTimeAgo 1``. (f) ``fs.meta.save /``,
+   ``fs.meta.load`` into a fresh filer on ``-store weedkv``, the large
+   files read through it with the server still stopped. (g) ``python -m
+   seaweedfs_tpu_torch server -filer -cpuprofile`` as a subprocess: one
+   file POSTed and read back, SIGINT, exit 0 and the profile written;
+   ``version``, ``scaffold -config filer``; ``backup`` of one volume
+   (``.dat`` byte-equal to the source) and ``compact -commit`` of a copy
+   (the same live needles, a smaller ``.dat``). Every read is checked
+   byte for byte. gf_linear's launch count must rise in (b), (d) and
+   (f) and stay 0 in (a), (c) and (g).
+15. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -5315,6 +5343,592 @@ def phase_serve(workdir: str, seed: int, backend: str, card: str = "",
     return out
 
 
+# --- phase 14 -----------------------------------------------------------------
+
+# The filer over EC on the card: one master and four volume servers
+# (placement 000, volumes of 64 MiB) and a filer on the JAX default store
+# (sqlite) with -maxMB 4 and collection "filer", all in this process. The
+# namespace is a tree of FILER_SMALL_FILES files of 1-64 KiB in
+# FILER_DIRS directories (the small-file mix of upstream `weed benchmark
+# -size 1024`-style ingest through `weed filer`) plus phase 11's twelve
+# files of 1 KiB-40 MiB, written with `filer.copy`.
+FILER_VOLUME_MB = 64
+FILER_MAX_MB = 4
+FILER_SMALL_FILES = 2048
+FILER_DIRS = 64
+FILER_SMALL_MAX = 64 << 10
+FILER_SAMPLE = 1024
+FILER_RANGES = 64
+FILER_FSCK_NEEDLES = 16
+FILER_FSCK_CUTOFF_S = 1
+FILER_ENCRYPTED_FILES = 4
+FILER_KEEPERS = 32
+
+
+def filer_get(url: str, path: str, headers=None):
+    from seaweedfs_tpu_torch.operation import operations
+    return operations.http_request("GET", f"{url}{path}", headers=headers)
+
+
+def read_filer(url: str, jobs, datas, threads: int = SERVICE_THREADS
+               ) -> list:
+    """GET every (path, start, length) job (length None: the whole file)
+    through the filer at ``url`` from ``threads`` threads; every byte
+    must equal the file's. Returns the latencies."""
+    def worker(part):
+        lat = []
+        for path, start, length in part:
+            headers = None if length is None else \
+                {"Range": f"bytes={start}-{start + length - 1}"}
+            t0 = time.perf_counter()
+            r = filer_get(url, path, headers)
+            lat.append(time.perf_counter() - t0)
+            data = datas[path]
+            want = data if length is None else data[start:start + length]
+            if r.status != (200 if length is None else 206) or \
+                    hashlib.sha256(r.body).digest() != \
+                    hashlib.sha256(want).digest():
+                raise AssertionError(
+                    f"{path} [{start}, +{length}] through the filer: http "
+                    f"{r.status}, {len(r.body)} B, want {len(want)} B "
+                    f"{r.body[:200]!r}")
+        return lat
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        parts = list(pool.map(worker, [jobs[i::threads]
+                                       for i in range(threads)]))
+    return [t for p in parts for t in p]
+
+
+def needle_count(servers) -> int:
+    return sum(v.file_count for vs in servers
+               for loc in vs.store.locations
+               for v in list(loc.volumes.values()))
+
+
+def live_needles_of(directory: str, collection: str, vid: int) -> dict:
+    """{key: data} of every live needle of a volume's files."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    v = Volume(directory, collection, vid, create_if_missing=False,
+               async_write=False)
+    try:
+        return {k: v.read_needle(Needle(id=k)).data
+                for k in sorted(v.nm.keys())}
+    finally:
+        v.close()
+
+
+def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
+                small_files: int = FILER_SMALL_FILES,
+                sizes=None, sample: int = FILER_SAMPLE,
+                ranges: int = FILER_RANGES) -> dict:
+    """Phase 14: the filer over EC volumes. (a) ingest: the large files
+    with `filer.copy` (a subprocess of the CLI), the small ones by HTTP
+    POST from 16 threads, fs.ls/fs.du/fs.tree against the tree; (b)
+    ec.encode of the collection on the card; (c) healthy reads through
+    the filer; (d) a server holding at most four shards of every volume
+    stopped, the reads again, K1 decoding the lost intervals; (e)
+    volume.fsck: 0 orphans, then N needles uploaded outside the filer
+    found and purged; (f) fs.meta.save, fs.meta.load into a fresh filer
+    on weedkv, the large files read through it; (g) `server -filer
+    -cpuprofile` as a subprocess, `version`, `scaffold -config filer`,
+    `backup` and `compact -commit` of one volume. With `cryptography`, a
+    second filer with -encryptVolumeData writes four files in (a) and
+    reads them back in (d); without it, its POST must answer 500 and
+    store no chunk."""
+    import signal as signal_mod
+
+    import re
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.operation.file_id import parse_fid
+    from seaweedfs_tpu_torch.server.filer import FilerServer
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.shell import Shell
+    from seaweedfs_tpu_torch.util import http_client
+    from seaweedfs_tpu_torch.util.chunk_cache import TieredChunkCache
+
+    card = card or backend
+    launches = Launches(backend)
+    out = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    chunk = FILER_MAX_MB << 20
+    rng = np.random.default_rng(seed + 40)
+    sizes = chunked_file_sizes(rng) if sizes is None else list(sizes)
+    datas = {}
+    large_dir = os.path.join(workdir, "large")
+    os.makedirs(large_dir)
+    for i, size in enumerate(sizes):
+        data = rng.bytes(int(size))
+        with open(os.path.join(large_dir, f"file{i:02d}.bin"), "wb") as f:
+            f.write(data)
+        datas[f"/large/large/file{i:02d}.bin"] = data
+    large_paths = sorted(datas)
+    pool_bytes = rng.bytes(8 << 20)
+    small = {}
+    for i in range(small_files):
+        size = int(rng.integers(1024, FILER_SMALL_MAX + 1))
+        off = int(rng.integers(0, len(pool_bytes) - size))
+        small[f"/small/d{i % FILER_DIRS:02d}/f{i:04d}.bin"] = \
+            pool_bytes[off:off + size]
+    datas.update(small)
+    try:
+        import cryptography  # noqa: F401
+        have_crypto = True
+    except ImportError:
+        have_crypto = False
+
+    master = MasterServer(port=free_port_pair(),
+                          meta_dir=os.path.join(workdir, "m"),
+                          volume_size_limit_mb=FILER_VOLUME_MB,
+                          pulse_seconds=1.0)
+    servers, filers, procs = [], [], []
+    t_phase = time.perf_counter()
+    try:
+        master.start()
+        for i in range(SERVICE_SERVERS):
+            d = os.path.join(workdir, f"vol{i}")
+            os.makedirs(d)
+            vs = VolumeServer(master.url, [d], port=free_port_pair(),
+                              max_volume_counts=[40], pulse_seconds=1.0,
+                              ec_encoder=backend)
+            vs.start()
+            servers.append(vs)
+        wait_until(lambda: len(master.topo.nodes()) == len(servers), 30,
+                   "four servers registered")
+        filer = FilerServer(master.url, port=free_port_pair(),
+                            store="sqlite",
+                            meta_dir=os.path.join(workdir, "filer"),
+                            collection="filer", replication="000",
+                            chunk_size=chunk)
+        filer.start()
+        filers.append(filer)
+        secret = FilerServer(master.url, port=free_port_pair(),
+                             store="memory", collection="filer",
+                             replication="000", chunk_size=chunk,
+                             cipher=True)
+        secret.start()
+        filers.append(secret)
+        sh = Shell(master.url, filer_url=filer.url)
+
+        # (a) ingest
+        def ingest():
+            t0 = time.perf_counter()
+            run_cli(["filer.copy", "-maxMB", str(FILER_MAX_MB),
+                     "-collection", "filer", "-c", "4", large_dir,
+                     f"http://{filer.url}/large/"], root)
+            large_s = time.perf_counter() - t0
+            items = sorted(small.items())
+
+            def post(part):
+                for path, data in part:
+                    r = http_client.request("POST", f"{filer.url}{path}",
+                                            body=data)
+                    if r.status != 201:
+                        raise AssertionError(f"POST {path}: http "
+                                             f"{r.status} {r.body[:200]!r}")
+
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(
+                    SERVICE_THREADS) as pool:
+                list(pool.map(post, [items[i::SERVICE_THREADS]
+                                     for i in range(SERVICE_THREADS)]))
+            return large_s, time.perf_counter() - t0
+
+        (large_s, small_s), ingest_s = launches.run("filer_ingest", ingest,
+                                                    none=True)
+        large_bytes = sum(len(datas[p]) for p in large_paths)
+        small_bytes = sum(len(d) for d in small.values())
+        n_chunks = sum(len(filer.filer.find_entry(p).chunks)
+                       for p in large_paths)
+        if n_chunks != sum(max(1, -(-len(datas[p]) // chunk))
+                           for p in large_paths):
+            raise AssertionError(f"filer.copy: {n_chunks} chunks")
+        ls = sh.run_command("fs.ls /small").split()
+        if sorted(ls) != [f"d{j:02d}/" for j in range(FILER_DIRS)]:
+            raise AssertionError(f"fs.ls /small: {ls[:8]}...")
+        du = {line.rsplit("\t", 1)[1]: line
+              for line in sh.run_command("fs.du /").splitlines()}
+        for top, want in (("/small", small_bytes), ("/large", large_bytes)):
+            got = int(du[top].split("byte:")[1].split()[0])
+            if got != want:
+                raise AssertionError(f"fs.du {top}: {got} B, want {want}")
+        tree = sh.run_command("fs.tree /small")
+        if tree.count(".bin") != len(small) or \
+                tree.count("/\n") != FILER_DIRS:
+            raise AssertionError("fs.tree /small")
+        enc_paths = []
+        enc_before = needle_count(servers)
+        if have_crypto:
+            for i in range(FILER_ENCRYPTED_FILES):
+                path = f"/secret/e{i}.bin"
+                datas[path] = rng.bytes(int(rng.integers(1, 3 * chunk)))
+                r = http_client.request("POST", f"{secret.url}{path}",
+                                        body=datas[path])
+                if r.status != 201:
+                    raise AssertionError(f"encrypted POST: {r.status}")
+                enc_paths.append(path)
+                # the main filer references the same chunks, so that
+                # volume.fsck (which walks one filer) counts them in use
+                filer.filer.create_entry("/secret",
+                                         secret.filer.find_entry(path))
+            crypto_case = (f"cryptography present: {len(enc_paths)} "
+                           "encrypted files written")
+        else:
+            r = http_client.request("POST", f"{secret.url}/secret/e.bin",
+                                    body=rng.bytes(chunk + 5))
+            if r.status != 500 or needle_count(servers) != enc_before:
+                raise AssertionError(f"encrypted POST without cryptography:"
+                                     f" http {r.status}, "
+                                     f"{needle_count(servers) - enc_before}"
+                                     " chunks stored")
+            crypto_case = ("cryptography absent: the encrypted POST "
+                           "answered 500 and stored no chunk")
+        total = large_bytes + small_bytes
+        out["ingest"] = dict(
+            seconds=ingest_s, large_files=len(large_paths),
+            large_bytes=large_bytes, large_seconds=large_s,
+            large_MBps=large_bytes / large_s / 1e6, chunks=n_chunks,
+            small_files=len(small), small_bytes=small_bytes,
+            small_seconds=small_s, small_MBps=small_bytes / small_s / 1e6,
+            small_files_per_s=len(small) / small_s,
+            MBps=total / (large_s + small_s) / 1e6, encryption=crypto_case)
+        log(f"  (a) filer.copy -maxMB {FILER_MAX_MB} of {len(large_paths)} "
+            f"files ({large_bytes} B, {n_chunks} chunks) in "
+            f"{large_s:.3f} s = {large_bytes / large_s / 1e6:.1f} MB/s; "
+            f"{len(small)} files of 1-64 KiB ({small_bytes} B) in "
+            f"{FILER_DIRS} directories by POST from {SERVICE_THREADS} "
+            f"threads in {small_s:.3f} s = {len(small) / small_s:.1f} "
+            f"files/s, {small_bytes / small_s / 1e6:.1f} MB/s; fs.ls, "
+            f"fs.du and fs.tree agree with the tree; {crypto_case} "
+            f"[{card}]")
+
+        # (b) ec.encode of the collection on the card
+        vids = sorted({vid for vs in servers for loc in vs.store.locations
+                       for vid, v in list(loc.volumes.items())
+                       if v.collection == "filer"})
+        dat_bytes = 0
+        for vid in vids:
+            for vs in servers:
+                v = vs.store.find_volume(vid)
+                if v is not None:
+                    v.sync()
+                    dat_bytes += v.content_size
+        text, enc_s = launches.run(
+            "filer_encode", sh.run_command,
+            f"ec.encode -collection=filer "
+            f"-volumeId={','.join(map(str, vids))}")
+        for vid in vids:
+            if f"volume {vid}: ec.encode done" not in text:
+                raise AssertionError(f"ec.encode:\n{text}")
+        wait_until(lambda: all(
+            not master.topo.lookup(v) and
+            sum(b.count for b in master.topo.lookup_ec(v).values()) == 14
+            for v in vids), 60, "the EC layout settled")
+        out["encode"] = dict(seconds=enc_s, volumes=vids,
+                             dat_bytes=dat_bytes,
+                             GBps=dat_bytes / enc_s / 1e9,
+                             launches=launches.per_phase["filer_encode"])
+        log(f"  (b) ec.encode -collection=filer of {len(vids)} volumes "
+            f"({dat_bytes} B of .dat): {enc_s:.3f} s = "
+            f"{dat_bytes / enc_s / 1e9:.3f} GB/s, "
+            f"{launches.per_phase['filer_encode']} gf_linear launches "
+            f"[{card}]")
+
+        # (c) healthy reads through the filer
+        picked = sorted(small)
+        picked = [picked[int(i)] for i in
+                  rng.choice(len(picked), min(sample, len(picked)),
+                             replace=False)]
+        jobs = []
+        for _ in range(ranges):
+            path = large_paths[int(rng.integers(len(large_paths)))]
+            size = len(datas[path])
+            edge = int(rng.integers(0, max(1, size // chunk) + 1)) * chunk
+            start = min(size - 1, max(0, edge + int(rng.integers(-4096,
+                                                                 4097))))
+            jobs.append((path, start, int(rng.integers(
+                1, min(size - start, 2 * chunk) + 1))))
+
+        def reads(url):
+            whole = read_filer(url, [(p, 0, None) for p in large_paths],
+                               datas, threads=4)
+            smalls = read_filer(url, [(p, 0, None) for p in picked], datas)
+            ranged = read_filer(url, jobs, datas)
+            return whole, smalls, ranged
+
+        def stats(whole, smalls, ranged, secs):
+            return dict(
+                seconds=secs, whole=len(whole),
+                whole_p50_ms=float(np.percentile(whole, 50) * 1e3),
+                whole_p99_ms=float(np.percentile(whole, 99) * 1e3),
+                small=len(smalls),
+                small_p50_ms=float(np.percentile(smalls, 50) * 1e3),
+                small_p99_ms=float(np.percentile(smalls, 99) * 1e3),
+                ranged=len(ranged),
+                ranged_p50_ms=float(np.percentile(ranged, 50) * 1e3),
+                ranged_p99_ms=float(np.percentile(ranged, 99) * 1e3))
+
+        (whole, smalls, ranged), secs = launches.run(
+            "filer_healthy_reads", reads, filer.url, none=True)
+        out["healthy_reads"] = stats(whole, smalls, ranged, secs)
+        log(f"  (c) through the filer: every large file whole "
+            f"({pcts(whole)}), {len(smalls)} sampled small files "
+            f"({pcts(smalls)}), {len(ranged)} Range reads at chunk "
+            f"boundaries ({pcts(ranged)}); bytes equal; {secs:.3f} s "
+            f"[{card}]")
+
+        # (d) a server with at most four shards of every volume stopped
+        victim = max((vs for vs in servers
+                      if all(len(held(vs, v)) <= 4 for v in vids)),
+                     key=lambda vs: sum(len(held(vs, v)) for v in vids))
+        victim.stop()
+        servers.remove(victim)
+        wait_until(lambda: victim.url not in
+                   {n.url for n in master.topo.nodes()}, 30,
+                   "the master dropping the stopped server")
+        # the filers' chunk caches hold (c)'s chunks: empty them, so every
+        # read below goes to the volume servers
+        for f in filers:
+            f.chunk_cache = TieredChunkCache()
+        d0 = sum(vs.degraded.dispatches for vs in servers)
+
+        def degraded():
+            got = reads(filer.url)
+            if enc_paths:
+                read_filer(secret.url, [(p, 0, None) for p in enc_paths],
+                           datas, threads=4)
+            return got
+
+        (whole, smalls, ranged), secs = launches.run(
+            "filer_degraded_reads", degraded)
+        dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+        k1 = launches.per_phase["filer_degraded_reads"]
+        if not dispatches or (backend == "cuda" and k1 < dispatches):
+            raise AssertionError(f"degraded filer reads: {dispatches} "
+                                 f"decode dispatches, {k1} K1 launches")
+        out["degraded_reads"] = dict(stats(whole, smalls, ranged, secs),
+                                     dispatches=dispatches, launches=k1,
+                                     lost_server=victim.url,
+                                     encrypted_files=len(enc_paths))
+        log(f"  (d) {victim.url} stopped (at most 4 shards of every "
+            f"volume); through the filer: every large file whole "
+            f"({pcts(whole)}), {len(smalls)} small files ({pcts(smalls)}), "
+            f"{len(ranged)} Range reads ({pcts(ranged)}), "
+            f"{len(enc_paths)} encrypted files; bytes equal; {dispatches} "
+            f"decode fleet dispatches, {k1} K1 launches "
+            f"({k1 / dispatches:.2f} per dispatch); {secs:.3f} s [{card}]")
+
+        # (e) volume.fsck
+        def fsck():
+            t0 = time.perf_counter()
+            first = sh.run_command("volume.fsck")
+            first_s = time.perf_counter() - t0
+            if " 0 orphans" not in first:
+                raise AssertionError(f"volume.fsck on the EC volumes:\n"
+                                     f"{first}")
+            blobs = []
+            for i in range(FILER_FSCK_NEEDLES):
+                p = os.path.join(workdir, f"orphan{i}.bin")
+                with open(p, "wb") as f:
+                    f.write(rng.bytes(int(rng.integers(100, 5000))))
+                blobs.append(p)
+            up = json.loads(run_cli(["upload", "-master", master.url,
+                                     "-collection", "filer"] + blobs, root))
+            uploaded = time.time()
+            fids = sorted(u["fid"] for u in up)
+            t0 = time.perf_counter()
+            found = sh.run_command("volume.fsck -v")
+            found_s = time.perf_counter() - t0
+            want = sorted(f"{parse_fid(f).volume_id},{parse_fid(f).key:x}"
+                          "xxxxxxxx" for f in fids)
+            got = sorted(line.strip() for line in found.splitlines()
+                         if line.startswith("  ") and "xxxxxxxx" in line)
+            if got != want or \
+                    f" {FILER_FSCK_NEEDLES} orphans" not in found:
+                raise AssertionError(f"volume.fsck -v: {got} != {want}\n"
+                                     f"{found}")
+            # the volume's .dat time is whole seconds: wait out the
+            # cutoff and the second it may round down by
+            time.sleep(max(0.0, uploaded + FILER_FSCK_CUTOFF_S + 1.2 -
+                           time.time()))
+            purge = sh.run_command(
+                "volume.fsck -reallyDeleteFromVolume -cutoffTimeAgo "
+                f"{FILER_FSCK_CUTOFF_S}")
+            purged = sum(int(n) for n in re.findall(
+                r"purged (\d+)/\d+ blobs", purge))
+            if purged != FILER_FSCK_NEEDLES:
+                raise AssertionError(f"purge:\n{purge}")
+            after = sh.run_command("volume.fsck")
+            if " 0 orphans" not in after:
+                raise AssertionError(f"after the purge:\n{after}")
+            for f in fids:
+                holder = operations.lookup(master.url,
+                                           parse_fid(f).volume_id)[0]
+                r = filer_get(holder, f"/{f}")
+                if r.status != 404:
+                    raise AssertionError(f"{f} after the purge: {r.status}")
+            return first_s, found_s, fids
+
+        (first_s, found_s, orphan_fids), fsck_s = launches.run(
+            "filer_fsck", fsck, maybe=True)
+        out["fsck"] = dict(seconds=fsck_s, ec_seconds=first_s,
+                           found_seconds=found_s,
+                           orphans=len(orphan_fids),
+                           launches=launches.per_phase["filer_fsck"])
+        log(f"  (e) volume.fsck over the EC volumes: 0 orphans in "
+            f"{first_s:.3f} s; {len(orphan_fids)} needles uploaded outside "
+            f"the filer found exactly by volume.fsck -v ({found_s:.3f} s) "
+            f"and purged by -reallyDeleteFromVolume -cutoffTimeAgo "
+            f"{FILER_FSCK_CUTOFF_S}; 0 orphans after; {fsck_s:.3f} s "
+            f"[{card}]")
+
+        # (f) the metadata round trip into a filer on weedkv
+        def meta_round_trip():
+            snap = os.path.join(workdir, "namespace.meta")
+            t0 = time.perf_counter()
+            saved = sh.run_command(f"fs.meta.save -o {snap} /")
+            save_s = time.perf_counter() - t0
+            fresh = FilerServer(master.url, port=free_port_pair(),
+                                store="weedkv",
+                                meta_dir=os.path.join(workdir, "filer2"),
+                                collection="filer", chunk_size=chunk)
+            fresh.start()
+            filers.append(fresh)
+            t0 = time.perf_counter()
+            loaded = Shell(master.url, filer_url=fresh.url).run_command(
+                f"fs.meta.load {snap}")
+            load_s = time.perf_counter() - t0
+            lat = read_filer(fresh.url, [(p, 0, None) for p in large_paths],
+                             datas, threads=4)
+            return saved.strip(), loaded.strip(), save_s, load_s, lat
+
+        (saved, loaded, save_s, load_s, lat), secs = launches.run(
+            "filer_meta_round_trip", meta_round_trip)
+        out["meta"] = dict(save_seconds=save_s, load_seconds=load_s,
+                           reads=len(lat),
+                           read_p50_ms=float(np.percentile(lat, 50) * 1e3),
+                           launches=launches.per_phase[
+                               "filer_meta_round_trip"])
+        log(f"  (f) fs.meta.save / in {save_s:.3f} s ({saved}); "
+            f"fs.meta.load into a fresh filer on weedkv in {load_s:.3f} s "
+            f"({loaded}); the large files through it with the server "
+            f"still stopped ({pcts(lat)}), "
+            f"{launches.per_phase['filer_meta_round_trip']} K1 launches "
+            f"[{card}]")
+
+        # (g) the one-process server, version, scaffold, backup, compact
+        def cli():
+            t0 = time.perf_counter()
+            d = os.path.join(workdir, "server")
+            prof = os.path.join(workdir, "server.prof")
+            ports = [free_port_pair() for _ in range(3)]
+            argv = [sys.executable, "-m", "seaweedfs_tpu_torch", "server",
+                    "-filer", "-dir", d, "-master.port", str(ports[0]),
+                    "-volume.port", str(ports[1]), "-filer.port",
+                    str(ports[2]), "-volume.max", "4", "-cpuprofile", prof]
+            if backend != "cuda":
+                argv += ["-ec.encoder", backend]
+            proc = subprocess.Popen(
+                argv, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append(proc)
+            url = f"127.0.0.1:{ports[2]}"
+            body = rng.bytes(300_000)
+
+            def posted():
+                try:
+                    return http_client.request(
+                        "POST", f"{url}/one/f.bin", body=body,
+                        timeout=10).status == 201
+                except OSError:
+                    return False
+
+            wait_until(posted, 120, "server -filer to take a POST")
+            r = filer_get(url, "/one/f.bin")
+            if r.status != 200 or r.body != body:
+                raise AssertionError(f"server -filer GET: {r.status}")
+            proc.send_signal(signal_mod.SIGINT)
+            _, err = proc.communicate(timeout=60)
+            procs.remove(proc)
+            if proc.returncode != 0 or "Traceback" in err or \
+                    not os.path.getsize(prof):
+                raise AssertionError(f"server -filer exit "
+                                     f"{proc.returncode}:\n{err[-3000:]}")
+            server_s = time.perf_counter() - t0
+            version = run_cli(["version"], root).strip()
+            scaffold = run_cli(["scaffold", "-config", "filer"], root)
+            if "[sqlite]" not in scaffold:
+                raise AssertionError("scaffold -config filer")
+            # backup and compact: the normal volume the fsck needles
+            # went to (purged: it has deletions to compact), with
+            # FILER_KEEPERS needles written into it now to keep
+            vid = parse_fid(orphan_fids[0]).volume_id
+            holder = next(vs for vs in servers
+                          if vs.store.find_volume(vid) is not None)
+            for i in range(FILER_KEEPERS):
+                fid = f"{vid},{SERVE_KEY0 + i:x}{0x5eed:08x}"
+                r = http_client.request(
+                    "POST", f"{holder.url}/{fid}",
+                    body=rng.bytes(int(rng.integers(100, 20000))))
+                if r.status != 201:
+                    raise AssertionError(f"POST {fid}: {r.status}")
+            v = holder.store.find_volume(vid)
+            v.sync()
+            bk = os.path.join(workdir, "backup")
+            os.makedirs(bk)
+            run_cli(["backup", "-server", master.url, "-volumeId", str(vid),
+                     "-collection", "filer", "-dir", bk], root)
+            src_base = v.file_name()
+            if sha256_file(os.path.join(bk, f"filer_{vid}.dat")) != \
+                    sha256_file(src_base + ".dat"):
+                raise AssertionError("backup: .dat differs from the source")
+            cp = os.path.join(workdir, "compact")
+            os.makedirs(cp)
+            for ext in (".dat", ".idx"):
+                shutil.copy(src_base + ext, cp)
+            before = live_needles_of(cp, "filer", vid)
+            size0 = os.path.getsize(os.path.join(cp, f"filer_{vid}.dat"))
+            run_cli(["compact", "-dir", cp, "-volumeId", str(vid),
+                     "-collection", "filer", "-commit"], root)
+            after = live_needles_of(cp, "filer", vid)
+            size1 = os.path.getsize(os.path.join(cp, f"filer_{vid}.dat"))
+            if after != before or len(after) < FILER_KEEPERS or \
+                    size1 >= size0:
+                raise AssertionError(f"compact: {len(after)} needles of "
+                                     f"{len(before)}, {size0} -> {size1} B")
+            return server_s, version, vid, len(after), size0, size1
+
+        (server_s, version, vid, live, size0, size1), cli_s = \
+            launches.run("filer_cli", cli, none=True)
+        out["cli"] = dict(seconds=cli_s, server_seconds=server_s,
+                          version=version, volume=vid, live_needles=live,
+                          dat_before=size0, dat_after=size1)
+        log(f"  (g) server -filer -cpuprofile: one file POSTed and read "
+            f"back, stopped by SIGINT (exit 0, profile written) in "
+            f"{server_s:.3f} s; {version!r}; scaffold -config filer; "
+            f"backup of volume {vid}: .dat byte-equal to the source; "
+            f"compact -commit: the same {live} live needles, .dat {size0} "
+            f"-> {size1} B; {cli_s:.3f} s [{card}]")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.communicate()
+        for f in filers:
+            f.stop()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        http_client.close_all()
+        rpc.close_channels()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(launches.per_phase)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--needles", type=int, default=1 << 20)
@@ -5413,6 +6027,16 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"  phase 13 took {serve['seconds']:.3f} s [{card}]")
+    log("phase 14: the filer over EC on the card (a master, four servers "
+        "and a filer on sqlite; filer.copy, POSTs, ec.encode, degraded "
+        "reads through the filer, volume.fsck, fs.meta.save/load, "
+        "server -filer, backup, compact)")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_filer_")
+    try:
+        filer = phase_filer(workdir, args.seed, "cuda", card=card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phase 14 took {filer['seconds']:.3f} s [{card}]")
     service["replication"] = {k: v for k, v in repl.items()
                               if k != "launches"}
     service["chunked"] = {k: v for k, v in chunked.items()
@@ -5424,6 +6048,8 @@ def main() -> int:
     service["launches"].update(lifecycle["launches"])
     service["serve"] = {k: v for k, v in serve.items() if k != "launches"}
     service["launches"].update(serve["launches"])
+    service["filer"] = {k: v for k, v in filer.items() if k != "launches"}
+    service["launches"].update(filer["launches"])
     main_launches = sum(m["launches"][p] for p in
                         ("generate", "rebuild", "degraded_read", "decode"))
     service_launches = sum(service["launches"].values())

@@ -12,3 +12,6 @@ storage formats it needs. Entry points default to the card
 (``backend="cuda"``); ``backend="cpu"`` runs the kernels' plain PyTorch
 versions and exists for tests.
 """
+
+# the JAX package's version: both print "seaweedfs-tpu <version>"
+__version__ = "0.1.0"

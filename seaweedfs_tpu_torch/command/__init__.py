@@ -1,8 +1,11 @@
 """The single-binary command layer: ``python -m seaweedfs_tpu_torch <cmd>``.
 
 The port of ``seaweedfs_tpu.command`` for the cluster and its clients:
-``master``, ``volume``, ``shell``, ``upload``, ``download``, ``delete``,
-``benchmark``, ``fix`` and ``export``. Global flags (-v verbosity,
+``master``, ``volume``, ``filer``, ``server``, ``shell``, ``upload``,
+``download``, ``delete``, ``benchmark``, ``backup``, ``fix``, ``export``,
+``compact``, ``scaffold``, ``version``, ``filer.cat``, ``filer.copy`` and
+``filer.meta.tail``; ``s3``, ``webdav`` and ``ftp`` answer with an error
+naming their ROADMAP item. Global flags (-v verbosity,
 -logFile) are peeled off before dispatch, like the reference's glog flags
 (weed/command/command.go:10-34, weed/weed.go:37). Every server and client
 command reads ``security.toml`` first (``setup_client_tls``).
@@ -63,8 +66,12 @@ def main(argv=None) -> int:
         print(f"unknown command {name!r}", file=sys.stderr)
         _usage()
         return 2
+    from seaweedfs_tpu_torch import unported
     try:
         return entry[0](args) or 0
+    except unported.NotPortedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     except KeyboardInterrupt:
         return 130
 
@@ -86,3 +93,4 @@ def setup_client_tls(role: str = "client") -> None:
 from seaweedfs_tpu_torch.command import servers  # noqa: E402,F401
 from seaweedfs_tpu_torch.command import tools  # noqa: E402,F401
 from seaweedfs_tpu_torch.command import benchmark  # noqa: E402,F401
+from seaweedfs_tpu_torch.command import filer_tools  # noqa: E402,F401

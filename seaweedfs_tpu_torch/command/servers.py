@@ -1,11 +1,20 @@
-"""Server subcommands: master and volume.
+"""Server subcommands: master, volume, filer and server (all three in one
+process).
 
 Flag names and defaults follow the JAX package's command layer
 (``seaweedfs_tpu/command/servers.py``, itself the reference's
-weed/command/master.go:29-46 and volume.go:65-90) for the flags the port
-carries. ``-ec.encoder`` takes ``cuda`` (the default) or ``cpu``;
-any other name is refused. Each subcommand blocks until SIGINT or
-SIGTERM, then stops its server.
+weed/command/master.go:29-46, volume.go:65-90, filer.go:43-67 and
+server.go) for the flags the port carries. ``-ec.encoder`` takes
+``cuda`` (the default) or ``cpu``; any other name is refused. Each
+subcommand blocks until SIGINT or SIGTERM, then stops its servers, and
+``master``, ``volume`` and ``server`` take ``-cpuprofile`` (a cProfile
+dump written at the stop, ``util/grace.py``).
+
+The filer keeps the JAX package's ``-store`` names: ``memory``,
+``sqlite`` (the default), ``weedkv``, ``mysql`` and ``postgres`` run;
+the networked stores, ``s3``, ``webdav``, ``ftp``, ``server -s3`` and a
+``notification.toml`` that enables a queue answer with an error naming
+their ROADMAP item (``unported.py``).
 
 Both read security.toml first (``_setup_tls``): with its ``[grpc.ca]``
 and ``[grpc.master]``/``[grpc.volume]`` sections the server's RPC plane
@@ -40,8 +49,9 @@ import signal
 import threading
 from typing import List
 
+from seaweedfs_tpu_torch import unported
 from seaweedfs_tpu_torch.command import command
-from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.util import grace, wlog
 
 log = wlog.logger("command")
 
@@ -77,6 +87,13 @@ def _serve_with_metrics(server, opts, role: str) -> int:
 
 
 def _serve_until_signalled(server) -> int:
+    return _serve_all_until_signalled([server])
+
+
+def _serve_all_until_signalled(servers, started: int = 0) -> int:
+    """Start ``servers[started:]``, block until SIGINT or SIGTERM, then
+    stop every server (the last started first) and write the
+    -cpuprofile dump (``grace.stop_profiling``)."""
     done = threading.Event()
 
     def _stop(signum, frame):  # noqa: ARG001
@@ -84,12 +101,15 @@ def _serve_until_signalled(server) -> int:
 
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, _stop)
-    server.start()
     try:
+        for server in servers[started:]:
+            server.start()
         while not done.wait(timeout=0.5):
             pass
     finally:
-        server.stop()
+        for server in reversed(servers):
+            server.stop()
+        grace.stop_profiling()
     return 0
 
 
@@ -130,12 +150,20 @@ def _master_parser() -> argparse.ArgumentParser:
                    default=0.0,
                    help="IO budget handed to each scheduled scrub")
     _add_lifecycle_args(p)
+    _add_cpuprofile_arg(p)
     p.add_argument("-metricsPort", dest="metrics_port", type=int,
                    default=0, help="Prometheus /metrics pull port")
     _add_serve_args(p)
     _add_trace_args(p)
     _add_qos_args(p)
     return p
+
+
+def _add_cpuprofile_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-cpuprofile", default=None,
+                   help="write a cProfile dump of the whole run to this "
+                        "file when the server stops (read it with "
+                        "python -m pstats)")
 
 
 def _add_serve_args(p: argparse.ArgumentParser) -> None:
@@ -414,6 +442,7 @@ def run_master(args) -> int:
     opts = _master_parser().parse_args(args)
     _configure_trace(opts)
     _configure_qos(opts)
+    grace.setup_profiling(opts.cpuprofile)
     return _serve_with_metrics(_build_master(opts), opts, "master")
 
 
@@ -506,20 +535,32 @@ def _volume_parser() -> argparse.ArgumentParser:
     p.add_argument("-cache.dir", dest="cache_dir", default="",
                    help="directory for the read cache's disk tier "
                         "(empty = RAM tier only)")
-    p.add_argument("-resilience.hedge", dest="resilience_hedge",
-                   action="store_true",
-                   help="hedged reads: after the tracked p95, send one "
-                        "speculative request to another shard holder "
-                        "(<=5%% extra-request budget)")
-    p.add_argument("-resilience.hedgeDelayMs",
-                   dest="resilience_hedge_delay_ms", type=float,
-                   default=10.0,
-                   help="floor for the hedge delay (the tracked p95 "
-                        "takes over once measured)")
     p.add_argument("-compactionMBps", dest="compaction_mbps", type=float,
                    default=0.0,
                    help="pace of vacuum scans and volume file copies "
                         "(0 = unthrottled)")
+    _add_resilience_args(p)
+    p.add_argument("-heat.track", dest="heat_track", action="store_true",
+                   help="per-volume (and sampled per-needle) read-path "
+                        "heat telemetry: SeaweedFS_volume_heat{vid}, "
+                        "and the heat map the master's lifecycle engine "
+                        "decides from")
+    p.add_argument("-heat.windowSeconds", dest="heat_window_s",
+                   type=float, default=60.0,
+                   help="sliding window the heat gauge counts reads "
+                        "over")
+    _add_cpuprofile_arg(p)
+    p.add_argument("-metricsPort", dest="metrics_port", type=int,
+                   default=0, help="Prometheus /metrics pull port")
+    _add_serve_args(p)
+    _add_trace_args(p)
+    _add_qos_args(p)
+    return p
+
+
+def _add_resilience_args(p: argparse.ArgumentParser) -> None:
+    """Shared -resilience.* flags (volume and filer; see resilience/).
+    Everything defaults off: the layer costs nothing until enabled."""
     p.add_argument("-resilience.breaker", dest="resilience_breaker",
                    action="store_true",
                    help="per-peer circuit breakers: fail fast on dead "
@@ -533,21 +574,24 @@ def _volume_parser() -> argparse.ArgumentParser:
                    default=5.0,
                    help="seconds an open breaker waits before the "
                         "half-open probe")
-    p.add_argument("-heat.track", dest="heat_track", action="store_true",
-                   help="per-volume (and sampled per-needle) read-path "
-                        "heat telemetry: SeaweedFS_volume_heat{vid}, "
-                        "and the heat map the master's lifecycle engine "
-                        "decides from")
-    p.add_argument("-heat.windowSeconds", dest="heat_window_s",
-                   type=float, default=60.0,
-                   help="sliding window the heat gauge counts reads "
-                        "over")
-    p.add_argument("-metricsPort", dest="metrics_port", type=int,
-                   default=0, help="Prometheus /metrics pull port")
-    _add_serve_args(p)
-    _add_trace_args(p)
-    _add_qos_args(p)
-    return p
+    p.add_argument("-resilience.hedge", dest="resilience_hedge",
+                   action="store_true",
+                   help="hedged reads: after the tracked p95, send one "
+                        "speculative request to another replica or "
+                        "shard holder (<=5%% extra-request budget)")
+    p.add_argument("-resilience.hedgeDelayMs",
+                   dest="resilience_hedge_delay_ms", type=float,
+                   default=10.0,
+                   help="floor for the hedge delay (the tracked p95 "
+                        "takes over once measured)")
+
+
+def _configure_resilience(opts) -> None:
+    if opts.resilience_breaker:
+        from seaweedfs_tpu_torch.resilience import breaker
+        breaker.configure(enable=True,
+                          threshold=opts.resilience_breaker_threshold,
+                          cooldown_s=opts.resilience_breaker_cooldown)
 
 
 @command("volume", "start a volume server (data plane)")
@@ -556,6 +600,7 @@ def run_volume(args) -> int:
     opts = _volume_parser().parse_args(args)
     _configure_trace(opts)
     _configure_qos(opts)
+    grace.setup_profiling(opts.cpuprofile)
     vs = _build_volume(opts)
     _attach_qos_heat(vs)
     return _serve_with_metrics(vs, opts, "volume")
@@ -564,11 +609,7 @@ def run_volume(args) -> int:
 def _build_volume(opts):
     from seaweedfs_tpu_torch.server.volume import VolumeServer
     from seaweedfs_tpu_torch.util import config
-    if opts.resilience_breaker:
-        from seaweedfs_tpu_torch.resilience import breaker
-        breaker.configure(enable=True,
-                          threshold=opts.resilience_breaker_threshold,
-                          cooldown_s=opts.resilience_breaker_cooldown)
+    _configure_resilience(opts)
     dirs = _split_dirs(opts.dir)
     maxes = [int(x) for x in str(opts.max).split(",")]
     if len(maxes) == 1:
@@ -588,3 +629,217 @@ def _build_volume(opts):
         serve=_serve_config(opts),
         storage_backends=config.storage_backend_conf(
             config.load_configuration("master")))
+
+
+def _filer_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="filer", description="start a filer")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8888)
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-store", default="sqlite",
+                   help="metadata store: memory | sqlite | weedkv "
+                        "(embedded log-structured KV) | mysql | postgres "
+                        "(connection params come from the matching "
+                        "filer.toml section); the networked stores are "
+                        "not carried yet")
+    p.add_argument("-dir", default="./filer",
+                   help="directory for metadata store + event log")
+    p.add_argument("-collection", default="")
+    p.add_argument("-defaultReplicaPlacement", dest="replication",
+                   default="")
+    p.add_argument("-maxMB", dest="max_mb", type=int, default=32,
+                   help="auto-chunking split size")
+    p.add_argument("-encryptVolumeData", dest="cipher",
+                   action="store_true",
+                   help="encrypt every chunk with AES-256-GCM (needs the "
+                        "cryptography package; without it an encrypted "
+                        "write or read answers 500)")
+    p.add_argument("-ingest.parallelism", dest="ingest_parallelism",
+                   type=int, default=8,
+                   help="chunk uploads in flight per multi-chunk body "
+                        "(1 = fully serial ingest, no pool threads)")
+    p.add_argument("-assign.leaseCount", dest="assign_lease_count",
+                   type=int, default=0,
+                   help="lease N fids per master assign and hand them "
+                        "out locally (0 = one assign per chunk)")
+    p.add_argument("-peers", default="",
+                   help="comma-separated host:port of ALL filers in "
+                        "this cluster (merged metadata view)")
+    p.add_argument("-meta.lookupTTL", dest="meta_lookup_ttl_s",
+                   type=float, default=0.0,
+                   help="arm the coalescing volume-lookup cache: "
+                        "positive answers live this many seconds (0 = "
+                        "off, one round trip per lookup)")
+    p.add_argument("-meta.lookupNegativeTTL",
+                   dest="meta_lookup_negative_ttl_s", type=float,
+                   default=2.0,
+                   help="seconds a NOT-FOUND lookup answer is served "
+                        "from cache (only with -meta.lookupTTL)")
+    p.add_argument("-meta.lookupCoalesceMs",
+                   dest="meta_lookup_coalesce_ms", type=float,
+                   default=2.0,
+                   help="how long a lookup miss waits for siblings to "
+                        "join its batched master round trip (only with "
+                        "-meta.lookupTTL)")
+    p.add_argument("-meta.lookupBatchMax",
+                   dest="meta_lookup_batch_max", type=int, default=128,
+                   help="most vids fused into one batched lookup round "
+                        "trip (only with -meta.lookupTTL)")
+    p.add_argument("-meta.listingCacheMB",
+                   dest="meta_listing_cache_mb", type=int, default=0,
+                   help="RAM budget for the directory-listing page "
+                        "cache, invalidated by the metadata event log "
+                        "(0 = off, every listing walks the filer store)")
+    p.add_argument("-metricsPort", dest="metrics_port", type=int,
+                   default=0, help="Prometheus /metrics pull port")
+    _add_resilience_args(p)
+    _add_trace_args(p)
+    _add_serve_args(p)
+    _add_qos_args(p)
+    return p
+
+
+def _configure_meta(opts) -> None:
+    """Arm the process-wide coalescing lookup cache from the -meta.*
+    flags (wdclient/lookup_cache.py). Off by default."""
+    ttl = getattr(opts, "meta_lookup_ttl_s", 0.0)
+    if ttl and ttl > 0:
+        from seaweedfs_tpu_torch.wdclient import lookup_cache
+        lookup_cache.configure(
+            enable=True, ttl_s=ttl,
+            negative_ttl_s=opts.meta_lookup_negative_ttl_s,
+            coalesce_ms=opts.meta_lookup_coalesce_ms,
+            batch_max=opts.meta_lookup_batch_max)
+
+
+def _refuse_notification(conf) -> None:
+    """A notification.toml that enables a queue is refused, never
+    ignored: the queues arrive with the async services."""
+    sections = (conf.get("notification") or {}) if conf else {}
+    for name, props in sections.items():
+        if isinstance(props, dict) and props.get("enabled"):
+            raise unported.refusal(
+                f"notification.toml [notification.{name}]",
+                unported.NOTIFICATION)
+
+
+def _build_filer(opts):
+    from seaweedfs_tpu_torch.server.filer import FilerServer
+    from seaweedfs_tpu_torch.util import config as config_mod
+    _refuse_notification(config_mod.load_configuration("notification"))
+    os.makedirs(opts.dir, exist_ok=True)
+    peers = [x.strip() for x in (opts.peers or "").split(",")
+             if x.strip()]
+    # the store's filer.toml section carries its connection params
+    # (reference scaffold.go [mysql]/[postgres])
+    store_options = config_mod.load_configuration("filer") \
+        .get(opts.store) or {}
+    return FilerServer(
+        opts.master, ip=opts.ip, port=opts.port, store=opts.store,
+        store_options=store_options,
+        meta_dir=opts.dir, collection=opts.collection,
+        replication=opts.replication,
+        chunk_size=opts.max_mb << 20, cipher=opts.cipher,
+        cache_dir=os.path.join(opts.dir, "cache"),
+        peers=peers,
+        ingest_parallelism=opts.ingest_parallelism,
+        assign_lease_count=opts.assign_lease_count,
+        hedge_reads=opts.resilience_hedge,
+        hedge_delay_ms=opts.resilience_hedge_delay_ms,
+        listing_cache_mb=opts.meta_listing_cache_mb,
+        serve=_serve_config(opts))
+
+
+@command("filer", "start a filer (namespace server)")
+def run_filer(args) -> int:
+    _setup_tls("filer")
+    opts = _filer_parser().parse_args(args)
+    _configure_resilience(opts)
+    _configure_trace(opts)
+    _configure_qos(opts)
+    _configure_meta(opts)   # before the build: MasterClient arms at init
+    return _serve_with_metrics(_build_filer(opts), opts, "filer")
+
+
+def _refused_command(name: str, arrives_with: str):
+    def run(args) -> int:  # noqa: ARG001
+        raise unported.refusal(name, arrives_with)
+    return run
+
+
+command("s3", "start an S3-compatible gateway (not carried yet)")(
+    _refused_command("s3", unported.S3))
+command("webdav", "start a WebDAV gateway (not carried yet)")(
+    _refused_command("webdav", unported.WEBDAV_FTP_FUSE))
+command("ftp", "start an FTP gateway (not carried yet)")(
+    _refused_command("ftp", unported.WEBDAV_FTP_FUSE))
+
+
+@command("server", "start master + volume (+filer) in one process")
+def run_server(args) -> int:
+    p = argparse.ArgumentParser(prog="server", description="combined "
+                                "cluster-in-one-process (reference weed "
+                                "server)")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-dir", default="./data")
+    p.add_argument("-master.port", dest="master_port", type=int,
+                   default=9333)
+    p.add_argument("-volume.port", dest="volume_port", type=int,
+                   default=8080)
+    p.add_argument("-volume.max", dest="volume_max", default="7")
+    p.add_argument("-ec.encoder", dest="ec_encoder", default="cuda",
+                   help="the volume server's codec: cuda (the default) "
+                        "or cpu")
+    p.add_argument("-filer", action="store_true",
+                   help="also start a filer")
+    p.add_argument("-filer.port", dest="filer_port", type=int,
+                   default=8888)
+    p.add_argument("-s3", action="store_true",
+                   help="also start an S3 gateway (not carried yet)")
+    p.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
+    p.add_argument("-volumeSizeLimitMB", dest="volume_size_limit_mb",
+                   type=int, default=30 * 1000)
+    _add_cpuprofile_arg(p)
+    _add_qos_args(p)
+    opts = p.parse_args(args)
+    if opts.s3:
+        raise unported.refusal("server -s3", unported.S3)
+    _setup_tls("master")
+    # one process-wide manager shared by every role in the combined
+    # server: all of them meter against the same tenant buckets
+    _configure_qos(opts)
+    grace.setup_profiling(opts.cpuprofile)
+
+    mopts = _master_parser().parse_args(
+        ["-ip", opts.ip, "-port", str(opts.master_port),
+         "-mdir", os.path.join(opts.dir, "master"),
+         "-volumeSizeLimitMB", str(opts.volume_size_limit_mb)])
+    vopts = _volume_parser().parse_args(
+        ["-ip", opts.ip, "-port", str(opts.volume_port),
+         "-dir", os.path.join(opts.dir, "volume"),
+         "-max", str(opts.volume_max),
+         "-ec.encoder", opts.ec_encoder,
+         "-mserver", f"{opts.ip}:{opts.master_port}"])
+    stack = [_build_master(mopts)]
+    # each role starts before the next is built: the volume server and
+    # the filer dial the master at construction
+    stack[0].start()
+    try:
+        vol = _build_volume(vopts)
+        _attach_qos_heat(vol)
+        stack.append(vol)
+        vol.start()
+        if opts.filer:
+            fopts = _filer_parser().parse_args(
+                ["-ip", opts.ip, "-port", str(opts.filer_port),
+                 "-master", f"{opts.ip}:{opts.master_port}",
+                 "-dir", os.path.join(opts.dir, "filer")])
+            filer = _build_filer(fopts)
+            stack.append(filer)
+            filer.start()
+    except BaseException:
+        for server in reversed(stack):
+            server.stop()
+        grace.stop_profiling()
+        raise
+    return _serve_all_until_signalled(stack, started=len(stack))

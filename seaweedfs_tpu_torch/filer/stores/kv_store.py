@@ -13,8 +13,11 @@ stands behind there:
 
 Segment files are byte-compatible with the JAX package's: a directory one
 writes, the other opens. The port runs it under the kv needle map
-(``storage/needle_map.KvNeedleMap``, the volume server's ``-index kv``);
-the filer store on top of it comes with the filer.
+(``storage/needle_map.KvNeedleMap``, the volume server's ``-index kv``)
+and under ``KvFilerStore``, the filer's ``-store weedkv``: its keys are
+``b"e" + dir + b"\\x00" + name -> Entry bytes`` (the dir-prefix-scan
+layout of the reference's LevelDB keys, leveldb_store.go genKey) and
+``b"k" + key`` for the KV API.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import threading
 import zlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
+from seaweedfs_tpu_torch.filer.filerstore import (FilerStore, NotFound,
+                                                  normalize_path)
+from seaweedfs_tpu_torch.pb import filer_pb2
 from seaweedfs_tpu_torch.util import wlog
 
 _log = wlog.logger("filer.kv")
@@ -270,3 +276,75 @@ class LogKV:
 
     def __len__(self) -> int:
         return len(self._index)
+
+
+class KvFilerStore(FilerStore):
+    """FilerStore over LogKV (the "leveldb-class" embedded backend)."""
+
+    name = "weedkv"
+
+    def __init__(self, directory: str):
+        self.kv = LogKV(directory)
+        self._txn = threading.RLock()
+
+    @staticmethod
+    def _entry_key(directory: str, name: str) -> bytes:
+        return b"e" + normalize_path(directory).encode() + b"\x00" + \
+            name.encode()
+
+    def insert_entry(self, directory, entry):
+        self.kv.put(self._entry_key(directory, entry.name),
+                    entry.SerializeToString())
+
+    update_entry = insert_entry
+
+    def find_entry(self, directory, name):
+        blob = self.kv.get(self._entry_key(directory, name))
+        if blob is None:
+            raise NotFound(f"{directory}/{name}")
+        e = filer_pb2.Entry()
+        e.ParseFromString(blob)
+        return e
+
+    def delete_entry(self, directory, name):
+        self.kv.delete(self._entry_key(directory, name))
+
+    def delete_folder_children(self, directory):
+        d = normalize_path(directory).encode()
+        self.kv.delete_prefix(b"e" + d + b"\x00")
+        if d != b"/":
+            self.kv.delete_prefix(b"e" + d + b"/")
+        else:
+            self.kv.delete_prefix(b"e/")
+
+    def list_directory_entries(self, directory, start_name="",
+                               inclusive=False, limit=1024, prefix=""):
+        base = b"e" + normalize_path(directory).encode() + b"\x00"
+        start = base + start_name.encode() if start_name else b""
+        out: List[filer_pb2.Entry] = []
+        for k, v in self.kv.scan(base + prefix.encode(), start=start,
+                                 inclusive=inclusive):
+            e = filer_pb2.Entry()
+            e.ParseFromString(v)
+            out.append(e)
+            if len(out) >= limit:
+                break
+        return out
+
+    def begin_transaction(self):
+        self._txn.acquire()
+
+    def commit_transaction(self):
+        self._txn.release()
+
+    def rollback_transaction(self):
+        self._txn.release()
+
+    def kv_put(self, key, value):
+        self.kv.put(b"k" + bytes(key), bytes(value))
+
+    def kv_get(self, key):
+        return self.kv.get(b"k" + bytes(key))
+
+    def close(self):
+        self.kv.close()

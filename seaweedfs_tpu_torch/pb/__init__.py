@@ -1,17 +1,19 @@
 """The cluster's messages and stub helpers.
 
-``master_pb2``, ``volume_server_pb2`` and ``raft_pb2`` carry the JAX
-package's ``master_pb``, ``volume_server_pb`` and ``raft_pb`` messages
+``master_pb2``, ``volume_server_pb2``, ``raft_pb2`` and ``filer_pb2``
+carry the JAX package's ``master_pb``, ``volume_server_pb``, ``raft_pb``
+and ``filer_pb`` messages
 (names, field numbers, proto3 wire bytes) on the port's own runtime
 (``wire.py``), for the methods the port serves; ``rpc.py`` carries the
 calls.
 """
 
 from seaweedfs_tpu_torch import rpc
-from seaweedfs_tpu_torch.pb import master_pb2, raft_pb2, volume_server_pb2
+from seaweedfs_tpu_torch.pb import (filer_pb2, master_pb2, raft_pb2,
+                                    volume_server_pb2)
 
-__all__ = ["master_pb2", "raft_pb2", "volume_server_pb2", "master_stub",
-           "raft_stub", "volume_stub"]
+__all__ = ["filer_pb2", "master_pb2", "raft_pb2", "volume_server_pb2",
+           "filer_stub", "master_stub", "raft_stub", "volume_stub"]
 
 
 def master_stub(url_or_target: str, is_http_url: bool = True):
@@ -28,3 +30,8 @@ def raft_stub(url_or_target: str, is_http_url: bool = True):
     """The Raft service of a master (on the master's RPC port)."""
     target = rpc.grpc_address(url_or_target) if is_http_url else url_or_target
     return rpc.make_stub(raft_pb2, "Raft", target)
+
+
+def filer_stub(url_or_target: str, is_http_url: bool = True):
+    target = rpc.grpc_address(url_or_target) if is_http_url else url_or_target
+    return rpc.make_stub(filer_pb2, "SeaweedFiler", target)

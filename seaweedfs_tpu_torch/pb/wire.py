@@ -18,11 +18,17 @@ proto3 semantics kept:
     written once it has been assigned, or once anything below it was
     assigned, even if it is then empty;
   - fields go out in field-number order; unknown fields are skipped on
-    read.
+    read;
+  - a map field (``("name", n, "map", key kind, value kind or message
+    class name)``) reads and writes as a dict; each pair goes out as one
+    entry message with its key (1) and its value (2) both written, in
+    protobuf's deterministic order (``_map_order``); a message value is
+    made on first access, as protobuf's maps do.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Dict, List, Tuple
 
@@ -32,9 +38,10 @@ SINGLE = "single"
 _VARINT = {"bool", "uint32", "uint64", "int32", "int64"}
 _DEFAULTS = {"string": "", "bytes": b"", "bool": False, "uint32": 0,
              "uint64": 0, "int32": 0, "int64": 0, "float": 0.0,
-             "double": 0.0}
-_WIRE_TYPE = {"float": 5, "double": 1, "string": 2, "bytes": 2,
-              "message": 2}
+             "double": 0.0, "fixed32": 0}
+_WIRE_TYPE = {"float": 5, "double": 1, "fixed32": 5, "string": 2,
+              "bytes": 2, "message": 2, "map": 2}
+_FIXED = {"float": ("<f", 4), "double": ("<d", 8), "fixed32": ("<I", 4)}
 _MASK64 = (1 << 64) - 1
 
 
@@ -44,14 +51,21 @@ class DecodeError(ValueError):
 
 class _Field:
     __slots__ = ("name", "number", "kind", "repeated", "type_name", "cls",
-                 "key", "packed_key")
+                 "key", "packed_key", "map_key", "map_value")
 
     def __init__(self, name, number, kind, label=None, type_name=None):
-        if kind not in _DEFAULTS and kind != "message":
+        if kind not in _DEFAULTS and kind not in ("message", "map"):
             raise ValueError(f"field {name}: unsupported kind {kind!r}")
         self.name = name
         self.number = number
         self.kind = kind
+        self.map_key = self.map_value = None
+        if kind == "map":
+            # ("name", n, "map", key kind, value kind | message class)
+            self.map_key = label
+            self.map_value = type_name if type_name in _DEFAULTS \
+                else "message"
+            label = None
         self.repeated = label == REPEATED
         self.type_name = type_name
         self.cls = None          # resolved message class
@@ -93,10 +107,8 @@ def _signed(v: int, bits: int) -> int:
 def _scalar_bytes(kind: str, v) -> bytes:
     if kind in _VARINT:
         return _varint(int(v))
-    if kind == "float":
-        return struct.pack("<f", v)
-    if kind == "double":
-        return struct.pack("<d", v)
+    if kind in _FIXED:
+        return struct.pack(_FIXED[kind][0], v)
     if kind == "string":
         b = v.encode("utf-8")
         return _varint(len(b)) + b
@@ -154,6 +166,38 @@ class _Repeated(list):
         self._touch()
 
 
+class _Map(dict):
+    """A map field: a dict that marks its owner set when changed; a
+    message value is made on first access (``m[k].field = ...``)."""
+
+    __slots__ = ("_owner", "_cls")
+
+    def __init__(self, owner, cls, items=()):
+        super().__init__(items)
+        self._owner = owner
+        self._cls = cls
+
+    def __missing__(self, key):
+        if self._cls is None:
+            raise KeyError(key)
+        v = self._cls()
+        object.__setattr__(v, "_parent", self._owner)
+        self[key] = v
+        return v
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self._owner._touch()
+
+    def __delitem__(self, key):
+        super().__delitem__(key)
+        self._owner._touch()
+
+    def update(self, *args, **kwargs):
+        super().update(*args, **kwargs)
+        self._owner._touch()
+
+
 class Message:
     """Base of every port message; subclasses come from ``message()``."""
 
@@ -186,6 +230,10 @@ class Message:
             v = _Repeated(self, f.cls)
             values[name] = v
             return v
+        if f.kind == "map":
+            v = _Map(self, f.cls)
+            values[name] = v
+            return v
         if f.kind == "message":
             # made on access, present only once something is set below it
             v = f.cls()
@@ -201,6 +249,8 @@ class Message:
                 f"{type(self).__name__} has no field {name!r}")
         if f.repeated:
             value = _Repeated(self, f.cls, value)
+        elif f.kind == "map":
+            value = _Map(self, f.cls, value)
         elif f.kind == "message":
             if value is not None and not isinstance(value, f.cls):
                 raise TypeError(f"{name}: expected {f.cls.__name__}, "
@@ -211,6 +261,8 @@ class Message:
             value = bool(value) if f.kind == "bool" else int(value)
         elif f.kind in ("float", "double"):
             value = float(value)
+        elif f.kind == "fixed32":
+            value = int(value)
         elif f.kind == "string" and not isinstance(value, str):
             raise TypeError(f"{name}: expected str, got "
                             f"{type(value).__name__}")
@@ -227,7 +279,7 @@ class Message:
 
     def HasField(self, name: str) -> bool:
         f = self._BY_NAME[name]
-        if f.repeated:
+        if f.repeated or f.kind == "map":
             raise ValueError(f"{name} is repeated")
         v = self._values.get(name)
         if f.kind == "message":
@@ -240,6 +292,29 @@ class Message:
         out: List[bytes] = []
         self._encode(out)
         return b"".join(out)
+
+    def ByteSize(self) -> int:
+        return len(self.SerializeToString())
+
+    def CopyFrom(self, other: "Message") -> None:
+        """Make this message equal to ``other`` (a deep copy)."""
+        if other is self:
+            return
+        if type(other) is not type(self):
+            raise TypeError(f"CopyFrom: expected {type(self).__name__}, "
+                            f"got {type(other).__name__}")
+        self._values.clear()
+        self._decode(memoryview(other.SerializeToString()))
+        self._touch()
+
+    def MergeFromString(self, data) -> int:
+        self._decode(memoryview(data))
+        self._touch()
+        return len(data)
+
+    def ParseFromString(self, data) -> int:
+        self._values.clear()
+        return self.MergeFromString(data)
 
     def _encode(self, out: List[bytes]) -> None:
         values = self._values
@@ -261,6 +336,10 @@ class Message:
                 else:
                     body = b"".join(_scalar_bytes(kind, s) for s in v)
                     out.append(f.packed_key + _varint(len(body)) + body)
+            elif kind == "map":
+                for k in _map_order(v, f.map_key):
+                    body = _entry_bytes(f, k, v[k])
+                    out.append(f.key + _varint(len(body)) + body)
             elif kind == "message":
                 if v._present:
                     body = v.SerializeToString()
@@ -298,7 +377,15 @@ class Message:
             if f is None:
                 continue            # unknown field
             kind = f.kind
-            if kind == "message":
+            if kind == "map":
+                k, val = _read_entry(f, raw)
+                m = values.get(f.name)
+                if m is None:
+                    m = values[f.name] = _Map(self, f.cls)
+                dict.__setitem__(m, k, val)
+                if f.cls is not None:
+                    object.__setattr__(val, "_parent", self)
+            elif kind == "message":
                 sub = f.cls.FromString(raw)
                 object.__setattr__(sub, "_present", True)
                 if f.repeated:
@@ -321,8 +408,7 @@ class Message:
                 elif kind in _VARINT:
                     items = [_from_varint(kind, v)]
                 else:
-                    items = [struct.unpack(
-                        "<f" if kind == "float" else "<d", raw)[0]]
+                    items = [struct.unpack(_FIXED[kind][0], raw)[0]]
                 if f.repeated:
                     values.setdefault(f.name, _Repeated(self, None)) \
                         .extend(items)
@@ -332,10 +418,9 @@ class Message:
 
     @staticmethod
     def _unpack(kind: str, raw: memoryview) -> list:
-        if kind == "float":
-            return list(struct.unpack(f"<{len(raw) // 4}f", raw))
-        if kind == "double":
-            return list(struct.unpack(f"<{len(raw) // 8}d", raw))
+        if kind in _FIXED:
+            code, size = _FIXED[kind]
+            return list(struct.unpack(f"<{len(raw) // size}{code[1]}", raw))
         items, pos = [], 0
         while pos < len(raw):
             v, pos = _read_varint(raw, pos)
@@ -346,7 +431,8 @@ class Message:
 
     def _field_values(self):
         return tuple(
-            list(getattr(self, f.name)) if f.repeated
+            dict(getattr(self, f.name)) if f.kind == "map"
+            else list(getattr(self, f.name)) if f.repeated
             else (getattr(self, f.name) if f.kind != "message"
                   else (getattr(self, f.name) if self.HasField(f.name)
                         else None))
@@ -359,16 +445,150 @@ class Message:
 
     __hash__ = None
 
+    def __str__(self):
+        """protobuf's text format, as ``str()`` of a protobuf message
+        gives it (fields in number order, two-space indents; strings keep
+        non-ASCII characters, bytes print every byte outside printable
+        ASCII in octal; map pairs in insertion order, which for one pair
+        is protobuf's)."""
+        out: List[str] = []
+        self._text(out, "")
+        return "".join(out)
+
+    def _text(self, out: List[str], pad: str) -> None:
+        for f in self._FIELDS:
+            v = self._values.get(f.name)
+            if v is None:
+                continue
+            if f.kind == "map":
+                for k, item in v.items():
+                    out.append(f"{pad}{f.name} {{\n")
+                    out.append(f"{pad}  key: {_text_scalar(f.map_key, k)}\n")
+                    if f.map_value == "message":
+                        out.append(f"{pad}  value {{\n")
+                        item._text(out, pad + "    ")
+                        out.append(f"{pad}  }}\n")
+                    else:
+                        out.append(f"{pad}  value: "
+                                   f"{_text_scalar(f.map_value, item)}\n")
+                    out.append(f"{pad}}}\n")
+            elif f.kind == "message":
+                items = v if f.repeated else ([v] if v._present else [])
+                for item in items:
+                    out.append(f"{pad}{f.name} {{\n")
+                    item._text(out, pad + "  ")
+                    out.append(f"{pad}}}\n")
+            elif f.repeated:
+                for item in v:
+                    out.append(f"{pad}{f.name}: "
+                               f"{_text_scalar(f.kind, item)}\n")
+            elif not _is_default(f.kind, v):
+                out.append(f"{pad}{f.name}: {_text_scalar(f.kind, v)}\n")
+
     def __repr__(self):
         parts = []
         for f in self._FIELDS:
             v = self._values.get(f.name)
-            if v is None or (f.repeated and not v):
+            if v is None or ((f.repeated or f.kind == "map") and not v):
                 continue
             if f.kind == "message" and not f.repeated and not v._present:
                 continue
             parts.append(f"{f.name}={v!r}")
         return f"{type(self).__name__}({', '.join(parts)})"
+
+
+def _make_text_escapes() -> Dict[int, str]:
+    esc = {i: "\\%03o" % i for i in range(128) if not 32 <= i < 127}
+    esc.update({ord("\t"): "\\t", ord("\n"): "\\n", ord("\r"): "\\r",
+                ord('"'): '\\"', ord("'"): "\\'", ord("\\"): "\\\\"})
+    return esc
+
+
+_TEXT_ESCAPES = _make_text_escapes()
+
+
+def _text_scalar(kind: str, v) -> str:
+    if kind == "bool":
+        return "true" if v else "false"
+    if kind in ("float", "double"):
+        return repr(float(v))
+    if kind == "string":
+        return '"' + v.translate(_TEXT_ESCAPES) + '"'
+    if kind == "bytes":
+        return '"' + "".join(_TEXT_ESCAPES.get(c) or (
+            chr(c) if c < 128 else "\\%03o" % c) for c in bytes(v)) + '"'
+    return str(int(v))
+
+
+def _cmp_key_bytes(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    if a[:n] != b[:n]:
+        return -1 if a[:n] < b[:n] else 1
+    return len(b) - len(a)          # a longer key before its prefix
+
+
+def _map_order(m: dict, key_kind: str) -> list:
+    """Map keys in the order of protobuf's
+    ``SerializeToString(deterministic=True)`` (upb's map sorter): numbers
+    ascending; strings by their bytes, a key before any key that is a
+    prefix of it."""
+    if key_kind not in ("string", "bytes"):
+        return sorted(m)
+    enc = (lambda k: k.encode("utf-8")) if key_kind == "string" \
+        else bytes
+    return sorted(m, key=functools.cmp_to_key(
+        lambda a, b: _cmp_key_bytes(enc(a), enc(b))))
+
+
+def _entry_bytes(f: _Field, key, value) -> bytes:
+    """One map pair as its entry message: key (1) and value (2), both
+    always written, as protobuf writes map entries."""
+    kk = _varint((1 << 3) | (0 if f.map_key in _VARINT
+                             else _WIRE_TYPE[f.map_key]))
+    out = kk + _scalar_bytes(f.map_key, key)
+    if f.map_value == "message":
+        body = value.SerializeToString()
+        return out + _varint((2 << 3) | 2) + _varint(len(body)) + body
+    vk = _varint((2 << 3) | (0 if f.map_value in _VARINT
+                             else _WIRE_TYPE[f.map_value]))
+    return out + vk + _scalar_bytes(f.map_value, value)
+
+
+def _read_entry(f: _Field, raw: memoryview):
+    """(key, value) of one map entry; a field left out is its default."""
+    key = _DEFAULTS[f.map_key]
+    value = None if f.map_value == "message" else _DEFAULTS[f.map_value]
+    pos, end = 0, len(raw)
+    while pos < end:
+        tag, pos = _read_varint(raw, pos)
+        number, wt = tag >> 3, tag & 7
+        kind = f.map_key if number == 1 else f.map_value
+        if wt == 0:
+            v, pos = _read_varint(raw, pos)
+            v = _from_varint(kind, v)
+        elif wt in (1, 5):
+            size = 8 if wt == 1 else 4
+            chunk, pos = raw[pos:pos + size], pos + size
+            v = struct.unpack(_FIXED[kind][0], chunk)[0] \
+                if kind in _FIXED else None
+        elif wt == 2:
+            n, pos = _read_varint(raw, pos)
+            chunk, pos = raw[pos:pos + n], pos + n
+            if kind == "message":
+                v = f.cls.FromString(chunk)
+            elif kind == "string":
+                v = bytes(chunk).decode("utf-8")
+            else:
+                v = bytes(chunk)
+        else:
+            raise DecodeError(f"unsupported wire type {wt}")
+        if number == 1:
+            key = v
+        elif number == 2:
+            value = v
+    if value is None:
+        value = f.cls()
+    return key, value
 
 
 def message(name: str, fields, full_name: str = "") -> type:
@@ -404,7 +624,7 @@ def resolve(namespace: dict, package: str) -> None:
     for path, cls in classes.items():
         outer = path.rsplit(".", 1)[0] if "." in path else ""
         for f in cls._FIELDS:
-            if f.kind != "message":
+            if f.kind != "message" and f.map_value != "message":
                 continue
             # a nested type first (Outer.Inner), then a top-level one
             f.cls = classes.get(f"{outer}.{f.type_name}" if outer

@@ -132,6 +132,16 @@ def grpc_address(url: str) -> str:
     return f"{host}:{int(port) + GRPC_PORT_OFFSET}"
 
 
+def peer_ip(context, default: str = "127.0.0.1") -> str:
+    """The client's IP from a servicer context (``_Context.peer()``'s
+    "host:port"; gRPC's "ipv4:host:port" form is read too)."""
+    peer = context.peer() or ""
+    if peer.startswith(("ipv4:", "ipv6:")):
+        peer = peer.split(":", 1)[1]
+    host = peer.rsplit(":", 1)[0] if ":" in peer else ""
+    return host.strip("[]") or default
+
+
 def _split(target: str):
     host, _, port = target.rpartition(":")
     return host or "127.0.0.1", int(port)

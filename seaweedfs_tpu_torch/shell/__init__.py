@@ -37,12 +37,17 @@ def refuse(name: str, arrives_with: str) -> None:
     HELP[name] = f"(not ported: {arrives_with})"
 
 
-# registration side effects: the EC, volume, collection, cluster-status
-# and lock commands are the part the port carries (the JAX package's
-# fs.* and s3.* families are not ported)
+# registration side effects: every family but s3.*, which arrives with
+# the S3 gateway
 from seaweedfs_tpu_torch.shell import command_ec  # noqa: E402,F401
+from seaweedfs_tpu_torch.shell import command_fs  # noqa: E402,F401
 from seaweedfs_tpu_torch.shell import command_misc  # noqa: E402,F401
 from seaweedfs_tpu_torch.shell import command_volume  # noqa: E402,F401
+from seaweedfs_tpu_torch import unported as _unported  # noqa: E402
+
+for _name in ("s3.bucket.create", "s3.bucket.delete", "s3.bucket.list",
+              "s3.configure"):
+    refuse(_name, _unported.S3)
 
 
 class CommandError(Exception):
@@ -55,8 +60,8 @@ class CommandError(Exception):
 
 
 class Shell:
-    def __init__(self, master_url: str):
-        self.env = CommandEnv(master_url)
+    def __init__(self, master_url: str, filer_url: str = ""):
+        self.env = CommandEnv(master_url, filer_url=filer_url)
 
     def run_command(self, line: str) -> str:
         argv = shlex.split(line)

@@ -1,8 +1,7 @@
 """CommandEnv: what every shell command gets to work with.
 
 Wraps the master connection, the exclusive admin lock, and typed
-accessors over the TopologyInfo snapshot (the filer accessors of the JAX
-package are not ported).
+accessors over the TopologyInfo snapshot.
 
 Reference: weed/shell/commands.go:35-79, command_ec_common.go.
 """
@@ -11,8 +10,12 @@ from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional
 
+import posixpath
+
 from seaweedfs_tpu_torch.ec.shard_bits import ShardBits
-from seaweedfs_tpu_torch.pb import master_pb2, master_stub, volume_stub
+from seaweedfs_tpu_torch import rpc
+from seaweedfs_tpu_torch.pb import (filer_pb2, filer_stub, master_pb2,
+                                    master_stub, volume_stub)
 
 
 class EcNode(NamedTuple):
@@ -32,8 +35,10 @@ class VolumeReplica(NamedTuple):
 
 
 class CommandEnv:
-    def __init__(self, master_url: str):
+    def __init__(self, master_url: str, filer_url: str = ""):
         self.master_url = master_url
+        self.filer_url = filer_url  # host:port of the filer HTTP port
+        self.cwd = "/"              # fs.* current directory (fs.cd)
         self._lock_token = 0
         self._lock_depth = 0
 
@@ -43,6 +48,60 @@ class CommandEnv:
 
     def volume_server(self, url: str):
         return volume_stub(url)
+
+    # -- filer access (fs.* family) ------------------------------------------
+
+    @property
+    def filer(self):
+        if not self.filer_url:
+            raise ValueError(
+                "no filer configured: start the shell with -filer "
+                "<host:port> to use fs.* commands")
+        return filer_stub(self.filer_url)
+
+    def resolve_path(self, arg: str) -> str:
+        """Resolve a command path argument against the fs.cd cwd
+        (reference shell/commands.go parseUrl/Directory)."""
+        if not arg or arg == ".":
+            arg = self.cwd
+        if not arg.startswith("/"):
+            arg = posixpath.join(self.cwd, arg)
+        norm = posixpath.normpath(arg)
+        return norm if norm.startswith("/") else "/"
+
+    def filer_entry(self, path: str):
+        """Entry proto at `path`, or None."""
+        directory, name = posixpath.split(path.rstrip("/") or "/")
+        if not name:  # the root
+            return filer_pb2.Entry(name="/", is_directory=True)
+        try:
+            return self.filer.LookupDirectoryEntry(
+                filer_pb2.LookupDirectoryEntryRequest(
+                    directory=directory or "/", name=name)).entry
+        except rpc.RpcError as e:
+            if e.code() == rpc.StatusCode.NOT_FOUND:
+                return None
+            raise
+
+    def list_filer_entries(self, directory: str, prefix: str = "",
+                           batch: int = 1024):
+        """All entries under a directory, paginated like the reference
+        (filer_pb.List: re-issue from the last seen name). Only an
+        EMPTY page terminates: the server filters TTL-expired entries
+        after applying the store limit, so a short page can still have
+        entries beyond it."""
+        start, inclusive = "", True
+        while True:
+            got = 0
+            for r in self.filer.ListEntries(filer_pb2.ListEntriesRequest(
+                    directory=directory, prefix=prefix,
+                    start_from_file_name=start,
+                    inclusive_start_from=inclusive, limit=batch)):
+                got += 1
+                start, inclusive = r.entry.name, False
+                yield r.entry
+            if got == 0:
+                return
 
     # -- admin lock ----------------------------------------------------------
 

@@ -1,25 +1,27 @@
 """Volume ops-plane commands: list, balance, move, copy, evacuate,
 leave, scrub, vacuum, mark, delete, mount/unmount, the tier moves,
-fix.replication, configure.replication and lifecycle.
+fix.replication, configure.replication, lifecycle and fsck.
 
-The port of the part of ``seaweedfs_tpu.shell.command_volume`` that
-needs no filer (reference weed/shell/command_volume_*.go). Balance,
-evacuation and replica-fix planning is pure over the TopologyInfo
-snapshot, testable on fabricated views. ``volume.lifecycle`` drives the
-master's lifecycle engine over ``/cluster/lifecycle``. ``volume.fsck``
-arrives with the filer (ROADMAP Queue 1 item 13): until then it answers
-with an error that says so.
+The port of ``seaweedfs_tpu.shell.command_volume`` (reference
+weed/shell/command_volume_*.go). Balance, evacuation and replica-fix
+planning is pure over the TopologyInfo snapshot, testable on fabricated
+views. ``volume.lifecycle`` drives the master's lifecycle engine over
+``/cluster/lifecycle``. ``volume.fsck``
+cross-checks every volume's ``.idx`` and every EC volume's ``.ecx``
+against the chunks the filer references (the shell's ``-filer``),
+manifests expanded.
 """
 
 from __future__ import annotations
 
 import argparse
+import posixpath
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.ec.shard_bits import ShardBits
 from seaweedfs_tpu_torch.pb import master_pb2, volume_server_pb2
-from seaweedfs_tpu_torch.shell import command, refuse
+from seaweedfs_tpu_torch.shell import command
 from seaweedfs_tpu_torch.shell.command_env import CommandEnv
 from seaweedfs_tpu_torch.storage.superblock import ReplicaPlacement
 
@@ -743,4 +745,180 @@ def volume_lifecycle(env: CommandEnv, argv: List[str], out) -> None:
                   f"[{d['outcome']}] {d['reason']}\n")
 
 
-refuse("volume.fsck", "the filer (ROADMAP Queue 1 item 13)")
+def live_keys_from_idx(blob: bytes) -> Dict[int, int]:
+    """Replay raw .idx bytes to the live key set: key -> size. Later
+    entries win; tombstones (offset 0 / negative size) drop the key —
+    the same replay the needle map does at volume load."""
+    from seaweedfs_tpu_torch.storage import idx as idx_codec
+    from seaweedfs_tpu_torch.storage import types as t
+    live: Dict[int, int] = {}
+    for off in range(0, len(blob) - len(blob) % t.NEEDLE_MAP_ENTRY_SIZE,
+                     t.NEEDLE_MAP_ENTRY_SIZE):
+        key, offset, size = idx_codec.parse_entry(
+            blob[off:off + t.NEEDLE_MAP_ENTRY_SIZE])
+        if offset == 0 or t.size_is_deleted(size):
+            live.pop(key, None)
+        else:
+            live[key] = size
+    return live
+
+
+@command("volume.fsck", "find volume blobs not referenced by the filer")
+def volume_fsck(env: CommandEnv, argv: List[str], out) -> None:
+    """Cross-check the data plane against the namespace (reference
+    command_volume_fsck.go): collect every needle key from every
+    volume's index (set A), every chunk fileId referenced by the filer
+    incl. manifest expansion (set B), and report A−B as orphans.
+    Assumes the whole cluster is used by the one configured filer.
+    -reallyDeleteFromVolume purges the orphans via BatchDelete."""
+    p = argparse.ArgumentParser(prog="volume.fsck")
+    p.add_argument("-v", action="store_true", dest="verbose")
+    p.add_argument("-reallyDeleteFromVolume", action="store_true",
+                   dest="purge", help="<expert only> delete orphans")
+    p.add_argument("-cutoffTimeAgo", type=float, default=300,
+                   help="skip purging volumes written within the last "
+                        "N seconds (an in-flight upload's chunks look "
+                        "like orphans until its CreateEntry lands)")
+    args = p.parse_args(argv)
+    env.acquire_lock()
+    try:
+        # set A: vid -> {key: size} from every volume/EC index
+        topo = env.topology()
+        holders: Dict[int, Tuple[str, str, bool]] = {}
+        for _, _, dn in env.data_nodes(topo):
+            for vi in dn.volume_infos:
+                holders.setdefault(vi.id, (dn.id, vi.collection, False))
+            for e in dn.ec_shard_infos:
+                holders.setdefault(e.id, (dn.id, e.collection, True))
+        volume_keys: Dict[int, Dict[int, int]] = {}
+        for vid, (url, collection, is_ec) in sorted(holders.items()):
+            blob = b"".join(
+                r.file_content for r in env.volume_server(url).CopyFile(
+                    volume_server_pb2.CopyFileRequest(
+                        volume_id=vid, ext=".ecx" if is_ec else ".idx",
+                        collection=collection, is_ec_volume=is_ec)))
+            volume_keys[vid] = live_keys_from_idx(blob)
+            if args.verbose:
+                out.write(f"volume {vid} on {url}: "
+                          f"{len(volume_keys[vid])} keys\n")
+
+        # set B: every chunk the filer references, manifests expanded.
+        # Unlike resolve_chunk_manifest (which returns only the leaf
+        # chunks), every level's fid counts as referenced here — the
+        # manifest blob itself is a needle too.
+        from seaweedfs_tpu_torch.filer.stream import (fetch_chunk_bytes,
+                                                filer_lookup_fn)
+        from seaweedfs_tpu_torch.operation.file_id import parse_fid
+        from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+
+        lookup = filer_lookup_fn(env.filer)
+        filer_keys: Dict[int, set] = {}
+        n_files = 0
+
+        def note(chunks):
+            for c in chunks:
+                f = parse_fid(c.file_id)
+                filer_keys.setdefault(f.volume_id, set()).add(f.key)
+                if c.is_chunk_manifest:
+                    m = fpb.FileChunkManifest()
+                    m.ParseFromString(fetch_chunk_bytes(
+                        lookup, c.file_id, bytes(c.cipher_key),
+                        c.is_compressed))
+                    note(m.chunks)
+
+        def walk(directory: str):
+            nonlocal n_files
+            for entry in env.list_filer_entries(directory):
+                full = posixpath.join(directory, entry.name)
+                if entry.is_directory:
+                    walk(full)
+                else:
+                    n_files += 1
+                    note(entry.chunks)
+
+        walk("/")
+        if args.verbose:
+            out.write(f"filer references {n_files} files over "
+                      f"{sum(len(s) for s in filer_keys.values())} "
+                      f"chunks\n")
+
+        # A − B
+        total_orphans = total_orphan_bytes = in_use = 0
+        second_pass_keys: Optional[Dict[int, set]] = None
+
+        def rewalk_keys() -> Dict[int, set]:
+            """Fresh namespace view taken immediately before purging:
+            an upload whose CreateEntry landed after the first walk
+            must not have its live chunks deleted (the mtime cutoff
+            alone cannot see entries that arrived during the walk)."""
+            nonlocal filer_keys, n_files
+            saved_keys, saved_n = filer_keys, n_files
+            filer_keys, n_files = {}, 0
+            try:
+                walk("/")
+                return filer_keys
+            finally:
+                filer_keys, n_files = saved_keys, saved_n
+
+        for vid, keys in sorted(volume_keys.items()):
+            used = filer_keys.get(vid, set())
+            orphans = [k for k in keys if k not in used]
+            in_use += len(keys) - len(orphans)
+            total_orphans += len(orphans)
+            orphan_bytes = sum(keys[k] for k in orphans)
+            total_orphan_bytes += orphan_bytes
+            if not orphans:
+                continue
+            out.write(f"volume {vid}: {len(orphans)} orphan blobs "
+                      f"({orphan_bytes} bytes)\n")
+            if args.verbose:
+                for k in orphans:
+                    out.write(f"  {vid},{k:x}xxxxxxxx\n")
+            if args.purge:
+                from seaweedfs_tpu_torch.operation.file_id import format_fid
+                url, collection, is_ec = holders[vid]
+                if is_ec:
+                    out.write(f"volume {vid}: skip purging EC volume\n")
+                    continue
+                # in-flight-upload guard: a chunk uploaded before the
+                # .idx snapshot whose CreateEntry lands after the
+                # namespace walk looks like an orphan; don't purge a
+                # volume that saw writes within the cutoff window
+                status = env.volume_server(url).ReadVolumeFileStatus(
+                    volume_server_pb2.ReadVolumeFileStatusRequest(
+                        volume_id=vid))
+                import time as time_mod
+                age = time_mod.time() - status.dat_file_timestamp_seconds
+                if age < args.cutoffTimeAgo:
+                    out.write(
+                        f"volume {vid}: written {age:.0f}s ago, inside "
+                        f"-cutoffTimeAgo={args.cutoffTimeAgo:.0f}s — "
+                        f"skip purging\n")
+                    continue
+                if second_pass_keys is None:
+                    second_pass_keys = rewalk_keys()
+                now_used = second_pass_keys.get(vid, set())
+                confirmed = [k for k in orphans if k not in now_used]
+                if len(confirmed) != len(orphans):
+                    out.write(
+                        f"volume {vid}: {len(orphans) - len(confirmed)} "
+                        f"orphan(s) became referenced since the first "
+                        f"walk — keeping them\n")
+                orphans = confirmed
+                fids = [format_fid(vid, k, 0) for k in orphans]
+                resp = env.volume_server(url).BatchDelete(
+                    volume_server_pb2.BatchDeleteRequest(
+                        file_ids=fids, skip_cookie_check=True))
+                failed = [r for r in resp.results
+                          if r.status not in (200, 202, 204)]
+                for r in failed:
+                    out.write(f"  {r.file_id}: {r.error}\n")
+                out.write(f"volume {vid}: purged "
+                          f"{len(fids) - len(failed)}/{len(fids)} "
+                          f"blobs\n")
+        pct = (100.0 * total_orphans /
+               max(1, total_orphans + in_use))
+        out.write(f"total {in_use} in-use, {total_orphans} orphans "
+                  f"({pct:.2f}%, {total_orphan_bytes} bytes)\n")
+    finally:
+        env.release_lock()

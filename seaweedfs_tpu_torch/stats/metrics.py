@@ -439,6 +439,15 @@ DeadlineRefusedCounter = REGISTRY.counter(
     "work refused because the request's budget was already spent",
     ("where",))
 
+# The filer's multi-chunk ingest pipeline (server/filer.py).
+IngestPipelineChunksHistogram = REGISTRY.histogram(
+    "SeaweedFS_ingest_pipeline_batch_chunks",
+    "chunks per pipelined multi-chunk upload",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+IngestPipelineOccupancyGauge = REGISTRY.gauge(
+    "SeaweedFS_ingest_pipeline_occupancy",
+    "chunk uploads in flight on the filer's ingest pool")
+
 # The volume server's replica fan-out (server/volume.py).
 IngestReplicaFanoutSecondsHistogram = REGISTRY.histogram(
     "SeaweedFS_ingest_replica_fanout_seconds",
@@ -477,6 +486,16 @@ MetaLookupWaitersCounter = REGISTRY.counter(
 MetaLookupInvalidationsCounter = REGISTRY.counter(
     "SeaweedFS_meta_lookup_invalidations_total",
     "cached vid answers dropped by reason", ("reason",))
+
+# The filer's directory-listing cache (filer/listing_cache.py).
+MetaListingCounter = REGISTRY.counter(
+    "SeaweedFS_meta_listing_total",
+    "filer directory-listing pages by cache outcome (hit | miss)",
+    ("outcome",))
+MetaListingInvalidationsCounter = REGISTRY.counter(
+    "SeaweedFS_meta_listing_invalidations_total",
+    "listing-cache pages dropped by the metadata event log "
+    "(reason: local | peer)", ("reason",))
 
 # The master client (wdclient/masterclient.py).
 MasterReconnectsCounter = REGISTRY.counter(
@@ -637,10 +656,10 @@ _register_process_metrics()
 # one identity check away from unchanged.
 _qos_http = None
 
-# the roles whose ingress enforces admission: the volume server is the
-# port's tenant-facing plane (the JAX package adds its filer and S3
+# the roles whose ingress enforces admission: the volume server and the
+# filer are the port's tenant-facing planes (the JAX package adds its S3
 # gateway); master control traffic is observed but never shed
-_QOS_ROLES = ("volumeServer",)
+_QOS_ROLES = ("volumeServer", "filer")
 
 
 def instrument_http_handler(handler_cls, role: str):

@@ -13,9 +13,9 @@ Mirrors the reference SPI (weed/storage/backend/backend.go:15-74), as
 
 The ``memory`` scheme (``MemoryBackendStorage``, an in-process object
 store) is the one this port carries. The ``s3`` scheme needs the S3
-client and a gateway to test against, which arrive with the filer and
-the gateways (ROADMAP Queue 1 item 13): until then, configuring it is an
-error that says so.
+client and a gateway to test against, which arrive with the S3 gateway
+(ROADMAP Queue 1 item 13): until then, configuring it is an error that
+says so.
 
 The ``<base>.tier`` sidecar records which backend holds a volume's .dat,
 and ``<base>.ectier`` which backend holds a server's .ecNN shards.

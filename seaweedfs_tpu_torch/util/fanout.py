@@ -57,9 +57,13 @@ class FanOutPool:
     A task must never wait on a future of its own pool (a saturated pool
     would deadlock)."""
 
-    def __init__(self, size: int = 8, name: str = "fanout"):
+    def __init__(self, size: int = 8, name: str = "fanout",
+                 inflight_gauge=None):
         self.size = max(1, int(size))
         self.name = name
+        # tasks submitted but not finished; an optional gauge mirrors it
+        # (SeaweedFS_ingest_pipeline_occupancy on the filer's pool)
+        self._inflight_gauge = inflight_gauge
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
         self._lock = threading.Lock()
         # thread_count() reads lock-free (introspection may be stale)
@@ -84,13 +88,14 @@ class FanOutPool:
                     continue
             self._run_task(*item)
 
-    @staticmethod
-    def _run_task(fut: Future, ctx, fn: Callable, args) -> None:
+    def _run_task(self, fut: Future, ctx, fn: Callable, args) -> None:
         try:
             fut.result = ctx.run(fn, *args)
         except BaseException as e:  # noqa: BLE001 - latched, not lost
             fut.exc = e
         finally:
+            if self._inflight_gauge is not None:
+                self._inflight_gauge.dec()
             fut._ev.set()
 
     def submit(self, fn: Callable, *args) -> Future:
@@ -99,6 +104,8 @@ class FanOutPool:
         # across the thread hop
         ctx = contextvars.copy_context()
         fut = Future()
+        if self._inflight_gauge is not None:
+            self._inflight_gauge.inc()
         # enqueue, the stopping check and the spawn are one step against
         # stop(): a task queued under the lock sits AHEAD of stop()'s
         # sentinels and always gets a worker; a submit that sees
