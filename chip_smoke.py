@@ -211,8 +211,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``noisy`` tenant reads from 8 threads at 4x the rate: its 429s carry
    Retry-After, ``good`` and ``_internal`` are never shed, ``cluster.qos``
    equals the clients' counts; good's p50/p99 before and during. (e) a
-   server (at most four shards of every volume) stopped, two cold EC
-   volumes read above the warm threshold (the engine paused meanwhile):
+   server stopped that holds at most four shards of each of two cold EC
+   volumes, both read above the warm threshold (the engine paused meanwhile):
    decode fleet dispatches and K1; one degraded read stitched by
    ``cluster.trace`` from the sampled list at once (the process-wide
    rings keep 256 requests); the engine decodes both, K1 rebuilding the
@@ -273,14 +273,35 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``-reallyDeleteFromVolume -cutoffTimeAgo 1``. (f) ``fs.meta.save /``,
    ``fs.meta.load`` into a fresh filer on ``-store weedkv``, the large
    files read through it with the server still stopped. (g) ``python -m
-   seaweedfs_tpu_torch server -filer -cpuprofile`` as a subprocess: one
-   file POSTed and read back, SIGINT, exit 0 and the profile written;
+   seaweedfs_tpu_torch server -filer -s3 -cpuprofile`` as a subprocess:
+   one file POSTed and read back, one object PUT and read back through
+   its S3 port, SIGINT, exit 0 and the profile written;
    ``version``, ``scaffold -config filer``; ``backup`` of one volume
    (``.dat`` byte-equal to the source) and ``compact -commit`` of a copy
    (the same live needles, a smaller ``.dat``). Every read is checked
    byte for byte. gf_linear's launch count must rise in (b), (d) and
    (f) and stay 0 in (a), (c) and (g).
-15. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+15. The filer's gateways on phase 14's cluster, in this process: an S3
+   gateway (identities: one Admin, one that may only Read the bucket), a
+   WebDAV gateway and an FTP gateway on phase 14's filer. (a) between
+   14 (a) and 14 (b): the bucket by ``s3.bucket.create``; 512 objects of
+   1-64 KiB PUT from 16 threads through ``util/s3_client`` (SigV4); one
+   40 MiB object in eight 5 MiB parts, one of them an UploadPartCopy of a
+   range of another object, completed and its HEAD checked; every
+   ListObjectsV2 page at max-keys 100; the Read identity's PUT answers
+   403; WebDAV PUTs of 8 files of 1-64 KiB and one of 16 MiB and a
+   PROPFIND; FTP STOR of 4 files; ``volume.tier.upload -dest s3.default``
+   of a volume of collection ``tier`` to a bucket of this gateway and
+   ``.download`` back, ``.dat`` sha256 equal (the collection is deleted
+   after). MB/s and objects/s per gateway, the tier's MB/s each way. The
+   gateways write into collection ``filer``, so 14 (b) encodes their
+   data. (b) after 14 (d), with its server still stopped and the chunk
+   caches emptied: S3 GETs of every part's span, 64 Ranges across part
+   boundaries, all 512 small objects and one presigned GET; WebDAV GETs
+   of its 9 files; FTP RETRs of its 4 files; every byte checked;
+   p50/p99, decode dispatches and K1 launches per gateway. No kernel may
+   launch in (a); the S3 reads of (b) must launch K1.
+16. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -586,13 +607,27 @@ def shard_hashes(base: str) -> list:
                              [shard_file_name(base, i) for i in range(14)]))
 
 
-def write_volume(store, payload, cookies) -> float:
+# needles per Volume.write_needles batch when phases 3 and 6 write their
+# volumes: a write and a flush per needle are most of a needle's cost on a
+# file system whose system calls are dear
+WRITE_BATCH = 4096
+
+
+def write_needles(v, payload, cookies) -> None:
+    """Needle i + 1 of ``payload[i]`` and ``cookies[i]`` appended to volume
+    ``v``, in batches of WRITE_BATCH."""
     from seaweedfs_tpu_torch.storage.needle import Needle
-    store.add_volume(1)
+    for s in range(0, len(payload), WRITE_BATCH):
+        v.write_needles([Needle(id=i + 1, cookie=int(cookies[i]),
+                                data=payload[i].tobytes())
+                         for i in range(s, min(len(payload),
+                                               s + WRITE_BATCH))])
+
+
+def write_volume(store, payload, cookies) -> float:
+    v = store.add_volume(1)
     t0 = time.perf_counter()
-    for i in range(len(payload)):
-        store.write_needle(1, Needle(id=i + 1, cookie=int(cookies[i]),
-                                     data=payload[i].tobytes()))
+    write_needles(v, payload, cookies)
     return time.perf_counter() - t0
 
 
@@ -838,7 +873,6 @@ def write_fleet(store, counts, seed: int, sample_size: int) -> dict:
     """Volumes 1..len(counts) of NEEDLE_SIZE needles, random bytes and
     cookies from ``seed``; returns {(vid, needle id): (cookie, bytes)} of
     ``sample_size`` needles drawn uniformly over all of them."""
-    from seaweedfs_tpu_torch.storage.needle import Needle
     rng = np.random.default_rng(seed)
     total = sum(counts)
     picks = set(rng.choice(total, size=min(sample_size, total),
@@ -847,13 +881,10 @@ def write_fleet(store, counts, seed: int, sample_size: int) -> dict:
     for vid, n in enumerate(counts, start=1):
         payload = rng.integers(0, 256, (n, NEEDLE_SIZE), dtype=np.uint8)
         cookies = rng.integers(0, 1 << 32, n, dtype=np.uint64)
-        v = store.add_volume(vid)
+        write_needles(store.add_volume(vid), payload, cookies)
         for i in range(n):
-            data = payload[i].tobytes()
-            v.write_needle(Needle(id=i + 1, cookie=int(cookies[i]),
-                                  data=data))
             if first + i in picks:
-                sample[(vid, i + 1)] = (int(cookies[i]), data)
+                sample[(vid, i + 1)] = (int(cookies[i]), payload[i].tobytes())
         first += n
     return sample
 
@@ -1598,14 +1629,16 @@ def phase_scrub(workdir: str, ctx: dict, mesh, backend: str, launches,
 # 1,024 MiB, 512 MiB of needles of 1-256 KiB (uniform), written from 16
 # client threads into collection "smoke"; the master grows 7 volumes. (At
 # 2 GiB the whole run took past eight minutes; at 1 GiB, with phase 10,
-# 458 s of the 480 on an NVIDIA H100 80GB HBM3 at 700 W.) Every server runs the read cache and hedged shard
+# 458 s of the 480 on an NVIDIA H100 80GB HBM3 at 700 W; with the
+# gateways of phase 15, 512 MiB took the run to 497 s, so it is cut to
+# 384 MiB, PERF.md §4.) Every server runs the read cache and hedged shard
 # reads; the last one the kv needle map. The cache's RAM tier holds every
 # needle a server serves in (c) and both passes of (d): (c) and (d) read
 # half the needles each (about 2,050 of 128 KiB mean), about 64 MiB on
 # each of 4 servers in (c) and 86 MiB on each of 3 in (d), plus at most as
 # much again of reconstructed spans; 1,024 MiB a server leaves room.
 SERVICE_SERVERS = 4
-SERVICE_BYTES = 512 << 20
+SERVICE_BYTES = 384 << 20
 SERVICE_NEEDLE_MAX = 256 << 10
 SERVICE_THREADS = 16
 SERVICE_SAMPLE = 4096
@@ -3674,9 +3707,10 @@ def phase_chunked(workdir: str, seed: int, backend: str, card: str = "",
 
 
 # the phase's writes and read-backs are paced by its QoS budget, so its
-# length follows its data: 192 MiB keeps the whole command under eight
-# minutes (384 MiB took it to 488.5 s on an H100 80GB HBM3 at 700 W)
-LIFECYCLE_BYTES = 192 << 20
+# length follows its data: 128 MiB keeps the whole command under eight
+# minutes (384 MiB took it to 488.5 s on an H100 80GB HBM3 at 700 W, and
+# 192 MiB to 497 s once phase 15 came)
+LIFECYCLE_BYTES = 128 << 20
 LIFECYCLE_VOLUME_MB = 64
 LIFECYCLE_QOS_RATE = 200.0
 LIFECYCLE_GOOD_RATE = 190.0      # the good clients' own pace, all threads
@@ -4283,19 +4317,22 @@ def phase_lifecycle(workdir: str, seed: int, backend: str, card: str = "",
 
         layout = {v: data_shards(v) for v in vids["cold"]}
         best = None
-        # the victim may hold at most four shards of any EC volume, so
-        # every one stays readable
-        for vs in [vs for vs in servers
-                   if all(len(held(vs, v)) <= 4 for v in vids["cold"])]:
+        # the victim may hold at most four shards of each volume it
+        # re-heats, so both stay readable. No cold volume other than those
+        # two is read while it is down; and "at most four of every cold
+        # volume" may fit no server, since the spread by free slots can put
+        # 5, 5 and 4 shards of each volume on the same three servers.
+        for vs in servers:
             hit = sorted(((sum(len(layout[v].get(s, ()))
                                for s in held(vs, v)), v)
-                          for v in vids["cold"]), reverse=True)[:2]
+                          for v in vids["cold"] if len(held(vs, v)) <= 4),
+                         reverse=True)[:2]
             if len(hit) == 2 and hit[1][0] > 0 and \
                     (best is None or hit[1][0] > best[0][1][0]):
                 best = (hit, vs)
         if best is None:
-            raise AssertionError("no server with at most four shards of "
-                                 "every volume holds needles of two")
+            raise AssertionError("no server holds needles of two volumes "
+                                 "of which it has at most four shards")
         (h1, h2), victim = best
         reheat = sorted([h1[1], h2[1]])
         lost = {v: held(victim, v) for v in reheat}
@@ -5419,10 +5456,457 @@ def live_needles_of(directory: str, collection: str, vid: int) -> dict:
         v.close()
 
 
+# --- phase 15 -----------------------------------------------------------------
+
+# The filer's gateways on phase 14's cluster: an S3 gateway with an Admin
+# identity and one that may only Read the bucket, a WebDAV gateway and an
+# FTP gateway, all in this process on phase 14's filer (collection
+# "filer", so that 14 (b) encodes what they write). The S3 mix is this
+# script's own: small objects of 1-64 KiB (uniform, as phase 14's POSTs),
+# plus one 40 MiB multipart upload in 5 MiB parts (the S3 minimum part
+# size and the aws CLI's default chunk).
+GW_BUCKET = "gwbkt"
+GW_OBJECTS = 512
+GW_OBJECT_MAX = 64 << 10
+GW_PART = 5 << 20
+GW_PARTS = 8
+GW_COPY_PART = 3                 # the part that is an UploadPartCopy
+GW_RANGES = 64
+GW_LIST_PAGE = 100
+GW_DAV_FILES = 8
+GW_DAV_BIG = 16 << 20
+GW_FTP_FILES = 4
+GW_FTP_MAX = 4 << 20
+GW_TIER_NEEDLES = 256
+GW_ADMIN = ("GWADMIN", "gw-admin-secret")
+GW_READER = ("GWREADER", "gw-reader-secret")
+
+
+def s3_multipart(client, bucket: str, key: str, parts) -> str:
+    """Initiate, upload each part (bytes, or ("copy", src key, first,
+    last) for an UploadPartCopy with a range), complete; the ETag."""
+    import re
+    _, _, body = client._request("POST", f"/{bucket}/{key}",
+                                 query=[("uploads", "")])
+    uid = re.search(rb"<UploadId>([^<]+)<", body).group(1).decode()
+    for n, part in enumerate(parts, 1):
+        q = [("partNumber", str(n)), ("uploadId", uid)]
+        if isinstance(part, tuple):
+            _, src, first, last = part
+            _, _, body = client._request(
+                "PUT", f"/{bucket}/{key}", query=q, headers={
+                    "x-amz-copy-source": f"/{bucket}/{src}",
+                    "x-amz-copy-source-range": f"bytes={first}-{last}"})
+            if b"CopyPartResult" not in body:
+                raise AssertionError(f"UploadPartCopy: {body[:300]!r}")
+        else:
+            client._request("PUT", f"/{bucket}/{key}", query=q,
+                            payload=part)
+    manifest = ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{n}</PartNumber></Part>"
+        for n in range(1, len(parts) + 1)) +
+        "</CompleteMultipartUpload>").encode()
+    _, _, body = client._request("POST", f"/{bucket}/{key}",
+                                 query=[("uploadId", uid)], payload=manifest)
+    m = re.search(rb"<ETag>([^<]+)<", body)
+    if m is None:
+        raise AssertionError(f"CompleteMultipartUpload: {body[:300]!r}")
+    return m.group(1).decode().strip('"')
+
+
+def pct_ms(lat) -> dict:
+    return dict(n=len(lat), p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3))
+
+
+def timed_pool(fn, jobs, threads: int) -> tuple:
+    """fn(job) over jobs from ``threads`` threads: (results, latencies,
+    seconds)."""
+    def one(job):
+        t0 = time.perf_counter()
+        r = fn(job)
+        return r, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        got = list(pool.map(one, jobs))
+    return [r for r, _ in got], [t for _, t in got], \
+        time.perf_counter() - t0
+
+
+class Gateways:
+    """Phase 15's gateways on phase 14's filer, and what they wrote."""
+
+    def __init__(self, master, filer, rng, objects: int = GW_OBJECTS,
+                 part: int = GW_PART, dav_big: int = GW_DAV_BIG,
+                 ftp_max: int = GW_FTP_MAX):
+        from seaweedfs_tpu_torch.ftpd import FtpServer
+        from seaweedfs_tpu_torch.s3api import S3ApiServer
+        from seaweedfs_tpu_torch.s3api.auth import (Credential, Iam,
+                                                    Identity)
+        from seaweedfs_tpu_torch.server.webdav import WebDavServer
+        self.master, self.filer, self.rng = master, filer, rng
+        self.objects, self.part = objects, part
+        self.dav_big, self.ftp_max = dav_big, ftp_max
+        iam = Iam([Identity("admin", [Credential(*GW_ADMIN)], ["Admin"]),
+                   Identity("reader", [Credential(*GW_READER)],
+                            [f"Read:{GW_BUCKET}"])])
+        self.started = []
+        # each binds before the next port is picked
+        for attr, make in (
+                ("s3", lambda p: S3ApiServer(filer.url, port=p, iam=iam)),
+                ("dav", lambda p: WebDavServer(filer.url, port=p)),
+                ("ftp", lambda p: FtpServer(filer.url, port=p))):
+            server = make(free_port_pair())
+            server.start()
+            setattr(self, attr, server)
+            self.started.append(server)
+        self.s3_objects = {}     # key -> bytes
+        self.mp_key = "big/multipart.bin"
+        self.mp_data = b""
+        self.dav_files = {}      # path -> bytes
+        self.ftp_files = {}      # path -> bytes
+
+    def stop(self):
+        for s in reversed(self.started):
+            s.stop()
+
+    def client(self, who=GW_ADMIN):
+        from seaweedfs_tpu_torch.util.s3_client import S3Client
+        return S3Client(self.s3.url, *who)
+
+
+def gateways_write(gw: Gateways, sh, servers, launches, card: str,
+                   out: dict) -> None:
+    """Phase 15 (a): the bucket by shell, 512 SigV4 PUTs from 16 threads,
+    the multipart object, ListObjectsV2 pages, the Read identity's 403;
+    WebDAV PUTs and a PROPFIND; FTP STORs; the s3 tier of a volume of
+    collection ``tier`` to this gateway and back."""
+    import ftplib
+    import io
+    import re
+    import urllib.request
+
+    from seaweedfs_tpu_torch.operation import operations
+    from seaweedfs_tpu_torch.storage import backend as bk
+    from seaweedfs_tpu_torch.util.s3_client import S3Error
+
+    rng = gw.rng
+    res = {}
+
+    def s3_ingest():
+        text = sh.run_command(f"s3.bucket.create -name {GW_BUCKET}")
+        if f"created bucket {GW_BUCKET}" not in text:
+            raise AssertionError(f"s3.bucket.create: {text}")
+        pool_bytes = rng.bytes(4 << 20)
+        for i in range(gw.objects):
+            size = int(rng.integers(1024, GW_OBJECT_MAX + 1))
+            off = int(rng.integers(0, len(pool_bytes) - size))
+            gw.s3_objects[f"small/d{i % 16:02d}/o{i:04d}.bin"] = \
+                pool_bytes[off:off + size]
+        c = gw.client()
+        etags = {}
+
+        def put(item):
+            key, data = item
+            etags[key] = c.put_object(GW_BUCKET, key, data)
+
+        items = sorted(gw.s3_objects.items())
+        _, lat, secs = timed_pool(put, items, SERVICE_THREADS)
+        small_bytes = sum(len(d) for d in gw.s3_objects.values())
+        # the multipart object: GW_PARTS parts, one an UploadPartCopy of a
+        # range of a source object
+        src = rng.bytes(gw.part + 4096)
+        c.put_object(GW_BUCKET, "big/partsrc.bin", src)
+        parts, want = [], []
+        for n in range(GW_PARTS):
+            if n == GW_COPY_PART:
+                parts.append(("copy", "big/partsrc.bin", 1000,
+                              1000 + gw.part - 1))
+                want.append(src[1000:1000 + gw.part])
+            else:
+                data = rng.bytes(gw.part)
+                parts.append(data)
+                want.append(data)
+        gw.mp_data = b"".join(want)
+        t0 = time.perf_counter()
+        etag = s3_multipart(c, GW_BUCKET, gw.mp_key, parts)
+        mp_secs = time.perf_counter() - t0
+        head = c.head_object(GW_BUCKET, gw.mp_key)
+        if head["ETag"].strip('"') != etag or \
+                int(head["Content-Length"]) != len(gw.mp_data):
+            raise AssertionError(f"multipart HEAD: {head}")
+        t0 = time.perf_counter()
+        listed = list(c.list_objects(GW_BUCKET, max_keys=GW_LIST_PAGE))
+        list_secs = time.perf_counter() - t0
+        want_keys = sorted(list(gw.s3_objects) +
+                           [gw.mp_key, "big/partsrc.bin"])
+        if [o["key"] for o in listed] != want_keys or \
+                any(o["etag"] != etags[o["key"]] for o in listed
+                    if o["key"] in etags):
+            raise AssertionError(f"ListObjectsV2: {len(listed)} keys")
+        try:
+            gw.client(GW_READER).put_object(GW_BUCKET, "denied.bin", b"x")
+            raise AssertionError("the Read identity's PUT was accepted")
+        except S3Error as e:
+            if e.status != 403 or "AccessDenied" not in e.body:
+                raise
+        return dict(objects=len(items), bytes=small_bytes, seconds=secs,
+                    MBps=small_bytes / secs / 1e6,
+                    objects_per_s=len(items) / secs, **pct_ms(lat),
+                    multipart_bytes=len(gw.mp_data),
+                    multipart_seconds=mp_secs,
+                    multipart_MBps=len(gw.mp_data) / mp_secs / 1e6,
+                    multipart_etag=etag, list_pages=-(-len(listed) //
+                                                      GW_LIST_PAGE),
+                    list_seconds=list_secs, read_only_put=403)
+
+    res["s3"], _ = launches.run("gateway_s3_ingest", s3_ingest, none=True)
+
+    def dav_ingest():
+        base = f"http://{gw.dav.url}"
+        req = urllib.request.Request(f"{base}/dav", method="MKCOL")
+        urllib.request.urlopen(req, timeout=60).close()
+        for i in range(GW_DAV_FILES):
+            gw.dav_files[f"/dav/f{i}.bin"] = rng.bytes(
+                int(rng.integers(1024, GW_OBJECT_MAX + 1)))
+        gw.dav_files["/dav/big.bin"] = rng.bytes(gw.dav_big)
+
+        def put(item):
+            path, data = item
+            req = urllib.request.Request(base + path, data=data,
+                                         method="PUT")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                if r.status != 201:
+                    raise AssertionError(f"WebDAV PUT {path}: {r.status}")
+
+        _, lat, secs = timed_pool(put, sorted(gw.dav_files.items()), 4)
+        req = urllib.request.Request(f"{base}/dav", method="PROPFIND",
+                                     headers={"Depth": "1"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = r.read()
+            if r.status != 207:
+                raise AssertionError(f"PROPFIND: {r.status}")
+        sizes = sorted(int(x) for x in re.findall(
+            rb"getcontentlength>(\d+)<", body))
+        if sizes != sorted(len(d) for d in gw.dav_files.values()):
+            raise AssertionError(f"PROPFIND sizes {sizes}")
+        total = sum(len(d) for d in gw.dav_files.values())
+        return dict(files=len(gw.dav_files), bytes=total, seconds=secs,
+                    MBps=total / secs / 1e6,
+                    files_per_s=len(gw.dav_files) / secs, **pct_ms(lat),
+                    propfind_entries=len(sizes))
+
+    res["webdav"], _ = launches.run("gateway_webdav_ingest", dav_ingest,
+                                    none=True)
+
+    def ftp_ingest():
+        ftp = ftplib.FTP()
+        ftp.connect(gw.ftp.ip, gw.ftp.port, timeout=60)
+        ftp.login("smoke", "smoke")
+        lat = []
+        t0 = time.perf_counter()
+        for i in range(GW_FTP_FILES):
+            path = f"/ftp/f{i}.bin"
+            gw.ftp_files[path] = rng.bytes(int(rng.integers(
+                gw.ftp_max // 4, gw.ftp_max + 1)))
+            t1 = time.perf_counter()
+            ftp.storbinary(f"STOR {path}", io.BytesIO(gw.ftp_files[path]))
+            lat.append(time.perf_counter() - t1)
+        secs = time.perf_counter() - t0
+        names = sorted(ftp.nlst("/ftp"))
+        ftp.quit()
+        if names != sorted(p.rsplit("/", 1)[1] for p in gw.ftp_files):
+            raise AssertionError(f"FTP NLST: {names}")
+        total = sum(len(d) for d in gw.ftp_files.values())
+        return dict(files=len(gw.ftp_files), bytes=total, seconds=secs,
+                    MBps=total / secs / 1e6,
+                    files_per_s=len(gw.ftp_files) / secs, **pct_ms(lat))
+
+    res["ftp"], _ = launches.run("gateway_ftp_ingest", ftp_ingest,
+                                 none=True)
+
+    def tier():
+        c = gw.client()
+        c.create_bucket("tier")
+        bk.load_configuration({"s3.default": {
+            "endpoint": gw.s3.url, "bucket": "tier",
+            "access_key": GW_ADMIN[0], "secret_key": GW_ADMIN[1]}})
+        a = operations.assign(gw.master.url, collection="tier")
+        vid = int(a.fid.split(",")[0])
+        holder = next(vs for vs in servers
+                      if vs.store.find_volume(vid) is not None)
+        blobs = {}
+        for i in range(GW_TIER_NEEDLES):
+            fid = f"{vid},{SERVE_KEY0 + i:x}{0x7135:08x}"
+            blobs[fid] = rng.bytes(int(rng.integers(1024,
+                                                    GW_OBJECT_MAX + 1)))
+            operations.upload_data(f"{holder.url}/{fid}", blobs[fid])
+        v = holder.store.find_volume(vid)
+        v.sync()
+        want = sha256_file(v.dat_path)
+        size = os.path.getsize(v.dat_path)
+        t0 = time.perf_counter()
+        text = sh.run_command(f"volume.tier.upload -volumeId={vid} "
+                              "-dest=s3.default")
+        up = time.perf_counter() - t0
+        if not v.is_remote or os.path.exists(v.dat_path):
+            raise AssertionError(f"volume.tier.upload:\n{text}")
+        listed = [o["key"] for o in c.list_objects("tier")]
+        if len(listed) != 1:
+            raise AssertionError(f"the tier bucket holds {listed}")
+        for fid in list(blobs)[:16]:
+            r = filer_get(holder.url, f"/{fid}")
+            if r.status != 200 or r.body != blobs[fid]:
+                raise AssertionError(f"{fid} through the s3 tier: "
+                                     f"{r.status}")
+        t0 = time.perf_counter()
+        text = sh.run_command(f"volume.tier.download -volumeId={vid}")
+        down = time.perf_counter() - t0
+        if v.is_remote or sha256_file(v.dat_path) != want:
+            raise AssertionError(f"volume.tier.download:\n{text}")
+        # the tier's needles are no file of the filer: volume.fsck in
+        # 14 (e) would count them as orphans
+        sh.run_command("collection.delete -collection tier")
+        return dict(volume=vid, dat_bytes=size, upload_seconds=up,
+                    upload_MBps=size / up / 1e6, download_seconds=down,
+                    download_MBps=size / down / 1e6, sha256_equal=True,
+                    object=listed[0])
+
+    res["tier"], _ = launches.run("gateway_tier", tier, none=True)
+    out["gateways_write"] = res
+    s, d, f, t = res["s3"], res["webdav"], res["ftp"], res["tier"]
+    log(f"  15 (a) S3 (SigV4, {SERVICE_THREADS} threads): {s['objects']} "
+        f"objects of 1-64 KiB ({s['bytes']} B) in {s['seconds']:.3f} s = "
+        f"{s['objects_per_s']:.1f} objects/s, {s['MBps']:.1f} MB/s "
+        f"(p50 {s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms); "
+        f"multipart {s['multipart_bytes']} B in {GW_PARTS} parts (one an "
+        f"UploadPartCopy of a range) {s['multipart_seconds']:.3f} s = "
+        f"{s['multipart_MBps']:.1f} MB/s; ListObjectsV2 in "
+        f"{s['list_pages']} pages of {GW_LIST_PAGE} {s['list_seconds']:.3f}"
+        f" s; the Read identity's PUT 403 [{card}]")
+    log(f"  15 (a) WebDAV: {d['files']} files ({d['bytes']} B) in "
+        f"{d['seconds']:.3f} s = {d['files_per_s']:.1f} files/s, "
+        f"{d['MBps']:.1f} MB/s, PROPFIND of {d['propfind_entries']} files;"
+        f" FTP: {f['files']} STORs ({f['bytes']} B) in {f['seconds']:.3f} "
+        f"s = {f['MBps']:.1f} MB/s [{card}]")
+    log(f"  15 (a) s3 tier: volume {t['volume']} ({t['dat_bytes']} B of "
+        f".dat) volume.tier.upload -dest s3.default "
+        f"{t['upload_seconds']:.3f} s = {t['upload_MBps']:.1f} MB/s, "
+        f".download {t['download_seconds']:.3f} s = "
+        f"{t['download_MBps']:.1f} MB/s, .dat sha256 equal [{card}]")
+
+
+def gateways_read(gw: Gateways, filers, servers, launches, card: str,
+                  out: dict) -> None:
+    """Phase 15 (b), with phase 14 (d)'s server still stopped and the
+    filers' chunk caches emptied: every byte through each gateway."""
+    import ftplib
+    import urllib.request
+
+    from seaweedfs_tpu_torch.util import http_client
+    from seaweedfs_tpu_torch.util.aws_auth import presigned_target
+    from seaweedfs_tpu_torch.util.chunk_cache import TieredChunkCache
+
+    rng = gw.rng
+    for f in filers:
+        f.chunk_cache = TieredChunkCache()
+    res = {}
+    size = len(gw.mp_data)
+    jobs = [(gw.mp_key, n * gw.part, (n + 1) * gw.part - 1)
+            for n in range(GW_PARTS)]
+    for _ in range(GW_RANGES):
+        edge = int(rng.integers(1, GW_PARTS)) * gw.part
+        first = max(0, edge - int(rng.integers(1, 1 << 20)))
+        last = min(size - 1, edge + int(rng.integers(0, 1 << 20)))
+        jobs.append((gw.mp_key, first, last))
+    jobs += [(k, None, None) for k in sorted(gw.s3_objects)]
+
+    def s3_reads():
+        c = gw.client()
+
+        def get(job):
+            key, first, last = job
+            data = gw.mp_data if key == gw.mp_key else gw.s3_objects[key]
+            if first is None:
+                got, want = c.get_object(GW_BUCKET, key), data
+            else:
+                got = c.get_object(GW_BUCKET, key, (first, last))
+                want = data[first:last + 1]
+            if hashlib.sha256(got).digest() != hashlib.sha256(want).digest():
+                raise AssertionError(f"S3 GET {key} [{first}, {last}]: "
+                                     f"{len(got)} B, want {len(want)} B")
+
+        _, lat, secs = timed_pool(get, jobs, SERVICE_THREADS)
+        key = sorted(gw.s3_objects)[0]
+        r = http_client.request("GET", gw.s3.url + presigned_target(
+            "GET", gw.s3.url, f"/{GW_BUCKET}/{key}", *GW_READER,
+            "us-east-1", "s3"), timeout=60)
+        if r.status != 200 or r.body != gw.s3_objects[key]:
+            raise AssertionError(f"presigned GET: {r.status}")
+        return lat, secs
+
+    def dav_reads():
+        base = f"http://{gw.dav.url}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=120) as r:
+                if r.read() != gw.dav_files[path]:
+                    raise AssertionError(f"WebDAV GET {path}")
+
+        _, lat, secs = timed_pool(get, sorted(gw.dav_files), 4)
+        return lat, secs
+
+    def ftp_reads():
+        ftp = ftplib.FTP()
+        ftp.connect(gw.ftp.ip, gw.ftp.port, timeout=60)
+        ftp.login("smoke", "smoke")
+        lat = []
+        t0 = time.perf_counter()
+        for path, data in sorted(gw.ftp_files.items()):
+            buf = []
+            t1 = time.perf_counter()
+            ftp.retrbinary(f"RETR {path}", buf.append)
+            lat.append(time.perf_counter() - t1)
+            if b"".join(buf) != data:
+                raise AssertionError(f"FTP RETR {path}")
+        secs = time.perf_counter() - t0
+        ftp.quit()
+        return lat, secs
+
+    for name, fn, must in (("s3", s3_reads, True),
+                           ("webdav", dav_reads, False),
+                           ("ftp", ftp_reads, False)):
+        d0 = sum(vs.degraded.dispatches for vs in servers)
+        (lat, secs), _ = launches.run(f"gateway_{name}_degraded_reads", fn,
+                                      maybe=not must)
+        dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+        k1 = launches.per_phase[f"gateway_{name}_degraded_reads"]
+        res[name] = dict(seconds=secs, dispatches=dispatches, launches=k1,
+                         **pct_ms(lat))
+    if not res["s3"]["dispatches"] or (launches.backend == "cuda" and
+                                       not res["s3"]["launches"]):
+        raise AssertionError(f"the S3 reads: {res['s3']}")
+    out["gateways_read"] = res
+    s, d, f = res["s3"], res["webdav"], res["ftp"]
+    log(f"  15 (b) through the gateways with the server stopped, caches "
+        f"emptied: S3 {GW_PARTS} part spans, {GW_RANGES} Ranges across "
+        f"part boundaries and {len(gw.s3_objects)} objects from "
+        f"{SERVICE_THREADS} threads (p50 {s['p50_ms']:.2f} ms, p99 "
+        f"{s['p99_ms']:.2f} ms) and a presigned GET: {s['dispatches']} "
+        f"decode dispatches, {s['launches']} K1 launches; WebDAV "
+        f"{len(gw.dav_files)} GETs (p50 {d['p50_ms']:.2f} ms, p99 "
+        f"{d['p99_ms']:.2f} ms): {d['dispatches']} dispatches, "
+        f"{d['launches']} K1; FTP {len(gw.ftp_files)} RETRs (p50 "
+        f"{f['p50_ms']:.2f} ms, p99 {f['p99_ms']:.2f} ms): "
+        f"{f['dispatches']} dispatches, {f['launches']} K1; every byte "
+        f"equal [{card}]")
+
+
 def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
                 small_files: int = FILER_SMALL_FILES,
                 sizes=None, sample: int = FILER_SAMPLE,
-                ranges: int = FILER_RANGES) -> dict:
+                ranges: int = FILER_RANGES, gateway_sizes=None) -> dict:
     """Phase 14: the filer over EC volumes. (a) ingest: the large files
     with `filer.copy` (a subprocess of the CLI), the small ones by HTTP
     POST from 16 threads, fs.ls/fs.du/fs.tree against the tree; (b)
@@ -5436,7 +5920,12 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
     `backup` and `compact -commit` of one volume. With `cryptography`, a
     second filer with -encryptVolumeData writes four files in (a) and
     reads them back in (d); without it, its POST must answer 500 and
-    store no chunk."""
+    store no chunk. Phase 15 rides this cluster: its gateways write
+    between (a) and (b) (``gateways_write``), so (b) encodes their data,
+    and read it all back after (d) (``gateways_read``), with (d)'s
+    server still stopped; (g) runs ``server -filer -s3``.
+    ``gateway_sizes`` (``Gateways``' keyword arguments) shrinks phase
+    15 for a rehearsal on the CPU."""
     import signal as signal_mod
 
     import re
@@ -5486,6 +5975,7 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
                           volume_size_limit_mb=FILER_VOLUME_MB,
                           pulse_seconds=1.0)
     servers, filers, procs = [], [], []
+    gw = None
     t_phase = time.perf_counter()
     try:
         master.start()
@@ -5606,6 +6096,14 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
             f"fs.du and fs.tree agree with the tree; {crypto_case} "
             f"[{card}]")
 
+        # phase 15 (a): the gateways write onto this filer
+        log("phase 15: the filer's gateways on phase 14's cluster (S3 with "
+            "IAM, multipart and the s3 tier, WebDAV, FTP)")
+        t15 = time.perf_counter()
+        gw = Gateways(master, filer, rng, **(gateway_sizes or {}))
+        gateways_write(gw, sh, servers, launches, card, out)
+        gw_seconds = time.perf_counter() - t15
+
         # (b) ec.encode of the collection on the card
         vids = sorted({vid for vs in servers for loc in vs.store.locations
                        for vid, v in list(loc.volumes.items())
@@ -5722,6 +6220,11 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
             f"decode fleet dispatches, {k1} K1 launches "
             f"({k1 / dispatches:.2f} per dispatch); {secs:.3f} s [{card}]")
 
+        # phase 15 (b): every gateway byte back with the server stopped
+        t15 = time.perf_counter()
+        gateways_read(gw, filers, servers, launches, card, out)
+        gw_seconds += time.perf_counter() - t15
+
         # (e) volume.fsck
         def fsck():
             t0 = time.perf_counter()
@@ -5825,11 +6328,12 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
             t0 = time.perf_counter()
             d = os.path.join(workdir, "server")
             prof = os.path.join(workdir, "server.prof")
-            ports = [free_port_pair() for _ in range(3)]
+            ports = [free_port_pair() for _ in range(4)]
             argv = [sys.executable, "-m", "seaweedfs_tpu_torch", "server",
-                    "-filer", "-dir", d, "-master.port", str(ports[0]),
-                    "-volume.port", str(ports[1]), "-filer.port",
-                    str(ports[2]), "-volume.max", "4", "-cpuprofile", prof]
+                    "-filer", "-s3", "-dir", d, "-master.port",
+                    str(ports[0]), "-volume.port", str(ports[1]),
+                    "-filer.port", str(ports[2]), "-s3.port", str(ports[3]),
+                    "-volume.max", "4", "-cpuprofile", prof]
             if backend != "cuda":
                 argv += ["-ec.encoder", backend]
             proc = subprocess.Popen(
@@ -5851,12 +6355,19 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
             r = filer_get(url, "/one/f.bin")
             if r.status != 200 or r.body != body:
                 raise AssertionError(f"server -filer GET: {r.status}")
+            # its S3 gateway (no identities: anonymous), one PUT and GET
+            from seaweedfs_tpu_torch.util.s3_client import S3Client
+            s3 = S3Client(f"127.0.0.1:{ports[3]}", "", "")
+            s3.create_bucket("one")
+            s3.put_object("one", "s3.bin", body[:100_000])
+            if s3.get_object("one", "s3.bin") != body[:100_000]:
+                raise AssertionError("server -s3: the GET differs")
             proc.send_signal(signal_mod.SIGINT)
             _, err = proc.communicate(timeout=60)
             procs.remove(proc)
             if proc.returncode != 0 or "Traceback" in err or \
                     not os.path.getsize(prof):
-                raise AssertionError(f"server -filer exit "
+                raise AssertionError(f"server -filer -s3 exit "
                                      f"{proc.returncode}:\n{err[-3000:]}")
             server_s = time.perf_counter() - t0
             version = run_cli(["version"], root).strip()
@@ -5907,8 +6418,9 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
         out["cli"] = dict(seconds=cli_s, server_seconds=server_s,
                           version=version, volume=vid, live_needles=live,
                           dat_before=size0, dat_after=size1)
-        log(f"  (g) server -filer -cpuprofile: one file POSTed and read "
-            f"back, stopped by SIGINT (exit 0, profile written) in "
+        log(f"  (g) server -filer -s3 -cpuprofile: one file POSTed and read "
+            f"back, one object PUT and read back through its S3 port, "
+            f"stopped by SIGINT (exit 0, profile written) in "
             f"{server_s:.3f} s; {version!r}; scaffold -config filer; "
             f"backup of volume {vid}: .dat byte-equal to the source; "
             f"compact -commit: the same {live} live needles, .dat {size0} "
@@ -5917,6 +6429,8 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
         for proc in procs:
             proc.kill()
             proc.communicate()
+        if gw is not None:
+            gw.stop()
         for f in filers:
             f.stop()
         for vs in servers:
@@ -5925,6 +6439,7 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
         http_client.close_all()
         rpc.close_channels()
     out["seconds"] = time.perf_counter() - t_phase
+    out["gateway_seconds"] = gw_seconds
     out["launches"] = dict(launches.per_phase)
     return out
 
@@ -5934,6 +6449,7 @@ def main() -> int:
     ap.add_argument("--needles", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -5951,6 +6467,8 @@ def main() -> int:
         f"(g++) in {build_all():.1f} s")
     log("phase 2: kernel vs plain on the card")
     kstats = phase_kernel(args.seed)
+    log(f"  phases 1-2 took {time.perf_counter() - t_start:.3f} s [{card}]")
+    t0 = time.perf_counter()
     log("phase 3: main path")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     # phase 3's original volume files, kept for phase 8 (h)
@@ -5970,6 +6488,8 @@ def main() -> int:
                        os.path.join(fix_dir, "1" + ext))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phases 3-5 took {time.perf_counter() - t0:.3f} s [{card}]")
+    t0 = time.perf_counter()
     log("phase 6: fleet")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
     try:
@@ -5984,6 +6504,8 @@ def main() -> int:
         scrub_mesh = phase_scrub_mesh(workdir, ctx, args.seed, "cuda")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phases 6-7 took {time.perf_counter() - t0:.3f} s [{card}]")
+    t0 = time.perf_counter()
     log("phase 8: the service path (master, volume servers, shell, CLI), "
         "and phase 9 on its cluster")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_service_")
@@ -5992,6 +6514,8 @@ def main() -> int:
                                 fix_dir=fix_dir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phases 8-9 took {time.perf_counter() - t0:.3f} s at "
+        f"{SERVICE_BYTES >> 20} MiB [{card}]")
     log("phase 10: the replicated HA cluster (three masters, four servers "
         "over two racks, placement 010)")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_repl_")
@@ -6017,7 +6541,8 @@ def main() -> int:
         lifecycle = phase_lifecycle(workdir, args.seed, "cuda", card=card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log(f"  phase 12 took {lifecycle['seconds']:.3f} s [{card}]")
+    log(f"  phase 12 took {lifecycle['seconds']:.3f} s at "
+        f"{LIFECYCLE_BYTES >> 20} MiB [{card}]")
     log("phase 13: the async serving core (threaded against async server "
         "processes; degraded reads, the keep-alive budget and QoS at "
         "frame time through the async core of four servers)")
@@ -6026,17 +6551,21 @@ def main() -> int:
         serve = phase_serve(workdir, args.seed, "cuda", card=card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log(f"  phase 13 took {serve['seconds']:.3f} s [{card}]")
+    log(f"  phase 13 took {serve['seconds']:.3f} s in rounds of "
+        f"{SERVE_ROUND_S} s [{card}]")
     log("phase 14: the filer over EC on the card (a master, four servers "
         "and a filer on sqlite; filer.copy, POSTs, ec.encode, degraded "
         "reads through the filer, volume.fsck, fs.meta.save/load, "
-        "server -filer, backup, compact)")
+        "server -filer -s3, backup, compact), with phase 15's gateways on "
+        "its filer")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_filer_")
     try:
         filer = phase_filer(workdir, args.seed, "cuda", card=card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log(f"  phase 14 took {filer['seconds']:.3f} s [{card}]")
+    log(f"  phase 14 took {filer['seconds']:.3f} s with phase 15's "
+        f"{filer['gateway_seconds']:.3f} s [{card}]")
+    log(f"  phases 1-15 took {time.perf_counter() - t_start:.3f} s [{card}]")
     service["replication"] = {k: v for k, v in repl.items()
                               if k != "launches"}
     service["chunked"] = {k: v for k, v in chunked.items()

@@ -3,10 +3,11 @@
 The port of ``seaweedfs_tpu.command`` for the cluster and its clients:
 ``master``, ``volume``, ``filer``, ``server``, ``shell``, ``upload``,
 ``download``, ``delete``, ``benchmark``, ``backup``, ``fix``, ``export``,
-``compact``, ``scaffold``, ``version``, ``filer.cat``, ``filer.copy`` and
-``filer.meta.tail``; ``s3``, ``webdav`` and ``ftp`` answer with an error
-naming their ROADMAP item. Global flags (-v verbosity,
--logFile) are peeled off before dispatch, like the reference's glog flags
+``compact``, ``scaffold``, ``version``, ``filer.cat``, ``filer.copy``,
+``filer.meta.tail`` and the filer's gateways ``s3``, ``webdav`` and
+``ftp``; ``mount`` answers with an error naming its ROADMAP item. Global
+flags (-v verbosity, -logFile) are peeled off before dispatch, like the
+reference's glog flags
 (weed/command/command.go:10-34, weed/weed.go:37). Every server and client
 command reads ``security.toml`` first (``setup_client_tls``).
 """

@@ -1,5 +1,5 @@
-"""Server subcommands: master, volume, filer and server (all three in one
-process).
+"""Server subcommands: master, volume, filer, the filer's gateways (s3,
+webdav, ftp) and server (all of them in one process).
 
 Flag names and defaults follow the JAX package's command layer
 (``seaweedfs_tpu/command/servers.py``, itself the reference's
@@ -12,9 +12,11 @@ dump written at the stop, ``util/grace.py``).
 
 The filer keeps the JAX package's ``-store`` names: ``memory``,
 ``sqlite`` (the default), ``weedkv``, ``mysql`` and ``postgres`` run;
-the networked stores, ``s3``, ``webdav``, ``ftp``, ``server -s3`` and a
-``notification.toml`` that enables a queue answer with an error naming
-their ROADMAP item (``unported.py``).
+the networked stores, ``mount`` and a ``notification.toml`` that enables
+a queue answer with an error naming their ROADMAP item (``unported.py``).
+``s3`` takes ``-config`` (an ``s3.configure``-style identities file),
+``-metricsPort``, ``-serve.*`` and the ``-qos.*`` flags of the s3 role;
+``server -s3`` adds an S3 gateway on the filer it starts.
 
 Both read security.toml first (``_setup_tls``): with its ``[grpc.ca]``
 and ``[grpc.master]``/``[grpc.volume]`` sections the server's RPC plane
@@ -44,10 +46,11 @@ the threaded model serves and the async module is never imported.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import threading
-from typing import List
+from typing import List, Optional
 
 from seaweedfs_tpu_torch import unported
 from seaweedfs_tpu_torch.command import command
@@ -761,21 +764,88 @@ def run_filer(args) -> int:
     return _serve_with_metrics(_build_filer(opts), opts, "filer")
 
 
-def _refused_command(name: str, arrives_with: str):
-    def run(args) -> int:  # noqa: ARG001
-        raise unported.refusal(name, arrives_with)
-    return run
+def _load_iam(config_path: Optional[str]):
+    """IAM identities from an s3.configure-style JSON file:
+    {"identities": [{"name":..., "credentials": [{"accessKey":...,
+    "secretKey":...}], "actions": ["Read","Write",...]}]}"""
+    from seaweedfs_tpu_torch.s3api.auth import Credential, Iam, Identity
+    if not config_path:
+        return Iam()
+    with open(config_path) as f:
+        cfg = json.load(f)
+    idents = []
+    for ident in cfg.get("identities", []):
+        creds = [Credential(c["accessKey"], c["secretKey"])
+                 for c in ident.get("credentials", [])]
+        idents.append(Identity(name=ident.get("name", ""),
+                               credentials=creds,
+                               actions=ident.get("actions", [])))
+    return Iam(idents)
 
 
-command("s3", "start an S3-compatible gateway (not carried yet)")(
-    _refused_command("s3", unported.S3))
-command("webdav", "start a WebDAV gateway (not carried yet)")(
-    _refused_command("webdav", unported.WEBDAV_FTP_FUSE))
-command("ftp", "start an FTP gateway (not carried yet)")(
-    _refused_command("ftp", unported.WEBDAV_FTP_FUSE))
+def _s3_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="s3", description="start an S3 "
+                                "gateway on a filer")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8333)
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-config", default=None,
+                   help="JSON file with IAM identities")
+    p.add_argument("-metricsPort", dest="metrics_port", type=int,
+                   default=0, help="Prometheus /metrics pull port")
+    _add_serve_args(p)
+    _add_qos_args(p)
+    return p
 
 
-@command("server", "start master + volume (+filer) in one process")
+@command("s3", "start an S3-compatible gateway")
+def run_s3(args) -> int:
+    opts = _s3_parser().parse_args(args)
+    _configure_qos(opts)
+    from seaweedfs_tpu_torch.s3api.server import S3ApiServer
+    s3 = S3ApiServer(opts.filer, ip=opts.ip, port=opts.port,
+                     iam=_load_iam(opts.config), serve=_serve_config(opts))
+    return _serve_with_metrics(s3, opts, "s3")
+
+
+def _webdav_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="webdav", description="start a "
+                                "WebDAV gateway on a filer")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=7333)
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    _add_serve_args(p)
+    return p
+
+
+@command("webdav", "start a WebDAV gateway")
+def run_webdav(args) -> int:
+    opts = _webdav_parser().parse_args(args)
+    from seaweedfs_tpu_torch.server.webdav import WebDavServer
+    return _serve_until_signalled(WebDavServer(
+        opts.filer, ip=opts.ip, port=opts.port, serve=_serve_config(opts)))
+
+
+@command("ftp", "start an FTP gateway over the filer")
+def run_ftp(args) -> int:
+    _setup_tls("client")
+    p = argparse.ArgumentParser(prog="ftp")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=2121)
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-ftpRoot", dest="ftp_root", default="/")
+    opts = p.parse_args(args)
+    from seaweedfs_tpu_torch.ftpd import FtpServer
+    return _serve_until_signalled(FtpServer(
+        opts.filer, ip=opts.ip, port=opts.port, ftp_root=opts.ftp_root))
+
+
+@command("mount", "mount the filer as a filesystem (not carried yet)")
+def run_mount(args) -> int:  # noqa: ARG001
+    raise unported.refusal("mount", unported.FUSE)
+
+
+@command("server", "start master + volume (+filer, +s3) in one process")
 def run_server(args) -> int:
     p = argparse.ArgumentParser(prog="server", description="combined "
                                 "cluster-in-one-process (reference weed "
@@ -795,15 +865,13 @@ def run_server(args) -> int:
     p.add_argument("-filer.port", dest="filer_port", type=int,
                    default=8888)
     p.add_argument("-s3", action="store_true",
-                   help="also start an S3 gateway (not carried yet)")
+                   help="also start an S3 gateway (implies -filer)")
     p.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
     p.add_argument("-volumeSizeLimitMB", dest="volume_size_limit_mb",
                    type=int, default=30 * 1000)
     _add_cpuprofile_arg(p)
     _add_qos_args(p)
     opts = p.parse_args(args)
-    if opts.s3:
-        raise unported.refusal("server -s3", unported.S3)
     _setup_tls("master")
     # one process-wide manager shared by every role in the combined
     # server: all of them meter against the same tenant buckets
@@ -829,7 +897,7 @@ def run_server(args) -> int:
         _attach_qos_heat(vol)
         stack.append(vol)
         vol.start()
-        if opts.filer:
+        if opts.filer or opts.s3:
             fopts = _filer_parser().parse_args(
                 ["-ip", opts.ip, "-port", str(opts.filer_port),
                  "-master", f"{opts.ip}:{opts.master_port}",
@@ -837,6 +905,12 @@ def run_server(args) -> int:
             filer = _build_filer(fopts)
             stack.append(filer)
             filer.start()
+        if opts.s3:
+            from seaweedfs_tpu_torch.s3api.server import S3ApiServer
+            s3 = S3ApiServer(f"{opts.ip}:{opts.filer_port}", ip=opts.ip,
+                             port=opts.s3_port)
+            stack.append(s3)
+            s3.start()
     except BaseException:
         for server in reversed(stack):
             server.stop()

@@ -1,11 +1,11 @@
 """The cluster's messages and stub helpers.
 
-``master_pb2``, ``volume_server_pb2``, ``raft_pb2`` and ``filer_pb2``
-carry the JAX package's ``master_pb``, ``volume_server_pb``, ``raft_pb``
-and ``filer_pb`` messages
-(names, field numbers, proto3 wire bytes) on the port's own runtime
-(``wire.py``), for the methods the port serves; ``rpc.py`` carries the
-calls.
+``master_pb2``, ``volume_server_pb2``, ``raft_pb2``, ``filer_pb2`` and
+``iam_pb2`` carry the JAX package's ``master_pb``, ``volume_server_pb``,
+``raft_pb``, ``filer_pb`` and ``iam_pb`` messages (names, field numbers,
+proto3 wire bytes) on the port's own runtime (``wire.py``), for the
+methods the port serves; ``rpc.py`` carries the calls, and
+``json_format.py`` protobuf's JSON mapping.
 """
 
 from seaweedfs_tpu_torch import rpc

@@ -323,12 +323,18 @@ class QosManager:
 
     def shed_reply(self, handler, role: str, name: str, ra: float,
                    reason: str) -> None:
-        """Write the backpressure reply: 429 + plain text carrying
+        """Write the role's backpressure reply: the S3 gateway speaks
+        503 + SlowDown XML (the AWS throttle contract every S3 SDK's
+        retry layer knows), every other role 429 + plain text; both carry
         Retry-After = ceil(bucket refill time) in the delta-seconds
-        grammar. (The JAX package's S3 role answers 503 + SlowDown XML;
-        the port has no S3 role.)"""
+        grammar."""
         retry_after = max(1, int(math.ceil(ra)))
         hdrs = {"Retry-After": str(retry_after)}
+        if role == "s3":
+            from seaweedfs_tpu_torch.s3api.server import slow_down_xml
+            handler.fast_reply(503, slow_down_xml(handler.path), hdrs,
+                               ctype="application/xml")
+            return
         body = ("qos: tenant %s over %s budget; retry after %ds\n"
                 % (name, reason, retry_after)).encode()
         handler.fast_reply(429, body, hdrs, ctype="text/plain")

@@ -37,17 +37,12 @@ def refuse(name: str, arrives_with: str) -> None:
     HELP[name] = f"(not ported: {arrives_with})"
 
 
-# registration side effects: every family but s3.*, which arrives with
-# the S3 gateway
+# registration side effects
 from seaweedfs_tpu_torch.shell import command_ec  # noqa: E402,F401
 from seaweedfs_tpu_torch.shell import command_fs  # noqa: E402,F401
 from seaweedfs_tpu_torch.shell import command_misc  # noqa: E402,F401
+from seaweedfs_tpu_torch.shell import command_s3  # noqa: E402,F401
 from seaweedfs_tpu_torch.shell import command_volume  # noqa: E402,F401
-from seaweedfs_tpu_torch import unported as _unported  # noqa: E402
-
-for _name in ("s3.bucket.create", "s3.bucket.delete", "s3.bucket.list",
-              "s3.configure"):
-    refuse(_name, _unported.S3)
 
 
 class CommandError(Exception):

@@ -656,10 +656,10 @@ _register_process_metrics()
 # one identity check away from unchanged.
 _qos_http = None
 
-# the roles whose ingress enforces admission: the volume server and the
-# filer are the port's tenant-facing planes (the JAX package adds its S3
-# gateway); master control traffic is observed but never shed
-_QOS_ROLES = ("volumeServer", "filer")
+# the roles whose ingress enforces admission: the volume server, the
+# filer and the S3 gateway are the tenant-facing planes; master and
+# WebDAV traffic is observed but never shed
+_QOS_ROLES = ("volumeServer", "filer", "s3")
 
 
 def instrument_http_handler(handler_cls, role: str):

@@ -11,11 +11,10 @@ Mirrors the reference SPI (weed/storage/backend/backend.go:15-74), as
   volume files move to, registered under a ``scheme.id`` name like the
   reference's ``[storage.backend.<scheme>.<id>]`` master.toml sections.
 
-The ``memory`` scheme (``MemoryBackendStorage``, an in-process object
-store) is the one this port carries. The ``s3`` scheme needs the S3
-client and a gateway to test against, which arrive with the S3 gateway
-(ROADMAP Queue 1 item 13): until then, configuring it is an error that
-says so.
+Two schemes are carried: ``memory`` (``MemoryBackendStorage``, an
+in-process object store) and ``s3`` (``storage/backend_s3.py``: any
+S3-compatible endpoint through the stdlib SigV4 client, the port's own
+gateway included).
 
 The ``<base>.tier`` sidecar records which backend holds a volume's .dat,
 and ``<base>.ectier`` which backend holds a server's .ecNN shards.
@@ -241,11 +240,6 @@ _factories: Dict[str, Callable[[str, dict], BackendStorage]] = {}
 _backends: Dict[str, BackendStorage] = {}  # guarded_by(_registry_lock)
 _registry_lock = threading.Lock()
 
-S3_REFUSAL = ("the s3 storage backend is not carried by this port: it "
-              "arrives with the S3 client and gateway (ROADMAP Queue 1 "
-              "item 13); use a memory.<id> backend")
-
-
 def register_backend_factory(
         scheme: str, factory: Callable[[str, dict], BackendStorage]) -> None:
     _factories[scheme] = factory
@@ -273,8 +267,6 @@ def get_backend(name: str) -> BackendStorage:
     with _registry_lock:
         b = _backends.get(name)
     if b is None:
-        if name.split(".", 1)[0] == "s3":
-            raise BackendError(S3_REFUSAL)
         raise BackendError(f"storage backend {name!r} is not configured")
     return b
 
@@ -288,12 +280,11 @@ def _memory_factory(name: str, props: dict) -> BackendStorage:
     return MemoryBackendStorage(name)
 
 
-def _s3_factory(name: str, props: dict) -> BackendStorage:
-    raise BackendError(S3_REFUSAL)
-
-
 register_backend_factory("memory", _memory_factory)
-register_backend_factory("s3", _s3_factory)
+
+# the s3 scheme registers itself on import (its own module keeps this one
+# free of the HTTP client)
+from seaweedfs_tpu_torch.storage import backend_s3  # noqa: E402,F401  # lint: dead-ok(the import registers the s3 scheme)
 
 
 # -- <base>.tier: which backend holds the .dat (the reference keeps this in

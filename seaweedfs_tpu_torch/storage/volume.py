@@ -351,6 +351,22 @@ class Volume:
                 "a delete marker); reject at the write path")
         return self._commit(_WriteRequest("write", n, fsync))
 
+    def write_needles(self, needles, fsync: bool = False) -> list:
+        """Append many needles as one batch: one .dat write (and one fsync
+        if asked) and one .idx flush, where write_needle pays a write and a
+        flush per needle. Returns each needle's (offset, size) in order.
+        Each needle is checked as write_needle checks it; a failed one
+        raises after the batch, whose other needles stay committed."""
+        reqs = []
+        for n in needles:
+            if len(n.data) == 0:
+                raise VolumeError(
+                    "zero-byte writes are not storable (indistinguishable "
+                    "from a delete marker); reject at the write path")
+            reqs.append(_WriteRequest("write", n, fsync))
+        self._apply_batch(reqs)
+        return [req.wait() for req in reqs]
+
     def delete_needle(self, n: Needle) -> int:
         """Tombstone a needle; returns freed size (0 if absent)."""
         return self._commit(_WriteRequest("delete", n))

@@ -4,9 +4,8 @@ unported part gets an error naming its ROADMAP item, never a weaker
 result."""
 
 GATEWAYS_ITEM = "ROADMAP Queue 1 item 13"
-S3 = f"the S3 gateway ({GATEWAYS_ITEM})"
 NETWORKED_STORES = f"the networked filer stores ({GATEWAYS_ITEM})"
-WEBDAV_FTP_FUSE = f"WebDAV, FTP and FUSE ({GATEWAYS_ITEM})"
+FUSE = f"FUSE: mount and filesys/ ({GATEWAYS_ITEM})"
 NOTIFICATION = ("the async services and notification (ROADMAP Queue 1 "
                 "item 14)")
 

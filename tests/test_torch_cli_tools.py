@@ -9,10 +9,12 @@ then incrementally, and the JAX ``Volume`` reads every needle of it.
 Run as subprocesses of the port's CLI: ``filer.copy`` of a local tree,
 ``filer.cat`` of a chunked file and ``filer.meta.tail`` against a port
 filer; ``server -filer`` starts, serves one file and stops on SIGINT
-with its ``-cpuprofile`` written; ``master -cpuprofile`` likewise. Each
-part the port does not carry yet (the networked stores, ``s3``,
-``webdav``, ``ftp``, ``server -s3``, an enabled ``notification.toml``,
-``fs.meta.notify``) answers with an error naming its ROADMAP item.
+with its ``-cpuprofile`` written; ``master -cpuprofile`` likewise. The
+gateways start as subprocesses (``s3 -config``, ``webdav``, ``ftp`` on a
+port filer, ``server -s3``), each answers a request and each stops on
+SIGINT with exit 0. Each part the port does not carry yet (the networked
+stores, ``mount``, an enabled ``notification.toml``, ``fs.meta.notify``)
+answers with an error naming its ROADMAP item.
 """
 
 import contextlib
@@ -308,13 +310,84 @@ def test_master_cpuprofile_is_written_on_sigint(tmp_path):
     assert pstats.Stats(str(prof)).total_calls > 0
 
 
+# -- the gateways ---------------------------------------------------------------
+
+
+def _ftp_ready(port):
+    import socket
+    with socket.create_connection(("127.0.0.1", port), timeout=2) as s:
+        return s.recv(64).startswith(b"220 ")
+
+
+def test_gateways_start_answer_and_stop_on_sigint(tmp_path):
+    """``s3 -config``, ``webdav`` and ``ftp`` on a port filer, and
+    ``server -s3`` on its own: each answers, each exits 0 on SIGINT."""
+    c = Cluster(tmp_path / "c", n_volume_servers=1)
+    f = FilerServer(c.master.url, port=free_port_pair(),
+                    meta_dir=str(tmp_path / "filer"))
+    f.start()
+    cfg = tmp_path / "iam.json"
+    cfg.write_text(json.dumps({"identities": [{
+        "name": "admin", "actions": ["Admin"],
+        "credentials": [{"accessKey": "AK", "secretKey": "SK"}]}]}))
+    ports = [free_port_pair() for _ in range(6)]
+    argvs = [["s3", "-filer", f.url, "-port", str(ports[0]),
+              "-config", str(cfg)],
+             ["webdav", "-filer", f.url, "-port", str(ports[1])],
+             ["ftp", "-filer", f.url, "-port", str(ports[2])],
+             ["server", "-s3", "-dir", str(tmp_path / "srv"),
+              "-master.port", str(ports[3]), "-volume.port", str(ports[4]),
+              "-filer.port", str(ports[5]), "-s3.port", str(free_port_pair()),
+              "-ec.encoder", "cpu", "-volume.max", "2"]]
+    procs = [subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch",
+                               *a], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE) for a in argvs]
+    try:
+        from seaweedfs_tpu_torch.util.s3_client import S3Client
+        s3 = S3Client(f"127.0.0.1:{ports[0]}", "AK", "SK")
+        wait_for(lambda: _answers(lambda: s3.create_bucket("cli")), 60,
+                 "s3 to answer")
+        s3.put_object("cli", "k", b"through the s3 command")
+        assert s3.get_object("cli", "k") == b"through the s3 command"
+        with pytest.raises(Exception):
+            S3Client(f"127.0.0.1:{ports[0]}", "AK", "bad").get_object(
+                "cli", "k")
+        _wait_http(f"http://127.0.0.1:{ports[1]}/")
+        req = urllib.request.Request(f"http://127.0.0.1:{ports[1]}/",
+                                     method="OPTIONS")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            assert r.headers["DAV"] == "1,2"
+        wait_for(lambda: _answers(lambda: _ftp_ready(ports[2])), 60,
+                 "ftp to answer")
+        s3_port = int(argvs[3][argvs[3].index("-s3.port") + 1])
+        srv = S3Client(f"127.0.0.1:{s3_port}", "", "")
+        wait_for(lambda: _answers(lambda: srv.create_bucket("one")), 120,
+                 "server -s3 to answer")
+        srv.put_object("one", "f.bin", b"x" * 1000)
+        assert srv.get_object("one", "f.bin") == b"x" * 1000
+    finally:
+        results = [_stop(p) for p in procs]
+        f.stop()
+        c.stop()
+    for argv, (rc, _, err) in zip(argvs, results):
+        assert rc == 0 and b"Traceback" not in err, (argv[0],
+                                                     err.decode()[-2000:])
+
+
+def _answers(fn) -> bool:
+    try:
+        fn()
+        return True
+    except OSError:
+        return False
+
+
 # -- refusals ------------------------------------------------------------------
 
 REFUSALS = [(["filer", "-store", s], "item 13") for s in (
     "redis", "redis_cluster", "redis_cluster2", "etcd", "mongodb",
     "elastic7", "cassandra", "hbase")] + [
-    (["s3"], "item 13"), (["webdav"], "item 13"), (["ftp"], "item 13"),
-    (["server", "-s3"], "item 13"), (["filer"], "item 14"),
+    (["mount", "-dir", "/mnt/x"], "item 13"), (["filer"], "item 14"),
     (["fs.meta.notify", "/"], "item 14"),
 ]
 IDS = [" ".join(a) for a, _ in REFUSALS]

@@ -27,6 +27,7 @@ from seaweedfs_tpu.qos import admission as jax_adm
 from seaweedfs_tpu.qos import fair as jax_fair
 from seaweedfs_tpu.qos import tenant as jax_tenant
 from seaweedfs_tpu.stats import heat as jax_heat
+from seaweedfs_tpu.stats import metrics as jax_metrics
 from seaweedfs_tpu_torch import qos, rpc
 from seaweedfs_tpu_torch.pb import volume_server_pb2, volume_stub
 from seaweedfs_tpu_torch.qos import admission as port_adm
@@ -210,6 +211,11 @@ def test_conn_shares_and_status_equal_jax(clock):
     mp = port_adm.QosManager(port_adm.QosConfig(**cfg))
     rng = np.random.default_rng(9)
     names = ["cs-a", "cs-b", "cs-c", "_internal"]
+    # the admitted and shed counts of status() are process-wide counter
+    # children that other tests in this process may have moved before:
+    # compare what this stream added to them
+    base_j, base_p = _counter_base(jax_metrics, names), \
+        _counter_base(metrics, names)
     for _ in range(300):
         name = str(rng.choice(names))
         op = int(rng.integers(4))
@@ -230,9 +236,28 @@ def test_conn_shares_and_status_equal_jax(clock):
         counts = {str(n): int(rng.integers(0, 6)) for n in names}
         assert mp.most_over_share(counts, 8) == \
             mj.most_over_share(counts, 8)
-    sj, sp = mj.status(), mp.status()
+    sj = _minus_base(mj.status(), base_j)
+    sp = _minus_base(mp.status(), base_p)
     assert sp == sj
     assert set(sp["tenants"]) == set(names)
+
+
+def _counter_base(metrics_mod, names):
+    """{tenant: (admitted, {reason: shed})} as the registry holds them
+    now. Reads the children without removing or resetting them: a live
+    manager of another test may still hold them."""
+    return {n: (int(metrics_mod.QosAdmittedCounter.labels(n).value),
+                {r: int(metrics_mod.QosShedCounter.labels(n, r).value)
+                 for r in port_adm._SHED_REASONS})
+            for n in names}
+
+
+def _minus_base(status, base):
+    for name, t in status["tenants"].items():
+        admitted, shed = base[name]
+        t["admitted"] -= admitted
+        t["shed"] = {r: v - shed[r] for r, v in t["shed"].items()}
+    return status
 
 
 # -- the seams on a port volume server ----------------------------------------

@@ -540,6 +540,55 @@ def test_group_commit_intra_batch_overwrite_and_delete(tmp_path, clock):
     assert got["port"][1][0][0] == "error"
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_write_needles_equals_write_needle_one_by_one(tmp_path, clock, kind,
+                                                      seed):
+    """The port's write_needles (one batch) leaves the .dat/.idx bytes,
+    reads and stats that the JAX write_needle leaves needle by needle,
+    returns the same (offset, size) pairs, and after a wrong cookie
+    raises CookieMismatch with the batch's other needles committed; a
+    zero-byte needle is refused before anything is written."""
+    ops = [op[1:] for op in random_ops(seed, n=80) if op[0] == "write"]
+    first = {}
+    for nid, cookie, _ in ops:
+        first.setdefault(nid, cookie)
+    # good: the writes before the first wrong cookie; bad: the rest
+    cut = next(k for k, (nid, cookie, _) in enumerate(ops)
+               if cookie != first[nid])
+    good, bad = ops[:cut], ops[cut:]
+    got = {}
+    for pkg in (JAX, PORT):
+        clock.restart()
+        d = tmp_path / pkg.name
+        d.mkdir()
+        v = pkg.Volume(str(d), "c", 5, needle_map_kind=kind)
+        if pkg is JAX:
+            res = [v.write_needle(pkg.Needle(id=i, cookie=c, data=b))
+                   for i, c, b in good]
+            tail = [outcome(lambda: v.write_needle(
+                pkg.Needle(id=i, cookie=c, data=b))) for i, c, b in bad]
+            tail = [x for x in tail if x[0] == "error"][:1]
+        else:
+            before = files_of(d)
+            assert outcome(lambda: v.write_needles(
+                [pkg.Needle(id=1, cookie=1, data=b"x"),
+                 pkg.Needle(id=2, cookie=2, data=b"")])) == \
+                ("error", "VolumeError")
+            assert files_of(d) == before
+            res = v.write_needles([pkg.Needle(id=i, cookie=c, data=b)
+                                   for i, c, b in good])
+            tail = [outcome(lambda: v.write_needles(
+                [pkg.Needle(id=i, cookie=c, data=b) for i, c, b in bad]))]
+            tail = [x for x in tail if x[0] == "error"]
+        reads = reads_of(pkg, v, range(1, 13))
+        stats = volume_stats(v)
+        v.close()
+        got[pkg.name] = (res, tail, reads, stats, files_of(d))
+    assert got["port"] == got["jax"]
+    assert got["port"][1] == [("error", "CookieMismatch")]
+
+
 def test_group_commit_batched_fsync_and_limits(tmp_path):
     v = PORT.Volume(str(tmp_path), "", 9)
     assert v._writer is None
