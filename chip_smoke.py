@@ -136,12 +136,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    four VolumeServers naming all three masters, in data center dc1, racks
    r1, r1, r2, r2 (``ec_encoder`` cuda, the read cache and hedging as in
    phase 8), the breaker on. (a) one leader elected, four servers
-   registered with their racks. (b) 256 MiB of needles of 1 B-256 KiB in
+   registered with their racks. (b) 128 MiB of needles of 1 B-256 KiB in
    collection "repl" with replication 010 from 16 threads, every assign
    sent to a follower (the HTTP proxy); the leader stopped, the failover
    timed until a new leader has all four servers; two volumes grown
-   through a follower must be numbered above every earlier one; 256 MiB
-   more; every file id distinct, every volume on two racks; MB/s of both
+   through a follower must be numbered above every earlier one; 128 MiB
+   more (256 each until phase 16 needed the time); every file id distinct, every volume on two racks; MB/s of both
    halves. (c) 4,096 sampled needles read from each of their replicas
    (bytes equal, p50/p99), and every volume's two replicas hold the same
    live needles with the same data. (d) 64 needles deleted through one
@@ -301,7 +301,29 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    of its 9 files; FTP RETRs of its 4 files; every byte checked;
    p50/p99, decode dispatches and K1 launches per gateway. No kernel may
    launch in (a); the S3 reads of (b) must launch K1.
-16. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+16. The networked stores and replication on phase 14's cluster, between
+   14 (f) and 14 (g), with 14 (d)'s server still stopped. The machine has
+   no redis: a RESP2 stand-in of this script's own (``RespStandIn``, a
+   socket server on a thread answering what the port's RedisStore sends)
+   plays it, and no figure counts it as the port's. (a) an in-process
+   filer on ``-store redis`` (collection ``filer``, phase 14's chunk
+   size): ``fs.meta.load`` of 14 (f)'s snapshot, timed; the chunk caches
+   emptied; phase 14's large files read through it; decode dispatches and
+   K1 launches, at least one each. (b) ``filer.replicate``: a
+   replication.toml with ``[source.filer]`` phase 14's filer under phase
+   15's WebDAV directory and ``[sink.filer]`` the redis filer under
+   ``/replica``, the tail built by the command's own functions
+   (``command/async_services.py``) in this process; the source's chunk
+   caches emptied; the tail stopped once every file is on the sink; each
+   file read back through the redis filer byte for byte; MB/s, dispatches
+   and K1, at least one launch from the 16 MiB file's reads. (c)
+   ``FilerSync`` between phase 14's filer and the redis filer under
+   ``/sync``: 64 files of 1-64 KiB POSTed into each from 16 threads; the
+   seconds until both list all 128 with equal bytes; each side's log
+   holds exactly 64 creates under ``/sync`` marked
+   ``is_from_other_cluster`` (none written back to its origin). K1 may
+   not launch in (a)'s load; (c)'s new files are expected to launch none.
+17. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -2704,11 +2726,12 @@ def phase_cli(workdir: str, backend: str, card: str) -> dict:
 
 # The replicated, highly available cluster: three masters (a raft set),
 # four volume servers over two racks of one data center, volumes of 256
-# MiB, placement 010 (one copy in each rack), the breaker on. 256 MiB of
-# needles of 1 B-256 KiB before a leader failover and 256 MiB after it.
+# MiB, placement 010 (one copy in each rack), the breaker on. 128 MiB of
+# needles of 1 B-256 KiB before a leader failover and 128 MiB after it
+# (256 MiB each until phase 16 needed the time).
 REPL_MASTERS = 3
 REPL_RACKS = ("r1", "r1", "r2", "r2")
-REPL_BYTES = 256 << 20
+REPL_BYTES = 128 << 20
 REPL_VOLUME_MB = 256
 REPL_DELETES = 64
 REPL_GROW_AFTER_FAILOVER = 2
@@ -5903,6 +5926,338 @@ def gateways_read(gw: Gateways, filers, servers, launches, card: str,
         f"equal [{card}]")
 
 
+# --- phase 16 -----------------------------------------------------------------
+
+# The networked stores and replication on phase 14's cluster, with 14 (d)'s
+# server still stopped. The card's machine runs no redis, so the redis
+# filer talks to RESP_STAND_IN: a socket server of this script's own (not
+# of the port), counted in no figure as the port's.
+SYNC_FILES = 64                  # POSTed into each side of 16 (c)
+
+
+class RespStandIn:
+    """A RESP2 server on a thread that answers what the port's RedisStore
+    sends (SET, GET, DEL, SADD, SREM, SMEMBERS, SCAN, AUTH, SELECT, PING)
+    from a dict and a dict of sets, with RESP2's reply forms: +OK, :n,
+    $n/$-1 bulk strings, *n arrays."""
+
+    def __init__(self):
+        import socketserver
+        import threading
+        self.data, self.sets = {}, {}
+        self.commands = 0
+        lock = threading.Lock()
+        outer = self
+
+        class Handler(socketserver.StreamRequestHandler):
+            def handle(self):
+                while True:
+                    line = self.rfile.readline()
+                    if not line:
+                        return
+                    parts = []
+                    for _ in range(int(line[1:])):
+                        n = int(self.rfile.readline()[1:])
+                        parts.append(self.rfile.read(n + 2)[:-2])
+                    with lock:
+                        reply = outer.answer(parts)
+                    self.wfile.write(reply)
+
+        self._server = socketserver.ThreadingTCPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self._server.daemon_threads = True
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _array(items) -> bytes:
+        return b"*%d\r\n" % len(items) + b"".join(
+            b"$%d\r\n%s\r\n" % (len(x), x) for x in items)
+
+    def answer(self, parts) -> bytes:
+        import fnmatch
+        self.commands += 1
+        cmd = parts[0].upper()
+        data, sets = self.data, self.sets
+        if cmd in (b"AUTH", b"SELECT", b"PING"):
+            return b"+OK\r\n"
+        if cmd == b"SET":
+            data[parts[1]] = parts[2]
+            return b"+OK\r\n"
+        if cmd == b"GET":
+            v = data.get(parts[1])
+            return b"$-1\r\n" if v is None else b"$%d\r\n%s\r\n" % (len(v), v)
+        if cmd == b"DEL":
+            n = 0
+            for k in parts[1:]:
+                n += (data.pop(k, None) is not None) + \
+                    (sets.pop(k, None) is not None)
+            return b":%d\r\n" % n
+        if cmd == b"SADD":
+            s = sets.setdefault(parts[1], set())
+            n = len(s)
+            s.update(parts[2:])
+            return b":%d\r\n" % (len(s) - n)
+        if cmd == b"SREM":
+            s = sets.get(parts[1], set())
+            n = len(s)
+            s.difference_update(parts[2:])
+            return b":%d\r\n" % (n - len(s))
+        if cmd == b"SMEMBERS":
+            return self._array(sorted(sets.get(parts[1], ())))
+        if cmd == b"SCAN":       # one pass: cursor 0 ends the scan
+            pat = parts[parts.index(b"MATCH") + 1].decode("latin-1") \
+                if b"MATCH" in parts else "*"
+            keys = [k for k in list(data) + list(sets)
+                    if fnmatch.fnmatchcase(k.decode("latin-1"), pat)]
+            return b"*2\r\n$1\r\n0\r\n" + self._array(keys)
+        return b"-ERR unknown command '%s'\r\n" % cmd
+
+    def stop(self):
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def stores_and_replication(master, filer, filers, servers, gw, datas,
+                           large_paths, snap: str, workdir: str, chunk: int,
+                           launches, card: str, rng, out: dict) -> None:
+    """Phase 16, after 14 (f) with 14 (d)'s server still stopped. (a) a
+    filer on ``-store redis`` (the RESP stand-in): ``fs.meta.load`` of 14
+    (f)'s snapshot, then phase 14's large files read through it with the
+    chunk caches emptied (decode dispatches, K1). (b) ``filer.replicate``
+    built from a replication.toml by the command's own functions
+    (``[source.filer]`` phase 14's filer under phase 15's WebDAV directory,
+    ``[sink.filer]`` the redis filer under /replica): every file on the
+    sink, checked byte for byte, K1 launched by the 16 MiB file's chunks.
+    (c) ``FilerSync`` between phase 14's filer and the redis filer under
+    /sync: 64 files POSTed into each side from 16 threads, both sides
+    agree on all 128, and each side's log holds exactly 64 creates under
+    /sync marked ``is_from_other_cluster`` (nothing echoed back)."""
+    from seaweedfs_tpu_torch.command.async_services import (
+        load_replication_config, replicator_from_config)
+    from seaweedfs_tpu_torch.ops import gf_kernel
+    from seaweedfs_tpu_torch.replication.filer_sync import FilerSync
+    from seaweedfs_tpu_torch.server.filer import FilerServer
+    from seaweedfs_tpu_torch.shell import Shell
+    from seaweedfs_tpu_torch.util import http_client
+    from seaweedfs_tpu_torch.util.chunk_cache import TieredChunkCache
+
+    res = {}
+    t_phase = time.perf_counter()
+    resp = RespStandIn()
+    try:
+        redis_filer = FilerServer(
+            master.url, port=free_port_pair(), store="redis",
+            store_options={"host": "127.0.0.1", "port": resp.port},
+            meta_dir=os.path.join(workdir, "filer_redis"),
+            collection="filer", chunk_size=chunk)
+        redis_filer.start()
+        filers.append(redis_filer)
+
+        # (a) fs.meta.load into the redis filer, the large files through it
+        def meta_load():
+            t0 = time.perf_counter()
+            loaded = Shell(master.url, filer_url=redis_filer.url) \
+                .run_command(f"fs.meta.load {snap}")
+            return loaded.strip(), time.perf_counter() - t0
+
+        (loaded, load_s), _ = launches.run("stores_redis_meta_load",
+                                           meta_load, none=True)
+        entries = int(loaded.split()[1]) if loaded.startswith("loaded ") \
+            else -1
+        for f in filers:
+            f.chunk_cache = TieredChunkCache()
+        d0 = sum(vs.degraded.dispatches for vs in servers)
+        lat, secs = launches.run(
+            "stores_redis_degraded_reads", read_filer, redis_filer.url,
+            [(p, 0, None) for p in large_paths], datas, threads=4)
+        dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+        k1 = launches.per_phase["stores_redis_degraded_reads"]
+        if not dispatches or (launches.backend == "cuda" and k1 < 1):
+            raise AssertionError(f"16 (a): {dispatches} decode dispatches, "
+                                 f"{k1} K1 launches")
+        big = sum(len(datas[p]) for p in large_paths)
+        res["redis_filer"] = dict(
+            entries=entries, load_seconds=load_s,
+            entries_per_s=entries / load_s, resp_commands=resp.commands,
+            reads=len(lat), bytes=big, read_seconds=secs,
+            MBps=big / secs / 1e6, dispatches=dispatches, launches=k1,
+            **pct_ms(lat))
+        log(f"  16 (a) a filer on redis (this script's RESP stand-in): "
+            f"fs.meta.load of {entries} entries in {load_s:.3f} s "
+            f"({entries / load_s:.1f} entries/s, {resp.commands} RESP "
+            f"commands); the {len(lat)} large files ({big} B) through it "
+            f"with the server stopped ({pcts(lat)}), bytes equal; "
+            f"{dispatches} decode dispatches, {k1} K1 launches [{card}]")
+
+        # (b) filer.replicate: phase 15's WebDAV directory -> /replica
+        conf_dir = os.path.join(workdir, "replicate")
+        os.makedirs(conf_dir)
+        conf_path = os.path.join(conf_dir, "replication.toml")
+        with open(conf_path, "w") as f:
+            f.write(f'[source.filer]\nenabled = true\n'
+                    f'grpcAddress = "{filer.url}"\ndirectory = "/dav"\n\n'
+                    f'[sink.filer]\nenabled = true\n'
+                    f'grpcAddress = "{redis_filer.url}"\n'
+                    f'directory = "/replica"\n')
+        tail, _, directory, kind = replicator_from_config(
+            load_replication_config(conf_path))
+        source = tail.replicator.source
+        per_file = {}
+        read = source.read_entry_data
+
+        def counted_read(d, name):
+            # the tail replays one event at a time: the launches between
+            # these two reads are this file's
+            n0 = gf_kernel.LAUNCHES
+            data = read(d, name)
+            key = f"{d}/{name}"
+            per_file[key] = per_file.get(key, 0) + gf_kernel.LAUNCHES - n0
+            return data
+
+        source.read_entry_data = counted_read
+        want = gw.dav_files
+        total = sum(len(d) for d in want.values())
+
+        def replicate():
+            for f in filers:
+                f.chunk_cache = TieredChunkCache()
+            t0 = time.perf_counter()
+            tail.start(since_ns=0)
+            try:
+                def landed():
+                    for path, data in want.items():
+                        try:
+                            e = redis_filer.filer.find_entry(
+                                "/replica" + path)
+                        except Exception:  # not there yet
+                            return False
+                        if sum(c.size for c in e.chunks) != len(data):
+                            return False
+                    return True
+                wait_until(landed, 120, "filer.replicate to land every file")
+                secs = time.perf_counter() - t0
+            finally:
+                tail.stop()
+            lat = read_filer(redis_filer.url,
+                             [("/replica" + p, 0, None) for p in want],
+                             {"/replica" + p: d for p, d in want.items()},
+                             threads=4)
+            return secs, lat
+
+        d0 = sum(vs.degraded.dispatches for vs in servers)
+        (rep_s, lat), _ = launches.run("replication_replicate", replicate)
+        dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+        k1 = launches.per_phase["replication_replicate"]
+        big_k1 = per_file.get("/dav/big.bin", 0)
+        if launches.backend == "cuda" and big_k1 < 1:
+            raise AssertionError(f"16 (b): the 16 MiB file's reads launched "
+                                 f"{big_k1} K1 ({per_file})")
+        res["replicate"] = dict(
+            files=len(want), bytes=total, seconds=rep_s,
+            MBps=total / rep_s / 1e6, dispatches=dispatches, launches=k1,
+            big_file_launches=big_k1, sink=kind, directory=directory,
+            check_reads=pct_ms(lat))
+        log(f"  16 (b) filer.replicate ({directory} -> {kind} sink /replica "
+            f"on the redis filer, from replication.toml): {len(want)} files "
+            f"({total} B) in {rep_s:.3f} s = {total / rep_s / 1e6:.1f} MB/s "
+            f"with the server stopped, bytes equal on the sink; "
+            f"{dispatches} decode dispatches, {k1} K1 launches ({big_k1} "
+            f"from the 16 MiB file) [{card}]")
+
+        # (c) filer.sync between phase 14's filer and the redis filer
+        sides = {"a": filer, "b": redis_filer}
+        posts = {}
+        pool_bytes = rng.bytes(4 << 20)
+        for side in sides:
+            for i in range(SYNC_FILES):
+                size = int(rng.integers(1024, FILER_SMALL_MAX + 1))
+                off = int(rng.integers(0, len(pool_bytes) - size))
+                posts[(side, f"/sync/{side}{i:03d}.bin")] = \
+                    pool_bytes[off:off + size]
+        every = {path: data for (_, path), data in posts.items()}
+        sync = FilerSync(filer.url, redis_filer.url, path_prefix="/sync")
+
+        def sync_run():
+            sync.start()
+            try:
+                t0 = time.perf_counter()
+
+                def post(part):
+                    for (side, path), data in part:
+                        r = http_client.request(
+                            "POST", f"{sides[side].url}{path}", body=data)
+                        if r.status != 201:
+                            raise AssertionError(f"POST {path}: "
+                                                 f"{r.status}")
+
+                items = sorted(posts.items())
+                with concurrent.futures.ThreadPoolExecutor(
+                        SERVICE_THREADS) as pool:
+                    list(pool.map(post, [items[i::SERVICE_THREADS]
+                                         for i in range(SERVICE_THREADS)]))
+                post_s = time.perf_counter() - t0
+
+                want_sizes = {p: len(d) for p, d in every.items()}
+
+                def held():
+                    return {side: {f"/sync/{e.name}":
+                                   sum(c.size for c in e.chunks)
+                                   for e in f.filer.list_entries(
+                                       "/sync", limit=1000)}
+                            for side, f in sides.items()}
+
+                try:
+                    wait_until(lambda: all(h == want_sizes for h in
+                                           held().values()), 60,
+                               "both filers to hold all 128 files")
+                except AssertionError:
+                    raise AssertionError(f"16 (c): {held()}") from None
+                agree_s = time.perf_counter() - t0
+            finally:
+                sync.stop()
+            for f in sides.values():
+                read_filer(f.url, [(p, 0, None) for p in every], every)
+            return post_s, agree_s
+
+        (post_s, agree_s), _ = launches.run("replication_sync", sync_run,
+                                            maybe=True)
+        marked = {}
+        for side, f in sides.items():
+            recs = [r for r in f.filer.meta_log.read_events_since(0)
+                    if r.directory == "/sync" and
+                    r.event_notification.new_entry.name and
+                    not r.event_notification.old_entry.name]
+            other = [r for r in recs
+                     if r.event_notification.is_from_other_cluster]
+            names = sorted(r.event_notification.new_entry.name
+                           for r in other)
+            want_names = sorted(p.rsplit("/", 1)[1] for (s, p) in posts
+                                if s != side)
+            if names != want_names:
+                raise AssertionError(
+                    f"16 (c) side {side}: {len(names)} creates from the "
+                    f"other cluster under /sync, want {SYNC_FILES}")
+            marked[side] = len(names)
+        res["sync"] = dict(files=len(every), post_seconds=post_s,
+                           seconds_to_agree=agree_s, marked=marked,
+                           launches=launches.per_phase["replication_sync"])
+        log(f"  16 (c) filer.sync /sync between phase 14's filer (sqlite) "
+            f"and the redis filer: {SYNC_FILES} files of 1-64 KiB POSTed "
+            f"into each from {SERVICE_THREADS} threads in {post_s:.3f} s; "
+            f"both hold all {len(every)}, bytes equal, {agree_s:.3f} s "
+            f"after the first POST; each log holds exactly {SYNC_FILES} "
+            f"creates marked from the other cluster, none echoed; "
+            f"{launches.per_phase['replication_sync']} K1 launches [{card}]")
+    finally:
+        resp.stop()
+    res["seconds"] = time.perf_counter() - t_phase
+    out["stores_replication"] = res
+    log(f"  phase 16 took {res['seconds']:.3f} s [{card}]")
+
+
 def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
                 small_files: int = FILER_SMALL_FILES,
                 sizes=None, sample: int = FILER_SAMPLE,
@@ -5923,9 +6278,10 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
     store no chunk. Phase 15 rides this cluster: its gateways write
     between (a) and (b) (``gateways_write``), so (b) encodes their data,
     and read it all back after (d) (``gateways_read``), with (d)'s
-    server still stopped; (g) runs ``server -filer -s3``.
-    ``gateway_sizes`` (``Gateways``' keyword arguments) shrinks phase
-    15 for a rehearsal on the CPU."""
+    server still stopped; (g) runs ``server -filer -s3``. Phase 16
+    (``stores_and_replication``) runs between (f) and (g), with (d)'s
+    server still stopped. ``gateway_sizes`` (``Gateways``' keyword
+    arguments) shrinks phase 15 for a rehearsal on the CPU."""
     import signal as signal_mod
 
     import re
@@ -6323,6 +6679,15 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
             f"{launches.per_phase['filer_meta_round_trip']} K1 launches "
             f"[{card}]")
 
+        # phase 16: the networked stores and replication on this cluster
+        log("phase 16: a filer on redis (fs.meta.load, degraded reads), "
+            "filer.replicate into it and filer.sync with it, on phase 14's "
+            "cluster with its server still stopped")
+        stores_and_replication(
+            master, filer, filers, servers, gw, datas, large_paths,
+            os.path.join(workdir, "namespace.meta"), workdir, chunk,
+            launches, card, rng, out)
+
         # (g) the one-process server, version, scaffold, backup, compact
         def cli():
             t0 = time.perf_counter()
@@ -6523,7 +6888,8 @@ def main() -> int:
         repl = phase_replication(workdir, args.seed, "cuda", card=card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log(f"  phase 10 took {repl['seconds']:.3f} s [{card}]")
+    log(f"  phase 10 took {repl['seconds']:.3f} s at {REPL_BYTES >> 20} "
+        f"MiB a half [{card}]")
     log("phase 11: chunked files through the client libraries (three "
         "masters, four servers, MasterClient, leases, ec.encode, a "
         "failover, a lost server, the CLI)")
@@ -6557,15 +6923,16 @@ def main() -> int:
         "and a filer on sqlite; filer.copy, POSTs, ec.encode, degraded "
         "reads through the filer, volume.fsck, fs.meta.save/load, "
         "server -filer -s3, backup, compact), with phase 15's gateways on "
-        "its filer")
+        "its filer and phase 16's redis filer and replication")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_filer_")
     try:
         filer = phase_filer(workdir, args.seed, "cuda", card=card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"  phase 14 took {filer['seconds']:.3f} s with phase 15's "
-        f"{filer['gateway_seconds']:.3f} s [{card}]")
-    log(f"  phases 1-15 took {time.perf_counter() - t_start:.3f} s [{card}]")
+        f"{filer['gateway_seconds']:.3f} s and phase 16's "
+        f"{filer['stores_replication']['seconds']:.3f} s [{card}]")
+    log(f"  phases 1-16 took {time.perf_counter() - t_start:.3f} s [{card}]")
     service["replication"] = {k: v for k, v in repl.items()
                               if k != "launches"}
     service["chunked"] = {k: v for k, v in chunked.items()

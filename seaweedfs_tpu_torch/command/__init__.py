@@ -4,8 +4,9 @@ The port of ``seaweedfs_tpu.command`` for the cluster and its clients:
 ``master``, ``volume``, ``filer``, ``server``, ``shell``, ``upload``,
 ``download``, ``delete``, ``benchmark``, ``backup``, ``fix``, ``export``,
 ``compact``, ``scaffold``, ``version``, ``filer.cat``, ``filer.copy``,
-``filer.meta.tail`` and the filer's gateways ``s3``, ``webdav`` and
-``ftp``; ``mount`` answers with an error naming its ROADMAP item. Global
+``filer.meta.tail``, the filer's gateways ``s3``, ``webdav`` and
+``ftp``, and ``filer.replicate`` and ``filer.sync``; ``mount`` and
+``msgBroker`` answer with an error naming their ROADMAP item. Global
 flags (-v verbosity, -logFile) are peeled off before dispatch, like the
 reference's glog flags
 (weed/command/command.go:10-34, weed/weed.go:37). Every server and client
@@ -95,3 +96,4 @@ from seaweedfs_tpu_torch.command import servers  # noqa: E402,F401
 from seaweedfs_tpu_torch.command import tools  # noqa: E402,F401
 from seaweedfs_tpu_torch.command import benchmark  # noqa: E402,F401
 from seaweedfs_tpu_torch.command import filer_tools  # noqa: E402,F401
+from seaweedfs_tpu_torch.command import async_services  # noqa: E402,F401

@@ -10,10 +10,13 @@ subcommand blocks until SIGINT or SIGTERM, then stops its servers, and
 ``master``, ``volume`` and ``server`` take ``-cpuprofile`` (a cProfile
 dump written at the stop, ``util/grace.py``).
 
-The filer keeps the JAX package's ``-store`` names: ``memory``,
-``sqlite`` (the default), ``weedkv``, ``mysql`` and ``postgres`` run;
-the networked stores, ``mount`` and a ``notification.toml`` that enables
-a queue answer with an error naming their ROADMAP item (``unported.py``).
+The filer keeps the JAX package's ``-store`` names, and runs each:
+``memory``, ``sqlite`` (the default), ``weedkv``, ``mysql``, ``postgres``
+and the networked ``redis``, ``redis_cluster``/``redis_cluster2``,
+``etcd``, ``mongodb``, ``elastic``/``elastic7``, ``cassandra`` and
+``hbase``, each reading its ``filer.toml`` section. ``mount``,
+``msgBroker`` and a ``notification.toml`` that enables a queue answer
+with an error naming their ROADMAP item (``unported.py``).
 ``s3`` takes ``-config`` (an ``s3.configure``-style identities file),
 ``-metricsPort``, ``-serve.*`` and the ``-qos.*`` flags of the s3 role;
 ``server -s3`` adds an S3 gateway on the filer it starts.
@@ -642,9 +645,9 @@ def _filer_parser() -> argparse.ArgumentParser:
     p.add_argument("-store", default="sqlite",
                    help="metadata store: memory | sqlite | weedkv "
                         "(embedded log-structured KV) | mysql | postgres "
-                        "(connection params come from the matching "
-                        "filer.toml section); the networked stores are "
-                        "not carried yet")
+                        "| redis | redis_cluster | etcd | mongodb | "
+                        "elastic7 | cassandra | hbase (connection params "
+                        "come from the matching filer.toml section)")
     p.add_argument("-dir", default="./filer",
                    help="directory for metadata store + event log")
     p.add_argument("-collection", default="")
@@ -843,6 +846,11 @@ def run_ftp(args) -> int:
 @command("mount", "mount the filer as a filesystem (not carried yet)")
 def run_mount(args) -> int:  # noqa: ARG001
     raise unported.refusal("mount", unported.FUSE)
+
+
+@command("msgBroker", "start the pub/sub message broker (not carried yet)")
+def run_msg_broker(args) -> int:  # noqa: ARG001
+    raise unported.refusal("msgBroker", unported.NOTIFICATION)
 
 
 @command("server", "start master + volume (+filer, +s3) in one process")

@@ -5,11 +5,11 @@ Ported: ``Filer`` with its metadata event log (``filer_notify.MetaLog``),
 ``filer_conf``, the listing cache, chunk intervals and manifests
 (``filechunks``, ``filechunk_manifest``), chunk reads (``stream``), the
 HTTP client helpers and the ``-peers`` aggregator; the store SPI
-(``filerstore``) with the stores that need no outside server: memory,
-sqlite (with the mysql/postgres SQL flavours) and weedkv
-(``stores.kv_store``, whose ``LogKV`` also backs the volume server's kv
-needle map). The networked stores (redis, etcd, mongodb, elastic,
-cassandra, hbase) answer with an error naming their ROADMAP item.
+(``filerstore``) with every store of the JAX package: memory, sqlite
+(with the mysql/postgres SQL flavours), weedkv (``stores.kv_store``,
+whose ``LogKV`` also backs the volume server's kv needle map) and the
+networked stores, each over a wire client of its own (``stores``:
+redis and redis cluster, etcd, mongodb, elastic, cassandra, hbase).
 """
 
 from seaweedfs_tpu_torch.filer.filer import Filer, FilerError  # noqa: F401

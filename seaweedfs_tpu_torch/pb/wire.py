@@ -1,4 +1,4 @@
-"""A small proto3 message runtime: classes from field tables, wire codec.
+"""A small protobuf message runtime: classes from field tables, wire codec.
 
 The card's machine has no protobuf package, so the port carries the JAX
 package's ``master_pb``/``volume_server_pb`` messages itself. Each message
@@ -24,6 +24,18 @@ proto3 semantics kept:
     entry message with its key (1) and its value (2) both written, in
     protobuf's deterministic order (``_map_order``); a message value is
     made on first access, as protobuf's maps do.
+
+proto2 (``message(..., syntax="proto2")``, for ``hbase_pb2``): a field is
+optional unless its label says ``REQUIRED`` or ``REPEATED``, and a
+sixth entry of its row is its ``[default = ...]``. A singular field that
+was assigned is present and written even when it holds its default, and
+``HasField`` says so; one never assigned reads as its default and is not
+written. Repeated numbers are written unpacked. ``SerializeToString``
+raises ``EncodeError`` naming every required field that is missing, as
+protobuf does (``ByteSize`` and parsing do not check). An ``"enum"``
+field is a varint read as int32; ``enum_type`` makes the enum's class,
+whose values ``resolve`` also sets on the message or module that holds
+it.
 """
 
 from __future__ import annotations
@@ -34,11 +46,12 @@ from typing import Dict, List, Tuple
 
 REPEATED = "repeated"
 SINGLE = "single"
+REQUIRED = "required"
 
-_VARINT = {"bool", "uint32", "uint64", "int32", "int64"}
+_VARINT = {"bool", "uint32", "uint64", "int32", "int64", "enum"}
 _DEFAULTS = {"string": "", "bytes": b"", "bool": False, "uint32": 0,
              "uint64": 0, "int32": 0, "int64": 0, "float": 0.0,
-             "double": 0.0, "fixed32": 0}
+             "double": 0.0, "fixed32": 0, "enum": 0}
 _WIRE_TYPE = {"float": 5, "double": 1, "fixed32": 5, "string": 2,
               "bytes": 2, "message": 2, "map": 2}
 _FIXED = {"float": ("<f", 4), "double": ("<d", 8), "fixed32": ("<I", 4)}
@@ -49,11 +62,17 @@ class DecodeError(ValueError):
     pass
 
 
-class _Field:
-    __slots__ = ("name", "number", "kind", "repeated", "type_name", "cls",
-                 "key", "packed_key", "map_key", "map_value")
+class EncodeError(ValueError):
+    pass
 
-    def __init__(self, name, number, kind, label=None, type_name=None):
+
+class _Field:
+    __slots__ = ("name", "number", "kind", "repeated", "required",
+                 "default", "has_default", "type_name", "cls", "key",
+                 "packed_key", "map_key", "map_value")
+
+    def __init__(self, name, number, kind, label=None, type_name=None,
+                 default=None):
         if kind not in _DEFAULTS and kind not in ("message", "map"):
             raise ValueError(f"field {name}: unsupported kind {kind!r}")
         self.name = name
@@ -67,8 +86,12 @@ class _Field:
                 else "message"
             label = None
         self.repeated = label == REPEATED
+        self.required = label == REQUIRED
+        # an enum without [default] reads as its first value (resolve)
+        self.has_default = default is not None
+        self.default = _DEFAULTS.get(kind) if default is None else default
         self.type_name = type_name
-        self.cls = None          # resolved message class
+        self.cls = None          # resolved message or enum class
         wt = 0 if kind in _VARINT else _WIRE_TYPE[kind]
         self.key = _varint((number << 3) | wt)
         self.packed_key = _varint((number << 3) | 2)
@@ -127,7 +150,7 @@ def _from_varint(kind: str, v: int):
         return v != 0
     if kind == "uint32":
         return v & 0xFFFFFFFF
-    if kind == "int32":
+    if kind in ("int32", "enum"):
         return _signed(v, 32)
     if kind == "int64":
         return _signed(v, 64)
@@ -204,6 +227,7 @@ class Message:
     _FIELDS: Tuple[_Field, ...] = ()
     _BY_NAME: Dict[str, _Field] = {}
     _BY_NUMBER: Dict[int, _Field] = {}
+    _PROTO2 = False
     FULL_NAME = ""
 
     __slots__ = ("_values", "_present", "_parent")
@@ -240,7 +264,7 @@ class Message:
             object.__setattr__(v, "_parent", self)
             values[name] = v
             return v
-        return _DEFAULTS[f.kind]
+        return f.default
 
     def __setattr__(self, name, value):
         f = self._BY_NAME.get(name)
@@ -284,17 +308,50 @@ class Message:
         v = self._values.get(name)
         if f.kind == "message":
             return v is not None and v._present
+        if self._PROTO2:
+            return v is not None
         return v is not None and not _is_default(f.kind, v)
+
+    def IsInitialized(self) -> bool:
+        return not self._missing("")
+
+    def _missing(self, prefix: str) -> List[str]:
+        """The paths of the required fields left unset, in protobuf's
+        order: this message's own first, then those below each set
+        message field (``get``, ``region.type``, ``column[0].family``)."""
+        if not self._PROTO2:
+            return []
+        values = self._values
+        out = [prefix + f.name for f in self._FIELDS
+               if f.required and not self.HasField(f.name)]
+        for f in self._FIELDS:
+            v = values.get(f.name)
+            if f.kind != "message" or v is None:
+                continue
+            if f.repeated:
+                for i, m in enumerate(v):
+                    out += m._missing(f"{prefix}{f.name}[{i}].")
+            elif v._present:
+                out += v._missing(f"{prefix}{f.name}.")
+        return out
 
     # -- codec ---------------------------------------------------------------
 
     def SerializeToString(self) -> bytes:
+        if self._PROTO2:
+            missing = self._missing("")
+            if missing:
+                raise EncodeError(f"Message {self.FULL_NAME} is missing "
+                                  f"required fields: {','.join(missing)}")
+        return self._bytes()
+
+    def _bytes(self) -> bytes:
         out: List[bytes] = []
         self._encode(out)
         return b"".join(out)
 
     def ByteSize(self) -> int:
-        return len(self.SerializeToString())
+        return len(self._bytes())
 
     def CopyFrom(self, other: "Message") -> None:
         """Make this message equal to ``other`` (a deep copy)."""
@@ -304,7 +361,7 @@ class Message:
             raise TypeError(f"CopyFrom: expected {type(self).__name__}, "
                             f"got {type(other).__name__}")
         self._values.clear()
-        self._decode(memoryview(other.SerializeToString()))
+        self._decode(memoryview(other._bytes()))
         self._touch()
 
     def MergeFromString(self, data) -> int:
@@ -328,9 +385,9 @@ class Message:
                     continue
                 if kind == "message":
                     for m in v:
-                        body = m.SerializeToString()
+                        body = m._bytes()
                         out.append(f.key + _varint(len(body)) + body)
-                elif kind in ("string", "bytes"):
+                elif kind in ("string", "bytes") or self._PROTO2:
                     for s in v:
                         out.append(f.key + _scalar_bytes(kind, s))
                 else:
@@ -342,9 +399,9 @@ class Message:
                     out.append(f.key + _varint(len(body)) + body)
             elif kind == "message":
                 if v._present:
-                    body = v.SerializeToString()
+                    body = v._bytes()
                     out.append(f.key + _varint(len(body)) + body)
-            elif not _is_default(kind, v):
+            elif self._PROTO2 or not _is_default(kind, v):
                 out.append(f.key + _scalar_bytes(kind, v))
 
     @classmethod
@@ -433,9 +490,9 @@ class Message:
         return tuple(
             dict(getattr(self, f.name)) if f.kind == "map"
             else list(getattr(self, f.name)) if f.repeated
-            else (getattr(self, f.name) if f.kind != "message"
-                  else (getattr(self, f.name) if self.HasField(f.name)
-                        else None))
+            else (getattr(self, f.name) if self.HasField(f.name)
+                  else None) if f.kind == "message" or self._PROTO2
+            else getattr(self, f.name)
             for f in self._FIELDS)
 
     def __eq__(self, other):
@@ -481,9 +538,10 @@ class Message:
             elif f.repeated:
                 for item in v:
                     out.append(f"{pad}{f.name}: "
-                               f"{_text_scalar(f.kind, item)}\n")
-            elif not _is_default(f.kind, v):
-                out.append(f"{pad}{f.name}: {_text_scalar(f.kind, v)}\n")
+                               f"{_text_scalar(f.kind, item, f.cls)}\n")
+            elif self._PROTO2 or not _is_default(f.kind, v):
+                out.append(f"{pad}{f.name}: "
+                           f"{_text_scalar(f.kind, v, f.cls)}\n")
 
     def __repr__(self):
         parts = []
@@ -507,7 +565,9 @@ def _make_text_escapes() -> Dict[int, str]:
 _TEXT_ESCAPES = _make_text_escapes()
 
 
-def _text_scalar(kind: str, v) -> str:
+def _text_scalar(kind: str, v, enum_cls=None) -> str:
+    if kind == "enum" and enum_cls is not None and v in enum_cls._NAMES:
+        return enum_cls._NAMES[v]
     if kind == "bool":
         return "true" if v else "false"
     if kind in ("float", "double"):
@@ -547,7 +607,7 @@ def _entry_bytes(f: _Field, key, value) -> bytes:
                              else _WIRE_TYPE[f.map_key]))
     out = kk + _scalar_bytes(f.map_key, key)
     if f.map_value == "message":
-        body = value.SerializeToString()
+        body = value._bytes()
         return out + _varint((2 << 3) | 2) + _varint(len(body)) + body
     vk = _varint((2 << 3) | (0 if f.map_value in _VARINT
                              else _WIRE_TYPE[f.map_value]))
@@ -591,7 +651,8 @@ def _read_entry(f: _Field, raw: memoryview):
     return key, value
 
 
-def message(name: str, fields, full_name: str = "") -> type:
+def message(name: str, fields, full_name: str = "",
+            syntax: str = "proto3") -> type:
     """A message class from its field table."""
     table = tuple(sorted((_Field(*f) for f in fields),
                          key=lambda f: f.number))
@@ -599,13 +660,34 @@ def message(name: str, fields, full_name: str = "") -> type:
         "__slots__": (), "_FIELDS": table,
         "_BY_NAME": {f.name: f for f in table},
         "_BY_NUMBER": {f.number: f for f in table},
+        "_PROTO2": syntax == "proto2",
         "FULL_NAME": full_name or name})
 
 
+class Enum:
+    """Base of an enum's class: its values as attributes; ``_VALUES``
+    maps names to numbers, ``_NAMES`` numbers to names (the first name
+    of a number, as protobuf's text format prints it)."""
+
+    _NAMES: Dict[int, str] = {}
+    _VALUES: Dict[str, int] = {}
+    FULL_NAME = ""
+
+
+def enum_type(name: str, values: Dict[str, int]) -> type:
+    """An enum's class from its ``{name: number}`` table."""
+    return type(name, (Enum,), dict(
+        values, _VALUES=dict(values),
+        _NAMES={v: k for k, v in reversed(list(values.items()))},
+        FULL_NAME=name))
+
+
 def resolve(namespace: dict, package: str) -> None:
-    """Bind every message field of the classes in ``namespace`` (a module's
-    globals, nested classes included as ``Outer.Inner``) to its class,
-    and set each class's full name under ``package``."""
+    """Bind every message and enum field of the classes in ``namespace``
+    (a module's globals, nested classes included as ``Outer.Inner``) to
+    its class, and set each class's full name under ``package``. An
+    enum's values are set on what holds it, as protobuf's generated code
+    has them (``MutationProto.PUT``; a top-level enum's in the module)."""
     classes = {}
 
     def collect(prefix, cls):
@@ -613,21 +695,34 @@ def resolve(namespace: dict, package: str) -> None:
         cls.FULL_NAME = f"{package}.{prefix}"
         cls.__module__ = namespace["__name__"]
         cls.__qualname__ = prefix
-        for attr, sub in vars(cls).items():
-            if isinstance(sub, type) and issubclass(sub, Message):
+        if issubclass(cls, Enum):
+            return
+        for attr, sub in list(vars(cls).items()):
+            if isinstance(sub, type) and issubclass(sub, (Message, Enum)) \
+                    and attr != "__class__":
                 collect(f"{prefix}.{attr}", sub)
+                if issubclass(sub, Enum):
+                    for k, v in sub._VALUES.items():
+                        setattr(cls, k, v)
 
     for key, cls in list(namespace.items()):
-        if isinstance(cls, type) and issubclass(cls, Message) and \
-                cls is not Message and "." not in cls.FULL_NAME:
+        if isinstance(cls, type) and issubclass(cls, (Message, Enum)) and \
+                cls not in (Message, Enum) and "." not in cls.FULL_NAME:
             collect(key, cls)
+            if issubclass(cls, Enum):
+                namespace.update(cls._VALUES)
     for path, cls in classes.items():
+        if issubclass(cls, Enum):
+            continue
         outer = path.rsplit(".", 1)[0] if "." in path else ""
         for f in cls._FIELDS:
-            if f.kind != "message" and f.map_value != "message":
+            if f.kind not in ("message", "enum") and \
+                    f.map_value != "message":
                 continue
             # a nested type first (Outer.Inner), then a top-level one
             f.cls = classes.get(f"{outer}.{f.type_name}" if outer
                                 else f.type_name) \
                 or classes.get(f"{path}.{f.type_name}") \
                 or classes[f.type_name]
+            if f.kind == "enum" and not f.has_default:
+                f.default = next(iter(f.cls._VALUES.values()))

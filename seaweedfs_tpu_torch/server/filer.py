@@ -20,7 +20,7 @@ import time
 import urllib.parse
 from typing import List, Optional
 
-from seaweedfs_tpu_torch import rpc, unported
+from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.util.http_server import (FastHandler, ServeConfig,
                                                   make_http_server)
 from seaweedfs_tpu_torch.resilience import deadline as _deadline
@@ -45,12 +45,6 @@ DEFAULT_CHUNK_SIZE = 8 << 20   # -maxMB analog
 log = wlog.logger("filer")
 
 
-# the JAX package's store names that need an outside server: refused,
-# never replaced by another store
-NETWORKED_STORES = ("redis", "redis_cluster", "redis_cluster2", "etcd",
-                    "mongodb", "elastic", "elastic7", "cassandra", "hbase")
-
-
 def make_filer_store(store: str, meta_dir: Optional[str],
                      options: Optional[dict] = None):
     """FilerStore factory (reference filer.toml store sections +
@@ -67,9 +61,67 @@ def make_filer_store(store: str, meta_dir: Optional[str],
         if not meta_dir:
             raise ValueError("weedkv store needs a -dir/meta_dir")
         return KvFilerStore(f"{meta_dir}/weedkv")
-    if store in NETWORKED_STORES:
-        raise unported.refusal(f"filer store {store!r}",
-                               unported.NETWORKED_STORES)
+    if store == "redis":
+        from seaweedfs_tpu_torch.filer.stores.redis_store import RedisStore
+        return RedisStore(
+            host=opts.get("host", "127.0.0.1"),
+            port=int(opts.get("port", 6379)),
+            password=opts.get("password", ""),
+            database=int(opts.get("database", 0)))
+    if store in ("redis_cluster", "redis_cluster2"):
+        from seaweedfs_tpu_torch.filer.stores.redis_store import \
+            RedisClusterStore
+        addrs = opts.get("addresses", ["localhost:6379"])
+        if isinstance(addrs, str):
+            addrs = [a.strip() for a in addrs.split(",") if a.strip()]
+        return RedisClusterStore(addrs,
+                                 password=opts.get("password", ""))
+    if store == "etcd":
+        from seaweedfs_tpu_torch.filer.stores.etcd_store import EtcdStore
+        return EtcdStore(endpoint=opts.get("servers", "127.0.0.1:2379"))
+    if store == "mongodb":
+        from urllib.parse import urlsplit
+
+        from seaweedfs_tpu_torch.filer.stores.mongodb_store import MongodbStore
+        # canonical URIs carry a /db path, ?options, and credentials;
+        # urlsplit handles all of them (netloc/hostname/port)
+        u = urlsplit(opts.get("uri", "mongodb://localhost:27017"))
+        return MongodbStore(host=u.hostname or "localhost",
+                            port=u.port or 27017,
+                            database=opts.get("database")
+                            or (u.path.lstrip("/") or "seaweedfs"))
+    if store in ("elastic", "elastic7"):
+        from seaweedfs_tpu_torch.filer.stores.elastic_store import ElasticStore
+        servers = opts.get("servers", ["localhost:9200"])
+        if isinstance(servers, str):
+            servers = [servers]
+        return ElasticStore(servers=servers,
+                            username=opts.get("username", ""),
+                            password=opts.get("password", ""))
+    if store == "cassandra":
+        from seaweedfs_tpu_torch.filer.stores.cassandra_store import \
+            CassandraStore
+        hosts = opts.get("hosts", ["localhost:9042"])
+        if isinstance(hosts, str):
+            hosts = [hosts]
+        host, _, port = hosts[0].partition(":")
+        return CassandraStore(host=host, port=int(port or 9042),
+                              keyspace=opts.get("keyspace", "seaweedfs"),
+                              username=opts.get("username", ""),
+                              password=opts.get("password", ""))
+    if store == "hbase":
+        from seaweedfs_tpu_torch.filer.stores.hbase_store import HBaseStore
+        # reference config key is "zkquorum"; this client dials the
+        # region server directly (no ZK walk — hbase_store.py header)
+        addr = opts.get("zkquorum", opts.get("address", "localhost:16020"))
+        if isinstance(addr, list):
+            addr = addr[0]
+        # quorum strings are comma-separated ("zk1:2181,zk2:2181");
+        # this client dials one endpoint, so take the first
+        host, _, port = str(addr).split(",")[0].partition(":")
+        return HBaseStore(host=host or "localhost",
+                          port=int(port or 16020),
+                          table=opts.get("table", "seaweedfs"))
     if store == "mysql":
         from seaweedfs_tpu_torch.filer.stores.abstract_sql import MysqlStore
         return MysqlStore(
@@ -88,6 +140,7 @@ def make_filer_store(store: str, meta_dir: Optional[str],
             database=opts.get("database", "seaweedfs"))
     raise ValueError(
         f"unknown filer store {store!r} (memory | sqlite | weedkv | "
+        "redis | etcd | mongodb | cassandra | elastic7 | hbase | "
         "mysql | postgres)")
 
 

@@ -3,11 +3,9 @@ arrives with. Every refusal quotes one of these, so a request for an
 unported part gets an error naming its ROADMAP item, never a weaker
 result."""
 
-GATEWAYS_ITEM = "ROADMAP Queue 1 item 13"
-NETWORKED_STORES = f"the networked filer stores ({GATEWAYS_ITEM})"
-FUSE = f"FUSE: mount and filesys/ ({GATEWAYS_ITEM})"
-NOTIFICATION = ("the async services and notification (ROADMAP Queue 1 "
-                "item 14)")
+FUSE = "FUSE: mount and filesys/ (ROADMAP Queue 1 item 13)"
+NOTIFICATION = ("notification and messaging: the queues, fs.meta.notify "
+                "and msgBroker (ROADMAP Queue 1 item 14)")
 
 
 class NotPortedError(ValueError):

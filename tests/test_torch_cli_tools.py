@@ -12,8 +12,8 @@ filer; ``server -filer`` starts, serves one file and stops on SIGINT
 with its ``-cpuprofile`` written; ``master -cpuprofile`` likewise. The
 gateways start as subprocesses (``s3 -config``, ``webdav``, ``ftp`` on a
 port filer, ``server -s3``), each answers a request and each stops on
-SIGINT with exit 0. Each part the port does not carry yet (the networked
-stores, ``mount``, an enabled ``notification.toml``, ``fs.meta.notify``)
+SIGINT with exit 0. Each part the port does not carry yet (``mount``,
+``msgBroker``, an enabled ``notification.toml``, ``fs.meta.notify``)
 answers with an error naming its ROADMAP item.
 """
 
@@ -384,11 +384,9 @@ def _answers(fn) -> bool:
 
 # -- refusals ------------------------------------------------------------------
 
-REFUSALS = [(["filer", "-store", s], "item 13") for s in (
-    "redis", "redis_cluster", "redis_cluster2", "etcd", "mongodb",
-    "elastic7", "cassandra", "hbase")] + [
+REFUSALS = [
     (["mount", "-dir", "/mnt/x"], "item 13"), (["filer"], "item 14"),
-    (["fs.meta.notify", "/"], "item 14"),
+    (["fs.meta.notify", "/"], "item 14"), (["msgBroker"], "item 14"),
 ]
 IDS = [" ".join(a) for a, _ in REFUSALS]
 IDS[IDS.index("filer")] = "notification.toml"

@@ -12,8 +12,8 @@ postgres SQL flavours over a recording fake DB-API driver, ``MetaLog``'s
 segment files under a fake clock, listings through the listing cache,
 ``filer_conf`` rules, the log buffer framing, compression, the chunk
 cache, the cipher with and without ``cryptography``, the metric families
-the filer adds, ``-cpuprofile`` (``util/grace``) and the refusals of the
-parts the port does not carry yet.
+the filer adds and ``-cpuprofile`` (``util/grace``); the networked
+stores are held in ``tests/test_torch_stores.py``.
 """
 
 import builtins
@@ -44,7 +44,6 @@ from seaweedfs_tpu.util import chunk_cache as jax_cc
 from seaweedfs_tpu.util import cipher as jax_cipher
 from seaweedfs_tpu.util import compression as jax_comp
 from seaweedfs_tpu.util import log_buffer as jax_lb
-from seaweedfs_tpu_torch import unported
 from seaweedfs_tpu_torch.filer import filechunk_manifest as port_manifest
 from seaweedfs_tpu_torch.filer import filechunks as port_chunks
 from seaweedfs_tpu_torch.filer import filer as port_filer
@@ -421,14 +420,15 @@ def _make_store(pkg, kind, tmp_path):
     return pkg.kv.KvFilerStore(str(tmp_path / "weedkv"))
 
 
-def _store_script(pkg, store, seed):
+def _store_script(pkg, store, seed, log=None):
     """One seeded sequence of store calls through FilerStoreWrapper; the
-    transcript of every result."""
+    transcript of every result (appended to ``log`` when one is given,
+    so that a caller keeps it if a call raises)."""
     rng = np.random.default_rng(seed)
     w = pkg.fstore.FilerStoreWrapper(store)
     dirs = ["/", "/a", "/a/b", "/a_b", "/c/d%e", "/日本"]
     names = ["x", "y", "x1", "x_2", "z%", "ü", "a.txt", "b.txt"]
-    log = []
+    log = [] if log is None else log
 
     def entry(name):
         e = pkg.filer.new_entry(name, mime="t/x")
@@ -857,12 +857,3 @@ def test_cpuprofile_writes_a_pstats_file(tmp_path):
     port_grace.setup_profiling(None)       # no flag: nothing starts
     assert port_grace._profiler is None
 
-
-@pytest.mark.parametrize("store", ["redis", "redis_cluster", "etcd",
-                                   "mongodb", "elastic7", "cassandra",
-                                   "hbase"])
-def test_networked_stores_name_their_roadmap_item(store, tmp_path):
-    from seaweedfs_tpu_torch.server.filer import make_filer_store
-    with pytest.raises(unported.NotPortedError,
-                       match="ROADMAP Queue 1 item 13"):
-        make_filer_store(store, str(tmp_path))

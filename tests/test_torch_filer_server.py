@@ -550,14 +550,26 @@ def test_encrypted_post_round_trips_with_cryptography(sides):
 
 
 def test_filer_store_names(sides, tmp_path):
-    """-store keeps the JAX names: memory, sqlite and weedkv run; a
-    networked store is refused before anything starts."""
-    from seaweedfs_tpu_torch import unported
+    """-store keeps the JAX names: memory, sqlite and weedkv run, and so
+    does a networked store: a filer on ``redis`` (a fake server) keeps
+    its entries there."""
     from seaweedfs_tpu_torch.server.filer import make_filer_store
+    from tests.fake_backends import FakeRedisServer
     for store in ("memory", "sqlite", "weedkv", "kv", "leveldb"):
         make_filer_store(store, str(tmp_path / store)).close()
-    with pytest.raises(unported.NotPortedError, match="item 13"):
-        PortFilerServer(sides["port"].cluster.master.url,
-                        port=free_port_pair(), store="redis")
+    fake = FakeRedisServer()
+    f = PortFilerServer(sides["port"].cluster.master.url,
+                        port=free_port_pair(), store="redis",
+                        store_options={"host": "127.0.0.1",
+                                       "port": fake.port},
+                        meta_dir=str(tmp_path / "redis"))
+    f.start()
+    try:
+        assert _request(f.url, "POST", "/r/a.txt", b"on redis")[0] == 201
+        assert _request(f.url, "GET", "/r/a.txt")[2] == b"on redis"
+        assert b"/r/a.txt" in fake.data
+    finally:
+        f.stop()
+        fake.stop()
     with pytest.raises(ValueError, match="unknown filer store"):
         make_filer_store("bogus", str(tmp_path))
