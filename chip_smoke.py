@@ -40,7 +40,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 4. Chunk sweep: write_ec_files at 16, 64 and 256 MiB codec slabs.
 5. Trace: one write_ec_files under torch.profiler; the card's busy time
    (kernel, H2D, D2H) against the wall time.
-6. Fleet: 12 volumes of 1,024 B needles, about 1.8 GB of .dat in all
+6. Fleet: 12 volumes of 1,024 B needles, about 0.9 GB of .dat in all
    (``FLEET_NEEDLES``), written through the port's Store.
    generate_ec_shards_batch, then fleet_write_ec_files + .ecx, twice
    per-volume write_ec_files + .ecx over hard-linked twins, and the bare
@@ -232,8 +232,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``volume`` (``-metricsPort``), threaded and with ``-serve.async``;
    from this process one selector thread over keep-alive connections
    GETs 4 KiB at 8 connections, 1 MiB at 4 (the sendfile path) and 4 KiB
-   at 256, in rounds of 2 s in the order threaded, async, async,
-   threaded: req/s, MB/s, p50/p99, errors (must be 0, every body
+   at 256, in rounds of ``SERVE_ROUND_S`` (1 s) in the order threaded,
+   async, async, threaded: req/s, MB/s, p50/p99, errors (must be 0, every body
    checked), the server's threads from /proc at the round's middle, and
    ``SeaweedFS_serve_sendfile_bytes_total`` from its /metrics (> 0 in
    the async 1 MiB rounds). (b) One master and four volume servers in
@@ -323,7 +323,37 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    holds exactly 64 creates under ``/sync`` marked
    ``is_from_other_cluster`` (none written back to its origin). K1 may
    not launch in (a)'s load; (c)'s new files are expected to launch none.
-17. One JSON line with the kernels' numbers, the card's nvidia-smi line,
+17. Notification, messaging and the mount's filesystem layer on phase
+   14's cluster. The machine has no Kafka and no libfuse: a Kafka broker
+   of this script's own (``KafkaStandIn``, a socket server on a thread
+   answering Metadata v1 and Produce v3 and checking each record batch's
+   CRC-32C) plays Kafka, and no figure counts it as the port's. (a)
+   between 15 (a) and 14 (b), so 14 (b) encodes what it writes: a filer
+   built by the ``filer`` command's own ``_build_filer`` with a
+   notification.toml enabling ``[notification.kafka]`` toward the
+   stand-in (3 partitions; a sqlite store of its own, collection
+   ``filer``); 512 POSTs of 1-64 KiB from 16 threads; the stand-in holds
+   exactly the events of the filer's MetaLog, each once, keyed by
+   ``event_key`` in its FNV-1a partition, with ``AsyncQueue.dropped ==
+   failed == 0``; then ``fs.meta.notify /dav`` (phase 15's WebDAV
+   directory): one create event per entry; events/s and the seconds
+   until ``flush``. Two brokers on phase 14's filer, built by the
+   ``msgBroker`` command's own functions with ``-peers`` naming both:
+   topic ``chip/log`` of 4 partitions, a LATEST subscriber per partition,
+   1,024 keyed messages of 1-16 KiB from 8 publishers, each through the
+   broker FindBroker names; every subscriber receives its partition's
+   messages once, in timestamp order; a transient topic leaves no
+   message in the filer; messages/s. ``mount -dir`` exits 1 with the
+   libfuse message; ``Wfs`` on phase 14's filer: 4 files of 1 KiB-16 MiB
+   written in 128 KiB writes out of order, flushed, a rename, a hard
+   link, a symlink, an xattr and a truncate to half. No kernel may launch
+   in (a). (b) after 15 (b), with 14 (d)'s server still stopped and the
+   chunk caches emptied: a fresh broker replays ``chip/log`` from
+   EARLIEST, every message back byte for byte with its stamp; a fresh
+   ``Wfs`` reads the files whole and at 16 ranges across chunk
+   boundaries; p50/p99, decode dispatches and K1 launches, at least one
+   launch in each.
+18. One JSON line with the kernels' numbers, the card's nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 The exact byte comparisons are the tolerance: GF(2^8) arithmetic has no
@@ -882,8 +912,9 @@ def phase_trace(base: str, backend: str) -> dict:
 # --- phase 6 ------------------------------------------------------------------
 
 # Needles per volume of the fleet: 12 volumes of 1,024 B needles (upstream
-# `weed benchmark -size 1024`) of mixed sizes, about 1.8 GB of .dat.
-FLEET_NEEDLES = (524288, 262144, 262144) + (131072,) * 4 + (32768,) * 4 + \
+# `weed benchmark -size 1024`) of mixed sizes, about 0.9 GB of .dat (each
+# volume halved from 1.8 GB in all when phase 17 came).
+FLEET_NEEDLES = (262144, 131072, 131072) + (65536,) * 4 + (16384,) * 4 + \
     (1000,)
 FLEET_REBUILD_LOST = (3, 12)
 FLEET_SAMPLE = 4096
@@ -1648,7 +1679,7 @@ def phase_scrub(workdir: str, ctx: dict, mesh, backend: str, launches,
 # --- phase 8 ------------------------------------------------------------------
 
 # The cluster configuration: four volume servers, volumes of at most
-# 1,024 MiB, 512 MiB of needles of 1-256 KiB (uniform), written from 16
+# 1,024 MiB, 384 MiB of needles of 1-256 KiB (uniform), written from 16
 # client threads into collection "smoke"; the master grows 7 volumes. (At
 # 2 GiB the whole run took past eight minutes; at 1 GiB, with phase 10,
 # 458 s of the 480 on an NVIDIA H100 80GB HBM3 at 700 W; with the
@@ -4621,7 +4652,7 @@ def phase_lifecycle(workdir: str, seed: int, backend: str, card: str = "",
 # GETs at 8 connections, 1 MiB GETs at 4 (the sendfile path), 4 KiB GETs
 # at 256, each in rounds of SERVE_ROUND_S in the order threaded, async,
 # async, threaded.
-SERVE_ROUND_S = 2.0
+SERVE_ROUND_S = 1.0          # 2 s until phase 17 needed the time
 SERVE_ORDER = ("threaded", "async", "async", "threaded")
 SERVE_WORKLOADS = (("small_c8", 4096, 8), ("large_c4", 1 << 20, 4),
                    ("small_c256", 4096, 256))
@@ -6258,6 +6289,671 @@ def stores_and_replication(master, filer, filers, servers, gw, datas,
     log(f"  phase 16 took {res['seconds']:.3f} s [{card}]")
 
 
+# --- phase 17 -----------------------------------------------------------------
+
+# Notification, messaging and the mount's filesystem layer on phase 14's
+# cluster. (a) between 15 (a) and 14 (b), so 14 (b) encodes what it
+# writes; (b) after 15 (b), with 14 (d)'s server still stopped. The card's
+# machine runs no Kafka and has no libfuse: KAFKA_STAND_IN is a socket
+# server of this script's own (not of the port), counted in no figure as
+# the port's, and the filesystem runs as the library the mount serves.
+NOTIFY_FILES = 512               # POSTed into the notifying filer
+NOTIFY_PARTITIONS = 3
+MSG_TOPIC = ("chip", "log")
+MSG_PARTITIONS = 4
+MSG_MESSAGES = 1024
+MSG_PUBLISHERS = 8
+MSG_MAX = 16 << 10
+MSG_TRANSIENT = 16
+WFS_SIZES = (1 << 10, (1 << 20) + 4097, (5 << 20) + 3, 16 << 20)
+WFS_WRITE = 128 << 10
+WFS_RANGES = 16
+
+
+def _crc32c_table() -> list:
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+def _fnv1a_partition(key: bytes, n: int) -> int:
+    """sarama's hash partitioner: FNV-1a 32 as int32, negated when
+    negative, mod n."""
+    h = 0x811C9DC5
+    for b in key:
+        h = ((h ^ b) * 0x01000193) & 0xFFFFFFFF
+    if h & 0x80000000:
+        h = (1 << 32) - h
+    return h % n
+
+
+class KafkaStandIn:
+    """A Kafka broker on a thread that answers Metadata v1 (one broker
+    leading every partition of one topic) and Produce v3, decodes each
+    record batch (magic 2), checks its CRC-32C over the batch body with a
+    table of its own, and keeps (partition, key, value) of every
+    record."""
+
+    def __init__(self, topic: str, partitions: int):
+        import socketserver
+        import struct
+        import threading
+        self.topic, self.partitions = topic, partitions
+        self.records = []
+        self.bad = []
+        lock = threading.Lock()
+        table = _crc32c_table()
+        outer = self
+
+        def crc32c(data: bytes) -> int:
+            c = 0xFFFFFFFF
+            for b in data:
+                c = table[(c ^ b) & 0xFF] ^ (c >> 8)
+            return c ^ 0xFFFFFFFF
+
+        def varint(buf, pos):
+            shift = z = 0
+            while True:
+                b = buf[pos]
+                pos += 1
+                z |= (b & 0x7F) << shift
+                if not b & 0x80:
+                    return (z >> 1) ^ -(z & 1), pos
+                shift += 7
+
+        def s16(text: str) -> bytes:
+            b = text.encode()
+            return struct.pack(">h", len(b)) + b
+
+        def metadata() -> bytes:
+            out = struct.pack(">i", 1) + struct.pack(">i", 1) + \
+                s16("127.0.0.1") + struct.pack(">ih", outer.port, -1)
+            out += struct.pack(">ii", 1, 1) + struct.pack(">h", 0) + \
+                s16(outer.topic) + b"\x00" + \
+                struct.pack(">i", outer.partitions)
+            for pid in range(outer.partitions):
+                out += struct.pack(">hii", 0, pid, 1) + \
+                    struct.pack(">ii", 1, 1) + struct.pack(">ii", 1, 1)
+            return out
+
+        def produce(body: bytes) -> bytes:
+            (tid,) = struct.unpack_from(">h", body, 0)
+            pos = 2 + max(tid, 0) + 2 + 4 + 4
+            (tlen,) = struct.unpack_from(">h", body, pos)
+            topic = body[pos + 2:pos + 2 + tlen].decode()
+            pos += 2 + tlen + 4
+            pid, blen = struct.unpack_from(">ii", body, pos)
+            batch = body[pos + 8:pos + 8 + blen]
+            err = 0
+            (crc,) = struct.unpack_from(">I", batch, 17)
+            rec = batch[21:]
+            if batch[16] != 2 or crc != crc32c(rec) or \
+                    topic != outer.topic:
+                err = 2                     # CORRUPT_MESSAGE
+                with lock:
+                    outer.bad.append((topic, pid))
+            else:
+                (n,) = struct.unpack_from(">i", rec, 36)
+                p = 40
+                for _ in range(n):
+                    _, p = varint(rec, p)
+                    p += 1
+                    _, p = varint(rec, p)
+                    _, p = varint(rec, p)
+                    klen, p = varint(rec, p)
+                    key = rec[p:p + klen]
+                    p += klen
+                    vlen, p = varint(rec, p)
+                    value = rec[p:p + vlen]
+                    p += vlen
+                    nh, p = varint(rec, p)
+                    if nh:
+                        raise AssertionError("record headers")
+                    with lock:
+                        outer.records.append((pid, key, value))
+            return struct.pack(">i", 1) + s16(topic) + \
+                struct.pack(">iihqqi", 1, pid, err, 0, -1, 0)
+
+        class Handler(socketserver.StreamRequestHandler):
+            def handle(self):
+                while True:
+                    head = self.rfile.read(4)
+                    if len(head) < 4:
+                        return
+                    msg = self.rfile.read(struct.unpack(">i", head)[0])
+                    api, _ver, corr, clen = struct.unpack_from(">hhih",
+                                                               msg, 0)
+                    body = msg[10 + clen:]
+                    reply = struct.pack(">i", corr) + (
+                        metadata() if api == 3 else produce(body))
+                    self.wfile.write(struct.pack(">i", len(reply)) + reply)
+
+        self._server = socketserver.ThreadingTCPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self._server.daemon_threads = True
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def _with_config_dir(path: str, fn, *args):
+    """fn(*args) with path searched first for the port's TOML files (the
+    ``filer`` command and the shell read notification.toml from their
+    search path, "." first, as the JAX package does). The process's
+    working directory, which the servers' threads share, stays as it
+    is."""
+    from seaweedfs_tpu_torch.util import config as config_mod
+    config_mod.SEARCH_PATH.insert(0, path)
+    try:
+        return fn(*args)
+    finally:
+        config_mod.SEARCH_PATH.remove(path)
+
+
+def _filer_walk(filer_url: str, directory: str) -> list:
+    """Every entry's full path under directory, through the filer."""
+    from seaweedfs_tpu_torch.pb import filer_pb2, filer_stub
+    out = []
+    for r in filer_stub(filer_url).ListEntries(filer_pb2.ListEntriesRequest(
+            directory=directory, limit=100000)):
+        path = f"{directory.rstrip('/')}/{r.entry.name}"
+        out.append(path)
+        if r.entry.is_directory:
+            out.extend(_filer_walk(filer_url, path))
+    return out
+
+
+class Phase17:
+    """What phase 17 (a) built and wrote, for (b) to read back."""
+
+    def __init__(self):
+        self.stand_in = None
+        self.brokers = []
+        self.msg_live = []       # per partition: [(ts, key, value)]
+        self.wfs_files = {}      # path -> bytes
+        self.wfs_chunks = {}     # path -> chunk offsets
+        self.seconds = 0.0
+
+    def stop(self):
+        for b in self.brokers:
+            b.stop()
+        if self.stand_in is not None:
+            self.stand_in.stop()
+
+
+def notify_write(p17: Phase17, master, filer, filers, workdir: str, rng,
+                 launches, card: str, out: dict) -> None:
+    """17 (a) notification: a filer built by the ``filer`` command's own
+    ``_build_filer`` with a notification.toml enabling kafka toward the
+    stand-in; 512 POSTs of 1-64 KiB from 16 threads; every event its
+    MetaLog holds reaches the stand-in once, keyed by ``event_key`` in
+    its FNV-1a partition, with nothing dropped or failed. Then
+    ``fs.meta.notify /dav`` through phase 14's filer: one create event
+    per entry."""
+    from seaweedfs_tpu_torch.command import servers as servers_cmd
+    from seaweedfs_tpu_torch.filer.filer_notify import event_key
+    from seaweedfs_tpu_torch.pb import filer_pb2
+    from seaweedfs_tpu_torch.shell import Shell
+    from seaweedfs_tpu_torch.util import http_client
+
+    stand_in = p17.stand_in = KafkaStandIn("filer", NOTIFY_PARTITIONS)
+    conf = os.path.join(workdir, "notify_conf")
+    os.makedirs(conf)
+    with open(os.path.join(conf, "notification.toml"), "w") as f:
+        f.write(f'[notification.kafka]\nenabled = true\n'
+                f'hosts = ["127.0.0.1:{stand_in.port}"]\n'
+                f'topic = "filer"\n')
+    opts = servers_cmd._filer_parser().parse_args(
+        ["-master", master.url, "-port", str(free_port_pair()),
+         "-dir", os.path.join(workdir, "filer_notify"),
+         "-collection", "filer"])
+    nf = _with_config_dir(conf, servers_cmd._build_filer, opts)
+    nf.start()
+    filers.append(nf)
+    queue = nf.filer.notification_queue
+    if type(queue).__name__ != "AsyncQueue" or \
+            type(queue.inner).__name__ != "KafkaQueue":
+        raise AssertionError(f"17 (a): the filer's queue is {queue!r}")
+    pool_bytes = rng.bytes(8 << 20)
+    files = []
+    for i in range(NOTIFY_FILES):
+        size = int(rng.integers(1024, FILER_SMALL_MAX + 1))
+        off = int(rng.integers(0, len(pool_bytes) - size))
+        files.append((f"/notify/d{i % 16:02d}/f{i:04d}.bin",
+                      pool_bytes[off:off + size]))
+
+    def post(part):
+        for path, data in part:
+            r = http_client.request("POST", f"{nf.url}{path}", body=data)
+            if r.status != 201:
+                raise AssertionError(f"POST {path}: http {r.status}")
+
+    def ingest():
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVICE_THREADS) as pool:
+            list(pool.map(post, [files[i::SERVICE_THREADS]
+                                 for i in range(SERVICE_THREADS)]))
+        post_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        if not queue.flush(timeout=60.0):
+            raise AssertionError("17 (a): the notification queue did not "
+                                 "drain in 60 s")
+        return post_s, time.perf_counter() - t1
+
+    (post_s, flush_s), secs = launches.run("notify_ingest", ingest,
+                                           none=True)
+    want = sorted(
+        (event_key(rec.directory, rec.event_notification),
+         rec.event_notification.SerializeToString())
+        for rec in nf.filer.meta_log.read_events_since(0))
+    got = sorted((k.decode(), v) for _, k, v in stand_in.records)
+    wrong = [(pid, k) for pid, k, _ in stand_in.records
+             if pid != _fnv1a_partition(k, NOTIFY_PARTITIONS)]
+    if got != want or wrong or stand_in.bad or queue.dropped or \
+            queue.failed:
+        raise AssertionError(
+            f"17 (a): {len(got)} events at the stand-in, {len(want)} in "
+            f"the MetaLog, {len(wrong)} off their partition, "
+            f"{len(stand_in.bad)} bad batches, dropped {queue.dropped}, "
+            f"failed {queue.failed} ({queue.last_failure})")
+    events = len(got)
+    per_partition = [sum(1 for p, _, _ in stand_in.records if p == i)
+                     for i in range(NOTIFY_PARTITIONS)]
+    # phase 14's filer references the same chunks, so that 14 (e)'s
+    # volume.fsck (which walks one filer) counts them in use
+    for path, _ in files:
+        directory = path.rsplit("/", 1)[0]
+        filer.filer.create_entry(directory, nf.filer.find_entry(path))
+
+    # fs.meta.notify of phase 15's WebDAV directory through phase 14's
+    # filer: its own queue from the same notification.toml
+    first = len(stand_in.records)
+    t0 = time.perf_counter()
+    text, _ = launches.run(
+        "notify_fs_meta_notify", _with_config_dir, conf,
+        Shell(master.url, filer_url=filer.url).run_command,
+        "fs.meta.notify /dav", none=True)
+    notify_s = time.perf_counter() - t0
+    entries = sorted(_filer_walk(filer.url, "/dav"))
+    sent = stand_in.records[first:]
+    keys = sorted(k.decode() for _, k, _ in sent)
+    creates = 0
+    for _, k, v in sent:
+        ev = filer_pb2.EventNotification()
+        ev.ParseFromString(v)
+        creates += ev.HasField("new_entry") and \
+            not ev.HasField("old_entry") and \
+            f"{ev.new_parent_path}/{ev.new_entry.name}" == k.decode()
+    if keys != entries or creates != len(entries) or stand_in.bad or \
+            "notified" not in text:
+        raise AssertionError(f"17 (a) fs.meta.notify /dav: {keys} against "
+                             f"{entries}, {creates} creates:\n{text}")
+    out["notify"] = dict(
+        files=NOTIFY_FILES, events=events, partitions=per_partition,
+        post_seconds=post_s, flush_seconds=flush_s, seconds=secs,
+        events_per_s=events / secs, dropped=queue.dropped,
+        failed=queue.failed, meta_notify_entries=len(entries),
+        meta_notify_seconds=notify_s, meta_notify_report=text.strip())
+    log(f"  17 (a) a filer built by the filer command with "
+        f"notification.toml [notification.kafka] (this script's Kafka "
+        f"stand-in, {NOTIFY_PARTITIONS} partitions): {NOTIFY_FILES} POSTs "
+        f"of 1-64 KiB from {SERVICE_THREADS} threads in {post_s:.3f} s; "
+        f"the queue flushed {flush_s:.3f} s after the last; {events} "
+        f"events, each the MetaLog's, once, in its FNV-1a partition "
+        f"({per_partition}), CRC-32C checked, dropped 0, failed 0: "
+        f"{events / secs:.1f} events/s; fs.meta.notify /dav: "
+        f"{len(entries)} create events, one per entry, in "
+        f"{notify_s:.3f} s ({text.strip()}) [{card}]")
+
+
+def messaging_write(p17: Phase17, filer, rng, launches, card: str,
+                    out: dict) -> None:
+    """17 (a) messaging: two brokers on phase 14's filer, each built by
+    the ``msgBroker`` command's own functions with ``-peers`` naming
+    both; ``chip/log`` of 4 partitions; a LATEST subscriber per
+    partition; 1,024 keyed messages of 1-16 KiB from 8 publishers, each
+    through the broker FindBroker names; every subscriber receives its
+    partition's messages once, in timestamp order; a transient topic
+    leaves no message in the filer."""
+    import threading
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.command.async_services import (
+        build_msg_broker, msg_broker_parser)
+    from seaweedfs_tpu_torch.messaging import MessagingClient
+    from seaweedfs_tpu_torch.pb import messaging_pb2, messaging_stub
+
+    ports = [free_port_pair(), free_port_pair()]
+    peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+    for p in ports:
+        b = build_msg_broker(msg_broker_parser().parse_args(
+            ["-port", str(p), "-filer", filer.url, "-peers", peers]))
+        b.start()
+        p17.brokers.append(b)
+    urls = [b.url for b in p17.brokers]
+    ns, topic = MSG_TOPIC
+    owners = {messaging_stub(u).FindBroker(messaging_pb2.FindBrokerRequest(
+        namespace=ns, topic=topic)).broker for u in urls}
+    if len(owners) != 1:
+        raise AssertionError(f"17 (a): the brokers disagree: {owners}")
+    owner = owners.pop()
+    client = MessagingClient(*urls)
+    client.configure_topic(ns, topic, MSG_PARTITIONS)
+    # a LATEST subscriber per partition. A fence message into each
+    # partition, sent until its subscriber has one, shows the
+    # subscription live before the timed publishes. Fences are keyed (a
+    # publisher with a fixed partition would end the subscriptions with
+    # its close marker); a key's partition is its md5's first four bytes
+    # mod the count, as the broker places it.
+    fence_keys = []
+    for p in range(MSG_PARTITIONS):
+        fence_keys.append(next(
+            k for k in (b"fence%d" % j for j in range(1000))
+            if int.from_bytes(hashlib.md5(k).digest()[:4], "big")
+            % MSG_PARTITIONS == p))
+    subs, got, fenced = [], [[] for _ in range(MSG_PARTITIONS)], []
+    for p in range(MSG_PARTITIONS):
+        sub = client.new_subscriber(ns, topic, partition=p, start="latest")
+        subs.append(sub)
+        ev = threading.Event()
+        fenced.append(ev)
+
+        def pump(sub=sub, p=p, ev=ev):
+            try:
+                for m in sub:
+                    if bytes(m.key).startswith(b"fence"):
+                        got[p].clear()
+                        ev.set()
+                        continue
+                    got[p].append((m.event_time_ns, bytes(m.key),
+                                   bytes(m.value)))
+            except rpc.RpcError:
+                pass        # cancelled below, once every message is in
+        threading.Thread(target=pump, daemon=True).start()
+    fence = client.new_publisher(ns, topic)
+    for p in range(MSG_PARTITIONS):
+        for _ in range(200):
+            fence.publish(b"", key=fence_keys[p])
+            if fenced[p].wait(0.05):
+                break
+        else:
+            raise AssertionError(f"17 (a): subscriber {p} never went live")
+    fence.close()
+    sent = [(f"k{i:05d}".encode(),
+             rng.bytes(int(rng.integers(1024, MSG_MAX + 1))))
+            for i in range(MSG_MESSAGES)]
+
+    def publish(part):
+        pub = MessagingClient(*urls).new_publisher(ns, topic)
+        for key, value in part:
+            pub.publish(value, key=key)
+        pub.close()
+
+    def publish_all():
+        with concurrent.futures.ThreadPoolExecutor(MSG_PUBLISHERS) as pool:
+            list(pool.map(publish, [sent[i::MSG_PUBLISHERS]
+                                    for i in range(MSG_PUBLISHERS)]))
+
+    _, secs = launches.run("msg_publish", publish_all, none=True)
+    t = next(b for b in p17.brokers if b.url == owner)._get_topic(ns, topic)
+    live = []
+    for p in t.partitions:
+        row = []
+        for ts, blob in p.read_since(0):
+            m = messaging_pb2.Message()
+            m.ParseFromString(blob)
+            row.append((ts, bytes(m.key), bytes(m.value)))
+        live.append(row)
+    mine = [[r for r in row if not r[1].startswith(b"fence")]
+            for row in live]
+    wait_until(lambda: [len(g) for g in got] == [len(m) for m in mine],
+               30, "every subscriber to receive its partition")
+    for sub in subs:
+        sub.cancel()
+    by_key = dict(sent)
+    for p, (want, seen) in enumerate(zip(mine, got)):
+        stamps = [ts for ts, _, _ in seen]
+        if seen != want or stamps != sorted(set(stamps)):
+            raise AssertionError(f"17 (a): subscriber {p} got "
+                                 f"{len(seen)} of {len(want)}, not each "
+                                 "once in timestamp order")
+    delivered = [r for row in got for r in row]
+    if sorted((k, v) for _, k, v in delivered) != sorted(sent) or \
+            any(by_key[k] != v for _, k, v in delivered):
+        raise AssertionError("17 (a): the subscribers' messages differ "
+                             "from the published ones")
+    # a transient topic: served, never persisted
+    tmp_owner = client.find_broker(ns, "tmp")
+    messaging_stub(tmp_owner).ConfigureTopic(
+        messaging_pb2.ConfigureTopicRequest(
+            namespace=ns, topic="tmp",
+            configuration=messaging_pb2.TopicConfiguration(
+                partition_count=2, is_transient=True)))
+    tp = client.new_publisher(ns, "tmp", partition=0)
+    for i in range(MSG_TRANSIENT):
+        tp.publish(rng.bytes(1024), key=b"t%d" % i)
+    tp.close()
+    tmp_in_filer = filer_get(filer.url, f"/topics/{ns}/tmp").status
+    if tmp_in_filer != 404:
+        raise AssertionError(f"17 (a): the transient topic reached the "
+                             f"filer (GET /topics/{ns}/tmp: "
+                             f"{tmp_in_filer})")
+    p17.msg_live = live
+    nbytes = sum(len(v) for _, v in sent)
+    out["messaging"] = dict(
+        messages=MSG_MESSAGES, publishers=MSG_PUBLISHERS, bytes=nbytes,
+        seconds=secs, messages_per_s=MSG_MESSAGES / secs,
+        MBps=nbytes / secs / 1e6, owner=owner,
+        per_partition=[len(g) for g in got],
+        transient_messages=MSG_TRANSIENT)
+    log(f"  17 (a) two brokers (msgBroker's own functions, -peers both) "
+        f"agree {ns}/{topic} is {owner}'s; {MSG_MESSAGES} keyed messages "
+        f"of 1-16 KiB ({nbytes} B) from {MSG_PUBLISHERS} publishers in "
+        f"{secs:.3f} s = {MSG_MESSAGES / secs:.1f} messages/s, "
+        f"{nbytes / secs / 1e6:.1f} MB/s; the {MSG_PARTITIONS} LATEST "
+        f"subscribers got {[len(g) for g in got]}, each once in timestamp "
+        f"order; {MSG_TRANSIENT} messages of a transient topic, none in "
+        f"the filer [{card}]")
+
+
+def wfs_write(p17: Phase17, filer, rng, launches, card: str,
+              out: dict) -> None:
+    """17 (a) filesystem: ``mount -dir`` exits 1 with the libfuse
+    message; then ``Wfs`` on phase 14's filer: mkdir, 4 files of 1 KiB-16
+    MiB written in 128 KiB writes out of order (the dirty pages merge),
+    flushed; rename, a hard link, a symlink, an xattr, and a truncate of
+    one file to half."""
+    import contextlib
+    import io
+
+    from seaweedfs_tpu_torch.command import main as port_main
+    from seaweedfs_tpu_torch.command.async_services import MOUNT_UNAVAILABLE
+    from seaweedfs_tpu_torch.filesys import Wfs, fuse_shim
+
+    if fuse_shim.available():
+        raise AssertionError("17 (a): libfuse and /dev/fuse are present; "
+                             "this phase runs where they are not")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = port_main(["mount", "-dir", os.path.join(os.getcwd(), "mnt"),
+                        "-filer", filer.url])
+    if rc != 1 or err.getvalue().strip() != MOUNT_UNAVAILABLE:
+        raise AssertionError(f"17 (a) mount: exit {rc}, {err.getvalue()!r}")
+
+    def write():
+        w = Wfs(filer.url)
+        try:
+            w.mkdir("/wfs")
+            files = {}
+            for i, size in enumerate(WFS_SIZES):
+                path = f"/wfs/f{i}.bin"
+                data = rng.bytes(size)
+                fh = w.create(path)
+                offs = list(range(0, size, WFS_WRITE))
+                rng.shuffle(offs)
+                for off in offs:
+                    w.write(fh, data[off:off + WFS_WRITE], off)
+                w.release(fh)
+                files[path] = data
+            w.rename("/wfs/f1.bin", "/wfs/renamed.bin")
+            files["/wfs/renamed.bin"] = files.pop("/wfs/f1.bin")
+            w.link("/wfs/f2.bin", "/wfs/hard.bin")
+            files["/wfs/hard.bin"] = files["/wfs/f2.bin"]
+            w.symlink("/wfs/f3.bin", "/wfs/sym")
+            w.setxattr("/wfs/f3.bin", "user.phase", b"17")
+            half = len(files["/wfs/renamed.bin"]) // 2
+            w.truncate("/wfs/renamed.bin", half)
+            files["/wfs/renamed.bin"] = files["/wfs/renamed.bin"][:half]
+            chunks = {p: sorted(c.offset for c in w.getattr(p).chunks)
+                      for p in files}
+            return files, chunks
+        finally:
+            w.stop()
+
+    (files, chunks), secs = launches.run("wfs_write", write, none=True)
+    p17.wfs_files, p17.wfs_chunks = files, chunks
+    nbytes = sum(WFS_SIZES)
+    out["wfs_write"] = dict(seconds=secs, files=len(WFS_SIZES),
+                            chunks={p: len(c) for p, c in chunks.items()})
+    log(f"  17 (a) mount -dir: exit 1, \"{MOUNT_UNAVAILABLE[:40]}...\"; "
+        f"Wfs on phase 14's filer: {len(WFS_SIZES)} files of "
+        f"{min(WFS_SIZES)}-{max(WFS_SIZES)} B in {WFS_WRITE >> 10} KiB "
+        f"writes out of order ({nbytes} B through the dirty pages), "
+        f"flushed as {sum(len(c) for c in chunks.values())} chunks; "
+        f"rename, hard link, symlink, xattr, truncate to half; "
+        f"{secs:.3f} s [{card}]")
+
+
+def messaging_replay(p17: Phase17, filer, filers, servers, launches,
+                     card: str, out: dict) -> None:
+    """17 (b): a fresh broker replays chip/log from EARLIEST through the
+    filer with 14 (d)'s server stopped and the chunk caches emptied:
+    every message back byte for byte, with its timestamp."""
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.command.async_services import (
+        build_msg_broker, msg_broker_parser)
+    from seaweedfs_tpu_torch.messaging import MessagingClient
+    from seaweedfs_tpu_torch.util.chunk_cache import TieredChunkCache
+
+    for f in filers:
+        f.chunk_cache = TieredChunkCache()
+    port = free_port_pair()
+    fresh = build_msg_broker(msg_broker_parser().parse_args(
+        ["-port", str(port), "-filer", filer.url,
+         "-peers", f"127.0.0.1:{port}"]))
+    fresh.start()
+    p17.brokers.append(fresh)
+    ns, topic = MSG_TOPIC
+    d0 = sum(vs.degraded.dispatches for vs in servers)
+
+    def replay():
+        import threading
+        client = MessagingClient(fresh.url)
+        rows = []
+        for p, want in enumerate(p17.msg_live):
+            row = []
+            done = threading.Event()
+            sub = client.new_subscriber(ns, topic, partition=p,
+                                        start="earliest")
+
+            def pump(sub=sub, row=row, n=len(want), done=done):
+                try:
+                    for m in sub:
+                        row.append((m.event_time_ns, bytes(m.key),
+                                    bytes(m.value)))
+                        if len(row) >= n:
+                            break
+                except rpc.RpcError:
+                    pass    # a broken stream shows as a short row
+                done.set()
+            threading.Thread(target=pump, daemon=True).start()
+            done.wait(60)
+            sub.cancel()
+            rows.append(row)
+        return rows
+
+    rows, secs = launches.run("msg_replay_degraded", replay)
+    dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+    k1 = launches.per_phase["msg_replay_degraded"]
+    if rows != p17.msg_live:
+        raise AssertionError(
+            f"17 (b): the replay gave {[len(r) for r in rows]} messages "
+            f"per partition, {[len(r) for r in p17.msg_live]} were "
+            "published, or their bytes or stamps differ")
+    n = sum(len(r) for r in rows)
+    nbytes = sum(len(v) for r in rows for _, _, v in r)
+    out["messaging_replay"] = dict(
+        messages=n, bytes=nbytes, seconds=secs, MBps=nbytes / secs / 1e6,
+        dispatches=dispatches, launches=k1)
+    log(f"  17 (b) a fresh broker replays {ns}/{topic} from EARLIEST with "
+        f"the server stopped: {n} messages ({nbytes} B) back byte for byte "
+        f"with their stamps in {secs:.3f} s ({nbytes / secs / 1e6:.1f} "
+        f"MB/s); {dispatches} decode dispatches, {k1} K1 launches "
+        f"[{card}]")
+
+
+def wfs_read(p17: Phase17, filer, filers, servers, rng, launches,
+             card: str, out: dict) -> None:
+    """17 (b): a fresh Wfs with empty caches reads the files whole and
+    at 16 ranges across chunk boundaries with 14 (d)'s server stopped."""
+    from seaweedfs_tpu_torch.filesys import Wfs
+    from seaweedfs_tpu_torch.util.chunk_cache import TieredChunkCache
+
+    for f in filers:
+        f.chunk_cache = TieredChunkCache()
+    jobs = [(p, 0, len(d)) for p, d in sorted(p17.wfs_files.items())]
+    big = [p for p, c in sorted(p17.wfs_chunks.items()) if len(c) > 1]
+    for _ in range(WFS_RANGES):
+        path = big[int(rng.integers(len(big)))]
+        edge = p17.wfs_chunks[path][int(rng.integers(
+            1, len(p17.wfs_chunks[path])))]
+        start = max(0, edge - int(rng.integers(1, 65536)))
+        jobs.append((path, start, int(rng.integers(
+            edge - start + 1, edge - start + (1 << 20)))))
+    d0 = sum(vs.degraded.dispatches for vs in servers)
+
+    def reads():
+        w = Wfs(filer.url)
+        lat = []
+        try:
+            if w.readlink("/wfs/sym") != "/wfs/f3.bin" or \
+                    w.getxattr("/wfs/f3.bin", "user.phase") != b"17":
+                raise AssertionError("17 (b): the symlink or xattr")
+            for path, start, length in jobs:
+                t0 = time.perf_counter()
+                fh = w.open(path)
+                got = w.read(fh, start, length)
+                w.release(fh)
+                lat.append(time.perf_counter() - t0)
+                want = p17.wfs_files[path][start:start + length]
+                if got != want:
+                    raise AssertionError(
+                        f"17 (b) Wfs read {path} [{start}, +{length}]: "
+                        f"{len(got)} B, want {len(want)} B")
+        finally:
+            w.stop()
+        return lat
+
+    lat, secs = launches.run("wfs_degraded_reads", reads)
+    dispatches = sum(vs.degraded.dispatches for vs in servers) - d0
+    k1 = launches.per_phase["wfs_degraded_reads"]
+    out["wfs_read"] = dict(seconds=secs, dispatches=dispatches,
+                           launches=k1, **pct_ms(lat))
+    log(f"  17 (b) a fresh Wfs with empty caches, the server stopped: "
+        f"{len(p17.wfs_files)} files whole and {WFS_RANGES} ranges across "
+        f"chunk boundaries ({pcts(lat)}), bytes equal; {dispatches} decode "
+        f"dispatches, {k1} K1 launches; {secs:.3f} s [{card}]")
+
+
 def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
                 small_files: int = FILER_SMALL_FILES,
                 sizes=None, sample: int = FILER_SAMPLE,
@@ -6332,6 +7028,7 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
                           pulse_seconds=1.0)
     servers, filers, procs = [], [], []
     gw = None
+    p17 = Phase17()
     t_phase = time.perf_counter()
     try:
         master.start()
@@ -6460,6 +7157,17 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
         gateways_write(gw, sh, servers, launches, card, out)
         gw_seconds = time.perf_counter() - t15
 
+        # phase 17 (a): notification, messaging and Wfs write onto it
+        log("phase 17: notification (kafka, fs.meta.notify), messaging "
+            "(msgBroker) and the mount's Wfs on phase 14's cluster")
+        t17 = time.perf_counter()
+        res17 = out["phase17"] = {}
+        notify_write(p17, master, filer, filers, workdir, rng, launches,
+                     card, res17)
+        messaging_write(p17, filer, rng, launches, card, res17)
+        wfs_write(p17, filer, rng, launches, card, res17)
+        p17.seconds = time.perf_counter() - t17
+
         # (b) ec.encode of the collection on the card
         vids = sorted({vid for vs in servers for loc in vs.store.locations
                        for vid, v in list(loc.volumes.items())
@@ -6580,6 +7288,16 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
         t15 = time.perf_counter()
         gateways_read(gw, filers, servers, launches, card, out)
         gw_seconds += time.perf_counter() - t15
+
+        # phase 17 (b): the replay and the Wfs reads through the lost
+        # server
+        t17 = time.perf_counter()
+        messaging_replay(p17, filer, filers, servers, launches, card,
+                         res17)
+        wfs_read(p17, filer, filers, servers, rng, launches, card, res17)
+        p17.seconds += time.perf_counter() - t17
+        res17["seconds"] = p17.seconds
+        log(f"  phase 17 took {p17.seconds:.3f} s [{card}]")
 
         # (e) volume.fsck
         def fsck():
@@ -6794,6 +7512,7 @@ def phase_filer(workdir: str, seed: int, backend: str, card: str = "",
         for proc in procs:
             proc.kill()
             proc.communicate()
+        p17.stop()
         if gw is not None:
             gw.stop()
         for f in filers:
@@ -6923,16 +7642,18 @@ def main() -> int:
         "and a filer on sqlite; filer.copy, POSTs, ec.encode, degraded "
         "reads through the filer, volume.fsck, fs.meta.save/load, "
         "server -filer -s3, backup, compact), with phase 15's gateways on "
-        "its filer and phase 16's redis filer and replication")
+        "its filer, phase 16's redis filer and replication, and phase "
+        "17's notification, messaging and Wfs")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_filer_")
     try:
         filer = phase_filer(workdir, args.seed, "cuda", card=card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"  phase 14 took {filer['seconds']:.3f} s with phase 15's "
-        f"{filer['gateway_seconds']:.3f} s and phase 16's "
-        f"{filer['stores_replication']['seconds']:.3f} s [{card}]")
-    log(f"  phases 1-16 took {time.perf_counter() - t_start:.3f} s [{card}]")
+        f"{filer['gateway_seconds']:.3f} s, phase 16's "
+        f"{filer['stores_replication']['seconds']:.3f} s and phase 17's "
+        f"{filer['phase17']['seconds']:.3f} s [{card}]")
+    log(f"  phases 1-17 took {time.perf_counter() - t_start:.3f} s [{card}]")
     service["replication"] = {k: v for k, v in repl.items()
                               if k != "launches"}
     service["chunked"] = {k: v for k, v in chunked.items()

@@ -5,10 +5,9 @@ The port of ``seaweedfs_tpu.command`` for the cluster and its clients:
 ``download``, ``delete``, ``benchmark``, ``backup``, ``fix``, ``export``,
 ``compact``, ``scaffold``, ``version``, ``filer.cat``, ``filer.copy``,
 ``filer.meta.tail``, the filer's gateways ``s3``, ``webdav`` and
-``ftp``, and ``filer.replicate`` and ``filer.sync``; ``mount`` and
-``msgBroker`` answer with an error naming their ROADMAP item. Global
-flags (-v verbosity, -logFile) are peeled off before dispatch, like the
-reference's glog flags
+``ftp``, ``filer.replicate``, ``filer.sync``, ``msgBroker`` and
+``mount``. Global flags (-v verbosity, -logFile) are peeled off before
+dispatch, like the reference's glog flags
 (weed/command/command.go:10-34, weed/weed.go:37). Every server and client
 command reads ``security.toml`` first (``setup_client_tls``).
 """
@@ -68,12 +67,8 @@ def main(argv=None) -> int:
         print(f"unknown command {name!r}", file=sys.stderr)
         _usage()
         return 2
-    from seaweedfs_tpu_torch import unported
     try:
         return entry[0](args) or 0
-    except unported.NotPortedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
     except KeyboardInterrupt:
         return 130
 

@@ -1,12 +1,14 @@
-"""Async-service subcommands: ``filer.replicate`` and ``filer.sync``.
+"""Async-service subcommands: ``filer.replicate``, ``filer.sync``,
+``msgBroker`` and ``mount``.
 
 The port of ``seaweedfs_tpu.command.async_services`` (reference
 weed/command/filer_replication.go: consume a filer's events and apply
 them to a configured sink; filer_sync.go:64+: active-active between two
-filers). Both tail the source filer's ``SubscribeMetadata`` stream
-(``replication/filer_sync.py``) and run until SIGINT or SIGTERM, then
-stop their tails and exit 0. ``msgBroker`` and ``mount`` are refused in
-``command/servers.py`` with their ROADMAP items.
+filers; msg_broker.go; mount.go). The first two tail the source filer's
+``SubscribeMetadata`` stream (``replication/filer_sync.py``); they and
+``msgBroker`` run until SIGINT or SIGTERM, then stop and exit 0.
+``mount`` serves ``filesys/`` through libfuse until unmounted, and exits
+1 with the JAX package's message where libfuse or /dev/fuse is missing.
 """
 
 from __future__ import annotations
@@ -104,6 +106,69 @@ def run_filer_sync(args) -> int:
     sync = FilerSync(opts.a, opts.b, path_prefix=opts.path_a)
     return _run_until_signalled(sync, sync.start,
                                 f"filer.sync {opts.a} <-> {opts.b} started")
+
+
+def msg_broker_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="msgBroker")
+    p.add_argument("-port", type=int, default=17777)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-peers", default="",
+                   help="comma-separated host:port of ALL brokers in "
+                        "this cluster (topics consistent-hash over "
+                        "them)")
+    return p
+
+
+@command("msgBroker", "start the pub/sub message broker")
+def run_msg_broker(args) -> int:
+    setup_client_tls()
+    opts = msg_broker_parser().parse_args(args)
+    broker = build_msg_broker(opts)
+    return _run_until_signalled(
+        broker, broker.start,
+        f"message broker {opts.ip}:{opts.port} started")
+
+
+def build_msg_broker(opts):
+    """The broker ``msgBroker`` runs for its parsed flags (not started)."""
+    from seaweedfs_tpu_torch.messaging.broker import MessageBroker
+    return MessageBroker(filer_url=opts.filer, ip=opts.ip, port=opts.port,
+                         peers=opts.peers.split(",") if opts.peers
+                         else None)
+
+
+MOUNT_UNAVAILABLE = ("mount needs libfuse + /dev/fuse, which this system "
+                     "does not have; the filesystem layer "
+                     "(seaweedfs_tpu.filesys) still works as a library "
+                     "— see tests/test_filesys.py")
+
+
+@command("mount", "mount the filer as a filesystem (needs kernel FUSE)")
+def run_mount(args) -> int:
+    p = argparse.ArgumentParser(prog="mount")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-dir", required=True, help="mount point")
+    p.add_argument("-filer.path", dest="filer_path", default="/")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-allowOthers", dest="allow_others",
+                   action="store_true")
+    opts = p.parse_args(args)
+    from seaweedfs_tpu_torch.filesys import fuse_shim
+    if not fuse_shim.available():
+        print(MOUNT_UNAVAILABLE, file=sys.stderr)
+        return 1
+    from seaweedfs_tpu_torch.filesys import Wfs
+    from seaweedfs_tpu_torch.util import grace
+    wfs = Wfs(opts.filer, collection=opts.collection,
+              replication=opts.replication)
+    m = fuse_shim.FuseMount(wfs, opts.dir, filer_path=opts.filer_path)
+    grace.on_interrupt(m.unmount)
+    try:
+        return m.mount(allow_other=opts.allow_others)
+    finally:
+        wfs.stop()
 
 
 def _run_until_signalled(stoppable, start, message: str) -> int:

@@ -14,9 +14,9 @@ The filer keeps the JAX package's ``-store`` names, and runs each:
 ``memory``, ``sqlite`` (the default), ``weedkv``, ``mysql``, ``postgres``
 and the networked ``redis``, ``redis_cluster``/``redis_cluster2``,
 ``etcd``, ``mongodb``, ``elastic``/``elastic7``, ``cassandra`` and
-``hbase``, each reading its ``filer.toml`` section. ``mount``,
-``msgBroker`` and a ``notification.toml`` that enables a queue answer
-with an error naming their ROADMAP item (``unported.py``).
+``hbase``, each reading its ``filer.toml`` section, and publishes every
+metadata event to the first queue a ``notification.toml`` enables
+(``notification/``).
 ``s3`` takes ``-config`` (an ``s3.configure``-style identities file),
 ``-metricsPort``, ``-serve.*`` and the ``-qos.*`` flags of the s3 role;
 ``server -s3`` adds an S3 gateway on the filer it starts.
@@ -55,7 +55,6 @@ import signal
 import threading
 from typing import List, Optional
 
-from seaweedfs_tpu_torch import unported
 from seaweedfs_tpu_torch.command import command
 from seaweedfs_tpu_torch.util import grace, wlog
 
@@ -718,21 +717,9 @@ def _configure_meta(opts) -> None:
             batch_max=opts.meta_lookup_batch_max)
 
 
-def _refuse_notification(conf) -> None:
-    """A notification.toml that enables a queue is refused, never
-    ignored: the queues arrive with the async services."""
-    sections = (conf.get("notification") or {}) if conf else {}
-    for name, props in sections.items():
-        if isinstance(props, dict) and props.get("enabled"):
-            raise unported.refusal(
-                f"notification.toml [notification.{name}]",
-                unported.NOTIFICATION)
-
-
 def _build_filer(opts):
     from seaweedfs_tpu_torch.server.filer import FilerServer
     from seaweedfs_tpu_torch.util import config as config_mod
-    _refuse_notification(config_mod.load_configuration("notification"))
     os.makedirs(opts.dir, exist_ok=True)
     peers = [x.strip() for x in (opts.peers or "").split(",")
              if x.strip()]
@@ -740,7 +727,7 @@ def _build_filer(opts):
     # (reference scaffold.go [mysql]/[postgres])
     store_options = config_mod.load_configuration("filer") \
         .get(opts.store) or {}
-    return FilerServer(
+    fs = FilerServer(
         opts.master, ip=opts.ip, port=opts.port, store=opts.store,
         store_options=store_options,
         meta_dir=opts.dir, collection=opts.collection,
@@ -754,6 +741,15 @@ def _build_filer(opts):
         hedge_delay_ms=opts.resilience_hedge_delay_ms,
         listing_cache_mb=opts.meta_listing_cache_mb,
         serve=_serve_config(opts))
+    # notification.toml: publish every metadata mutation to the first
+    # enabled [notification.X] queue (reference filer.go
+    # LoadConfiguration("notification"))
+    from seaweedfs_tpu_torch import notification
+    queue = notification.from_config(
+        config_mod.load_configuration("notification"))
+    if queue is not None:
+        fs.filer.notification_queue = queue
+    return fs
 
 
 @command("filer", "start a filer (namespace server)")
@@ -841,16 +837,6 @@ def run_ftp(args) -> int:
     from seaweedfs_tpu_torch.ftpd import FtpServer
     return _serve_until_signalled(FtpServer(
         opts.filer, ip=opts.ip, port=opts.port, ftp_root=opts.ftp_root))
-
-
-@command("mount", "mount the filer as a filesystem (not carried yet)")
-def run_mount(args) -> int:  # noqa: ARG001
-    raise unported.refusal("mount", unported.FUSE)
-
-
-@command("msgBroker", "start the pub/sub message broker (not carried yet)")
-def run_msg_broker(args) -> int:  # noqa: ARG001
-    raise unported.refusal("msgBroker", unported.NOTIFICATION)
 
 
 @command("server", "start master + volume (+filer, +s3) in one process")

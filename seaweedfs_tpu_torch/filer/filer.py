@@ -6,6 +6,7 @@ filer_rename.go, filer_delete_entry.go, filer_buckets.go).
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, List, Optional
 
@@ -60,6 +61,10 @@ class Filer:
                  flush_seconds: float = 2.0):
         self.store = FilerStoreWrapper(store)
         self.meta_log = MetaLog(log_dir, flush_seconds=flush_seconds)
+        # appends are a read-modify-write of one entry: concurrent ones
+        # to the same file would each keep only their own chunks
+        # (upstream takes a lock around AppendToEntry for this)
+        self._append_lock = threading.Lock()
         # blobs of deleted/shadowed entries are handed to this hook
         # (wired to operation.delete_files by the filer server)
         self.on_delete_chunks: Callable[[List[filer_pb2.FileChunk]], None] = \
@@ -245,20 +250,21 @@ class Filer:
     def append_chunks(self, full_path: str,
                       chunks: List[filer_pb2.FileChunk]) -> filer_pb2.Entry:
         directory, name = split_path(full_path)
-        try:
-            e = self.store.find_entry(directory, name)
-        except NotFound:
-            self._ensure_parents(directory)
-            e = new_entry(name)
-        offset = filechunks.total_size(e.chunks)
-        for c in chunks:
-            nc = e.chunks.add()
-            nc.CopyFrom(c)
-            nc.offset = offset
-            offset += c.size
-        e.attributes.mtime = _now()
-        self.store.insert_entry(directory, e)  # upsert
-        self._notify(directory, None, e)
+        with self._append_lock:
+            try:
+                e = self.store.find_entry(directory, name)
+            except NotFound:
+                self._ensure_parents(directory)
+                e = new_entry(name)
+            offset = filechunks.total_size(e.chunks)
+            for c in chunks:
+                nc = e.chunks.add()
+                nc.CopyFrom(c)
+                nc.offset = offset
+                offset += c.size
+            e.attributes.mtime = _now()
+            self.store.insert_entry(directory, e)  # upsert
+            self._notify(directory, None, e)
         return e
 
     def list_entries(self, directory: str, start_name: str = "",

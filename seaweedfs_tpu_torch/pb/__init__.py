@@ -1,19 +1,21 @@
 """The cluster's messages and stub helpers.
 
-``master_pb2``, ``volume_server_pb2``, ``raft_pb2``, ``filer_pb2`` and
-``iam_pb2`` carry the JAX package's ``master_pb``, ``volume_server_pb``,
-``raft_pb``, ``filer_pb`` and ``iam_pb`` messages (names, field numbers,
-proto3 wire bytes) on the port's own runtime (``wire.py``), for the
+``master_pb2``, ``volume_server_pb2``, ``raft_pb2``, ``filer_pb2``,
+``iam_pb2`` and ``messaging_pb2`` carry the JAX package's
+``master_pb``, ``volume_server_pb``, ``raft_pb``, ``filer_pb``,
+``iam_pb`` and ``messaging_pb`` messages (names, field numbers, proto3
+wire bytes) on the port's own runtime (``wire.py``), for the
 methods the port serves; ``rpc.py`` carries the calls, and
 ``json_format.py`` protobuf's JSON mapping.
 """
 
 from seaweedfs_tpu_torch import rpc
-from seaweedfs_tpu_torch.pb import (filer_pb2, master_pb2, raft_pb2,
-                                    volume_server_pb2)
+from seaweedfs_tpu_torch.pb import (filer_pb2, master_pb2, messaging_pb2,
+                                    raft_pb2, volume_server_pb2)
 
-__all__ = ["filer_pb2", "master_pb2", "raft_pb2", "volume_server_pb2",
-           "filer_stub", "master_stub", "raft_stub", "volume_stub"]
+__all__ = ["filer_pb2", "master_pb2", "messaging_pb2", "raft_pb2",
+           "volume_server_pb2", "filer_stub", "master_stub",
+           "messaging_stub", "raft_stub", "volume_stub"]
 
 
 def master_stub(url_or_target: str, is_http_url: bool = True):
@@ -35,3 +37,9 @@ def raft_stub(url_or_target: str, is_http_url: bool = True):
 def filer_stub(url_or_target: str, is_http_url: bool = True):
     target = rpc.grpc_address(url_or_target) if is_http_url else url_or_target
     return rpc.make_stub(filer_pb2, "SeaweedFiler", target)
+
+
+def messaging_stub(url_or_target: str, is_http_url: bool = True):
+    """The SeaweedMessaging service of a message broker."""
+    target = rpc.grpc_address(url_or_target) if is_http_url else url_or_target
+    return rpc.make_stub(messaging_pb2, "SeaweedMessaging", target)

@@ -27,16 +27,6 @@ def command(name: str, help_text: str = ""):
     return deco
 
 
-def refuse(name: str, arrives_with: str) -> None:
-    """Register a command the port does not carry yet: it answers with
-    an error naming the work it arrives with, never a weaker result."""
-    def fn(env, argv, out):
-        raise CommandError(f"{name} is not carried by this port: it "
-                           f"arrives with {arrives_with}")
-    COMMANDS[name] = fn
-    HELP[name] = f"(not ported: {arrives_with})"
-
-
 # registration side effects
 from seaweedfs_tpu_torch.shell import command_ec  # noqa: E402,F401
 from seaweedfs_tpu_torch.shell import command_fs  # noqa: E402,F401

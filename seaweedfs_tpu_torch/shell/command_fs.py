@@ -3,9 +3,9 @@
 Equivalent behavior to the reference shell's filer commands
 (weed/shell/command_fs_ls.go, _cat.go, _du.go,
 _tree.go, _mv.go, _cd.go, _pwd.go, _meta_save.go, _meta_load.go,
-_meta_cat.go, registered in shell/commands.go:35-39). Metadata rides
-the filer gRPC service; fs.cat streams bytes through the filer HTTP
-read path (the same data path every gateway uses).
+_meta_cat.go, _meta_notify.go, registered in shell/commands.go:35-39).
+Metadata rides the filer gRPC service; fs.cat streams bytes through the
+filer HTTP read path (the same data path every gateway uses).
 
 fs.meta.save/load use the reference's wire format: a stream of
 4-byte big-endian length-prefixed filer_pb.FullEntry records, so a
@@ -18,9 +18,8 @@ import posixpath
 import stat as stat_mod
 import time
 
-from seaweedfs_tpu_torch import unported
 from seaweedfs_tpu_torch.pb import filer_pb2
-from seaweedfs_tpu_torch.shell import command, refuse
+from seaweedfs_tpu_torch.shell import command
 
 
 def _split(path: str):
@@ -308,6 +307,59 @@ def fs_configure(env, argv, out):
         out.write("use -apply to save\n")
 
 
-# fs.meta.notify publishes to a notification queue, which arrives with
-# the async services (notification/)
-refuse("fs.meta.notify", unported.NOTIFICATION)
+@command("fs.meta.notify",
+         "resend a subtree's metadata to the notification queue")
+def fs_meta_notify(env, argv, out):
+    """Walk the directory and publish a create event per entry to the
+    queue configured in notification.toml — the way an operator
+    re-seeds replication for data that predates the queue (reference
+    weed/shell/command_fs_meta_notify.go)."""
+    from seaweedfs_tpu_torch import notification
+    from seaweedfs_tpu_torch.pb import filer_pb2
+    from seaweedfs_tpu_torch.util import config as config_mod
+    _, path = _flags_and_path(env, argv)
+    queue = notification.from_config(
+        config_mod.load_configuration("notification"))
+    if queue is None:
+        raise ValueError(
+            "no enabled [notification.*] section in notification.toml")
+    dirs = files = 0
+
+    from seaweedfs_tpu_torch.filer.filer_notify import event_key
+
+    def publish(directory: str):
+        nonlocal dirs, files
+        for entry in env.list_filer_entries(directory):
+            ev = filer_pb2.EventNotification(new_entry=entry,
+                                             new_parent_path=directory)
+            queue.send_message(event_key(directory, ev), ev)
+            if entry.is_directory:
+                dirs += 1
+                publish(posixpath.join(directory, entry.name))
+            else:
+                files += 1
+
+    try:
+        publish(env.resolve_path(path))
+        # async backends: drain before reporting, and be honest about
+        # any events the bounded buffer or the backend dropped
+        losses = []
+        if hasattr(queue, "flush") and not queue.flush(timeout=60.0):
+            losses.append("flush timed out with events still pending")
+        if getattr(queue, "dropped", 0):
+            losses.append(f"{queue.dropped} events dropped "
+                          f"(buffer full)")
+        if getattr(queue, "failed", 0):
+            losses.append(
+                f"{queue.failed} publishes failed "
+                f"(last error: {queue.last_failure})")
+        print(f"notified {dirs} directories, {files} files", file=out)
+        for loss in losses:
+            print(f"WARNING: {loss}", file=out)
+        if losses:
+            raise RuntimeError(
+                "not every event reached the queue: "
+                + "; ".join(losses))
+    finally:
+        if hasattr(queue, "close"):
+            queue.close()   # we built this queue; drop its sender/conns

@@ -12,9 +12,12 @@ filer; ``server -filer`` starts, serves one file and stops on SIGINT
 with its ``-cpuprofile`` written; ``master -cpuprofile`` likewise. The
 gateways start as subprocesses (``s3 -config``, ``webdav``, ``ftp`` on a
 port filer, ``server -s3``), each answers a request and each stops on
-SIGINT with exit 0. Each part the port does not carry yet (``mount``,
-``msgBroker``, an enabled ``notification.toml``, ``fs.meta.notify``)
-answers with an error naming its ROADMAP item.
+SIGINT with exit 0. The parts the port once refused answer as the JAX
+package's do: ``mount`` without libfuse exits 1 with the JAX message, a
+``notification.toml`` that enables a queue gives the filer the JAX
+queue, ``fs.meta.notify`` without one raises the JAX error, and
+``msgBroker`` from each package's CLI answers ``FindBroker`` alike (on
+SIGINT the port's exits 0, the JAX command 130).
 """
 
 import contextlib
@@ -123,7 +126,7 @@ def test_compact_gives_the_jax_bytes(tmp_path, step):
             _sha(tmp_path / "port" / f"c_7{ext}")
 
 
-# -- a port cluster with a filer -----------------------------------------------
+# -- a port cluster with a filer ----------------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -310,7 +313,7 @@ def test_master_cpuprofile_is_written_on_sigint(tmp_path):
     assert pstats.Stats(str(prof)).total_calls > 0
 
 
-# -- the gateways ---------------------------------------------------------------
+# -- the gateways -------------------------------------------------------------
 
 
 def _ftp_ready(port):
@@ -382,35 +385,106 @@ def _answers(fn) -> bool:
         return False
 
 
-# -- refusals ------------------------------------------------------------------
-
-REFUSALS = [
-    (["mount", "-dir", "/mnt/x"], "item 13"), (["filer"], "item 14"),
-    (["fs.meta.notify", "/"], "item 14"), (["msgBroker"], "item 14"),
-]
-IDS = [" ".join(a) for a, _ in REFUSALS]
-IDS[IDS.index("filer")] = "notification.toml"
+# -- the parts once refused ---------------------------------------------------
 
 
-@pytest.mark.parametrize("argv,item", REFUSALS, ids=IDS)
-def test_unported_parts_name_their_roadmap_item(argv, item, tmp_path,
-                                                monkeypatch, capsys):
-    """Each part the port does not carry yet: the CLI answers exit 2
-    with an error naming its ROADMAP item; the shell command raises one
-    (it refuses before it dials anything)."""
+def test_mount_without_libfuse_exits_1_like_jax(tmp_path, monkeypatch,
+                                                capsys):
+    from seaweedfs_tpu.command import main as jax_main
+    from seaweedfs_tpu.filesys import fuse_shim as jax_fuse
+    from seaweedfs_tpu_torch.filesys import fuse_shim as port_fuse
+    out = {}
+    for name, main, fuse in (("jax", jax_main, jax_fuse),
+                             ("port", port_main, port_fuse)):
+        monkeypatch.setattr(fuse, "available", lambda: False)
+        rc = main(["mount", "-dir", str(tmp_path / "mnt"),
+                   "-filer", "127.0.0.1:1"])
+        out[name] = (rc, capsys.readouterr().err)
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == 1 and "libfuse" in out["port"][1]
+
+
+@pytest.mark.parametrize("section,queue", [
+    ("[notification.memory]\nenabled = true\n", "MemoryQueue"),
+    ("[notification.log]\nenabled = true\npath = \"LOG\"\n", "LogQueue"),
+    ("[notification.memory]\nenabled = false\n", "NoneType"),
+], ids=["memory", "log", "disabled"])
+def test_filer_takes_the_notification_toml_queue_like_jax(
+        section, queue, tmp_path, monkeypatch):
+    from seaweedfs_tpu.command import servers as jax_servers
+    from seaweedfs_tpu_torch.command import servers as port_servers
+    out = {}
+    for name, servers in (("jax", jax_servers), ("port", port_servers)):
+        cwd = tmp_path / name
+        cwd.mkdir()
+        (cwd / "notification.toml").write_text(
+            section.replace("LOG", str(cwd / "events.log")))
+        monkeypatch.chdir(cwd)
+        opts = servers._filer_parser().parse_args(
+            ["-master", "127.0.0.1:1", "-dir", str(cwd / "f")])
+        fs = servers._build_filer(opts)
+        q = fs.filer.notification_queue
+        out[name] = (type(q).__name__,
+                     getattr(q, "path", str(cwd)).replace(str(cwd), "CWD"))
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == queue
+
+
+def test_fs_meta_notify_without_a_queue_raises_like_jax(tmp_path,
+                                                        monkeypatch):
+    from seaweedfs_tpu.shell import CommandError as JaxCommandError
+    from seaweedfs_tpu.shell import Shell as JaxShell
+    from seaweedfs_tpu_torch.shell import CommandError, Shell
     monkeypatch.chdir(tmp_path)
-    if argv[0] == "fs.meta.notify":
-        from seaweedfs_tpu_torch.shell import CommandError, Shell
-        sh = Shell("127.0.0.1:1", filer_url="127.0.0.1:2")
-        with pytest.raises(CommandError) as ei:
-            sh.run_command(" ".join(argv))
-        err = str(ei.value)
-    else:
-        if argv == ["filer"]:
-            (tmp_path / "notification.toml").write_text(
-                "[notification.log]\nenabled = true\n")
-        rc = port_main(argv + (["-dir", str(tmp_path / "f")]
-                               if argv[0] == "filer" else []))
-        err = capsys.readouterr().err
-        assert rc == 2
-    assert f"ROADMAP Queue 1 {item}" in err and "not carried" in err
+    monkeypatch.setenv("HOME", str(tmp_path))
+    out = {}
+    for name, shell, error in (("jax", JaxShell, JaxCommandError),
+                               ("port", Shell, CommandError)):
+        sh = shell("127.0.0.1:1", filer_url="127.0.0.1:2")
+        with pytest.raises(error) as ei:
+            sh.run_command("fs.meta.notify /")
+        out[name] = str(ei.value)
+    assert out["port"] == out["jax"]
+    assert "notification.toml" in out["port"]
+
+
+def test_msg_broker_cli_answers_like_jax(tmp_path):
+    """Each package's msgBroker, started from its CLI with -peers naming
+    itself, owns every topic. On SIGINT the port's stops with exit 0, as
+    its filer.replicate and filer.sync do; the JAX command exits 130."""
+    from seaweedfs_tpu.pb import messaging_pb2 as jax_mpb
+    from seaweedfs_tpu.pb import messaging_stub as jax_stub
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import messaging_pb2 as port_mpb
+    from seaweedfs_tpu_torch.pb import messaging_stub as port_stub
+    out = {}
+    for name, pkg, stub, mpb in (
+            ("jax", "seaweedfs_tpu", jax_stub, jax_mpb),
+            ("port", "seaweedfs_tpu_torch", port_stub, port_mpb)):
+        port = free_port_pair()
+        url = f"127.0.0.1:{port}"
+        proc = subprocess.Popen(
+            [sys.executable, "-m", pkg, "msgBroker", "-port", str(port),
+             "-filer", "127.0.0.1:1", "-peers", url], cwd=str(tmp_path),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"})
+        try:
+            def owners():
+                try:
+                    return [stub(url).FindBroker(mpb.FindBrokerRequest(
+                        namespace="ns", topic=f"t{i}")).broker == url
+                            for i in range(4)]
+                except Exception:  # noqa: BLE001 — not up yet
+                    return None
+            answers = wait_for(owners, 90, f"{name} msgBroker to answer")
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                _, err = proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+        out[name] = (answers, proc.returncode)
+        assert b"Traceback" not in err, err.decode()[-2000:]
+    rpc.close_channels()
+    assert out == {"port": ([True] * 4, 0), "jax": ([True] * 4, 130)}

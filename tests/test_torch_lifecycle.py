@@ -271,10 +271,41 @@ def test_engine_control_plane_and_shell(lifecycle_cluster):
         sh.run_command("volume.lifecycle -force -volumeId=999 -target=warm")
 
 
+def _leading(masters):
+    return next((m for m in masters if m.raft.is_leader), None)
+
+
+def _upload_through_the_leader(masters, n_servers: int, data: bytes,
+                               collection: str) -> str:
+    """The fid of data uploaded through whichever master leads when the
+    assign goes out. A raft set under load can elect again on its own
+    (a 0.25 s election timeout): a new leader's topology is empty until
+    every server's heartbeat reaches it, and an assign that reaches a
+    master which has just lost the lead answers "not the raft leader"
+    and is sent again to the new leader."""
+    def attempt():
+        m = _leading(masters)
+        if m is None or len(m.topo.nodes()) < n_servers:
+            return None
+        helper = Cluster.__new__(Cluster)
+        helper.master = m
+        try:
+            return helper.upload(data, collection=collection)
+        except AssertionError as e:
+            if "not the raft leader" in str(e):
+                return None
+            raise
+    return wait_for(attempt, WAIT_S, "an upload through the leader")
+
+
 def test_engine_survives_a_leader_failover(tmp_path):
     """The new leader's engine rebuilds its states from its own topology
     (what was EC reads as WARM, nothing encodes twice) and encodes the
-    volume that goes idle after the old leader stopped."""
+    volume that goes idle after the old leader stopped.
+
+    The old leader is the master whose engine encoded the first volume.
+    Every step before its stop follows whichever master leads at that
+    moment, since the set may elect again on its own under load."""
     ports = [free_port_pair() for _ in range(3)]
     urls = [f"127.0.0.1:{p}" for p in ports]
     masters = []
@@ -288,9 +319,7 @@ def test_engine_survives_a_leader_failover(tmp_path):
                              lifecycle=_cfg(dry_run=False))
             m.start()
             masters.append(m)
-        leader = wait_for(lambda: next((m for m in masters
-                                        if m.raft.is_leader), None),
-                          WAIT_S, "a leader")
+        wait_for(lambda: _leading(masters), WAIT_S, "a leader")
         for i in range(3):
             d = tmp_path / f"v{i}"
             d.mkdir()
@@ -301,22 +330,38 @@ def test_engine_survives_a_leader_failover(tmp_path):
                               heat_window_s=1.0)
             vs.start()
             servers.append(vs)
-        wait_for(lambda: len(leader.topo.nodes()) == 3, WAIT_S,
-                 "volume servers registered")
-        leader.lifecycle.pause()
-        helper = Cluster.__new__(Cluster)
-        helper.master = leader
-        first = helper.upload(b"first " * 500, collection="fo")
+        wait_for(lambda: (_leading(masters) is not None and
+                          len(_leading(masters).topo.nodes()) == 3),
+                 WAIT_S, "volume servers registered")
+        # a follower's engine never acts, so pausing every engine holds
+        # the policy whichever master leads
+        for m in masters:
+            m.lifecycle.pause()
+        first = _upload_through_the_leader(masters, len(servers),
+                                           b"first " * 500, "fo")
         v1 = parse_fid(first).volume_id
-        leader.lifecycle.resume()
-        wait_for(lambda: v1 in leader.topo.ec_locations, WAIT_S,
-                 "the first volume encoded by the first leader")
-        wait_for(lambda: not leader.topo.lookup(v1, "fo"), WAIT_S,
-                 "the first volume's original retired")
+        for m in masters:
+            m.lifecycle.resume()
+
+        def leader_sees(pred):
+            m = _leading(masters)
+            return m is not None and pred(m)
+        wait_for(lambda: leader_sees(lambda m: v1 in m.topo.ec_locations),
+                 WAIT_S, "the first volume encoded by the first leader")
+        wait_for(lambda: leader_sees(lambda m: not m.topo.lookup(v1, "fo")),
+                 WAIT_S, "the first volume's original retired")
+
+        def encoded(m):
+            return [d["vid"] for d in m.lifecycle.status()["decisions"]
+                    if d["kind"] == "encode" and d["outcome"] == "ok"]
+        leader = wait_for(lambda: next((m for m in masters
+                                        if v1 in encoded(m)), None),
+                          WAIT_S, "the first volume's encode recorded")
         # a second volume, kept hot by reads until the failover
         survivors = [m for m in masters if m is not leader]
         stop_reads = threading.Event()
-        second = helper.upload(b"second " * 500, collection="fo2")
+        second = _upload_through_the_leader(masters, len(servers),
+                                            b"second " * 500, "fo2")
         v2 = parse_fid(second).volume_id
 
         def keep_hot():
@@ -344,11 +389,8 @@ def test_engine_survives_a_leader_failover(tmp_path):
         assert _fetch_any(new, first) == b"first " * 500
         wait_for(lambda: _fetch_any(new, second) == b"second " * 500,
                  WAIT_S, "the second volume readable after its encode")
-        def encoded():
-            return [d["vid"] for d in new.lifecycle.status()["decisions"]
-                    if d["kind"] == "encode" and d["outcome"] == "ok"]
-        wait_for(lambda: v2 in encoded(), WAIT_S, "the encode recorded")
-        assert v1 not in encoded() and encoded().count(v2) == 1
+        wait_for(lambda: v2 in encoded(new), WAIT_S, "the encode recorded")
+        assert v1 not in encoded(new) and encoded(new).count(v2) == 1
     finally:
         for vs in servers:
             vs.stop()

@@ -10,8 +10,8 @@ write times masked where ``fs.meta.cat`` prints them): ``fs.ls`` plain,
 ``fs.meta.save`` file from either package loads in the other.
 ``volume.fsck`` reports the same orphans (counts and bytes) over normal
 volumes, manifests and EC volumes, and ``-reallyDeleteFromVolume``
-purges them alike. ``fs.meta.notify`` answers with an error naming its
-ROADMAP item; the ``s3.*`` family prints what the JAX shell prints.
+purges them alike. ``fs.meta.notify`` without a queue raises the JAX
+error; the ``s3.*`` family prints what the JAX shell prints.
 """
 
 import os
@@ -274,17 +274,21 @@ def test_volume_fsck_covers_ec_volumes_like_jax(shells):
 @pytest.mark.parametrize("line", ["fs.meta.notify /", "s3.bucket.list",
                                   "s3.bucket.create -name b",
                                   "s3.configure"])
-def test_unported_commands_name_their_roadmap_item(shells, line):
-    """fs.meta.notify still answers with its ROADMAP item; the s3.*
-    family, carried since the gateways, prints what the JAX shell
-    prints."""
+def test_unported_commands_name_their_roadmap_item(shells, line, tmp_path,
+                                                  monkeypatch):
+    """The commands the port once refused answer as the JAX shell's:
+    the s3.* family, carried since the gateways, prints what the JAX
+    shell prints, and fs.meta.notify (carried since the notification
+    queues) raises the JAX error where no notification.toml enables a
+    queue (tests/test_torch_notification.py drives it with one)."""
     if line.startswith("s3."):
         assert shells["port"].run_command(line) == \
             shells["jax"].run_command(line)
         return
-    with pytest.raises(PortCommandError,
-                       match=r"ROADMAP Queue 1 item 1[34]"):
-        shells["port"].run_command(line)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    status, text = _both(shells, line)
+    assert status == "error" and "notification.toml" in text
 
 
 def test_fs_needs_a_filer_in_both(shells):
