@@ -15,3 +15,12 @@ versions and exists for tests.
 
 # the JAX package's version: both print "seaweedfs-tpu <version>"
 __version__ = "0.1.0"
+
+import os as _os
+
+if _os.environ.get("SEAWEED_SANITIZE"):
+    # arm the runtime concurrency sanitizer BEFORE any submodule
+    # creates its module-level locks, so they are wrapped too; when
+    # the env var is unset this whole block is one dict lookup
+    # (tests/test_torch_perf_gates.py)
+    from seaweedfs_tpu_torch.util import sanitizer as _sanitizer  # noqa: F401

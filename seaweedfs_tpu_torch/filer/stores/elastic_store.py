@@ -18,6 +18,7 @@ from __future__ import annotations
 import base64
 import hashlib
 import json
+import urllib.parse
 from typing import List, Optional
 
 from seaweedfs_tpu_torch.filer.filerstore import (FilerStore, NotFound,
@@ -49,9 +50,17 @@ class ElasticStore(FilerStore):
         self._request("PUT", f"/{INDEX_KV}", ok_statuses=(200, 400))
 
     def _request(self, method: str, path: str, body: dict = None,
-                 ok_statuses=(200, 201)) -> dict:
+                 ok_statuses=(200, 201), query: str = "") -> dict:
+        # the index name is the top-level directory's: percent-encode
+        # the path so any name fits the request line (which is latin-1)
+        # and a "?" or "#" in it stays in the path; the server decodes
+        # it, so /_cat/indices lists the names as they were
+        # (the JAX store sends the path raw)
+        target = urllib.parse.quote(path, safe="/")
+        if query:
+            target += "?" + query
         r = http_client.request(
-            method, f"{self.server}{path}",
+            method, f"{self.server}{target}",
             body=json.dumps(body).encode() if body is not None else None,
             headers=self.headers, timeout=30)
         if r.status not in ok_statuses and r.status != 404:
@@ -90,8 +99,8 @@ class ElasticStore(FilerStore):
                    entry.SerializeToString()).decode()}
         self._request(
             "PUT",
-            f"/{self._index_of(full)}/_doc/{self._doc_id(full)}"
-            "?refresh=true", doc)
+            f"/{self._index_of(full)}/_doc/{self._doc_id(full)}", doc,
+            query="refresh=true")
 
     update_entry = insert_entry
 
@@ -111,8 +120,8 @@ class ElasticStore(FilerStore):
         full = join_path(directory, name)
         self._request(
             "DELETE",
-            f"/{self._index_of(full)}/_doc/{self._doc_id(full)}"
-            "?refresh=true")
+            f"/{self._index_of(full)}/_doc/{self._doc_id(full)}",
+            query="refresh=true")
 
     def delete_folder_children(self, directory):
         directory = normalize_path(directory)
@@ -124,8 +133,8 @@ class ElasticStore(FilerStore):
         idx = self._index_of(directory if directory != "/" else "/x")
         if directory == "/":
             return  # root wipe would be per-index deletes; unused
-        self._request("POST", f"/{idx}/_delete_by_query?refresh=true",
-                      body)
+        self._request("POST", f"/{idx}/_delete_by_query", body,
+                      query="refresh=true")
 
     def list_directory_entries(self, directory, start_name="",
                                inclusive=False, limit=1024, prefix=""):
@@ -154,8 +163,8 @@ class ElasticStore(FilerStore):
     def _list_root(self, start_name, inclusive, limit, prefix):
         """Root listing = the top-level dir entries stored in their own
         indices (reference listRootDirectoryEntries walks cat/indices)."""
-        out = self._request("GET", "/_cat/indices?format=json",
-                            ok_statuses=(200,))
+        out = self._request("GET", "/_cat/indices", ok_statuses=(200,),
+                            query="format=json")
         names = sorted(
             row["index"][len(INDEX_PREFIX):]
             for row in out.get("_rows", [])
@@ -182,8 +191,9 @@ class ElasticStore(FilerStore):
     def kv_put(self, key, value):
         self._request(
             "PUT",
-            f"/{INDEX_KV}/_doc/{bytes(key).hex()}?refresh=true",
-            {"Value": base64.b64encode(bytes(value)).decode()})
+            f"/{INDEX_KV}/_doc/{bytes(key).hex()}",
+            {"Value": base64.b64encode(bytes(value)).decode()},
+            query="refresh=true")
 
     def kv_get(self, key):
         out = self._request("GET", f"/{INDEX_KV}/_doc/{bytes(key).hex()}")

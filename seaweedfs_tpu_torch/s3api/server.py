@@ -503,17 +503,24 @@ def _make_handler(s3: S3ApiServer):
             except urllib.error.HTTPError as e:  # noqa: F821
                 if e.code == 404:
                     return self._error("NoSuchKey", key, 404)
+                if e.code == 416:
+                    # S3's answer to an unsatisfiable Range, as
+                    # UploadPartCopy gives it (the JAX gateway answers
+                    # InternalError)
+                    return self._error("InvalidRange", rng or "", 416)
                 # a transient backend failure must NOT masquerade as a
                 # missing object (sync clients treat NoSuchKey as
                 # deletion)
                 return self._error("InternalError", key, e.code)
-            out = {"Content-Type": headers.get("Content-Type") or
-                   "application/octet-stream"}
-            for h in ("Content-Range", "ETag"):
-                if h in headers:
-                    out[h] = headers[h]
-            self._reply(status, data, headers=out,
-                        content_type=out["Content-Type"])
+            ctype = headers.get("Content-Type") or \
+                "application/octet-stream"
+            out = {h: headers[h] for h in ("Content-Range", "ETag")
+                   if h in headers}
+            if not data:
+                # _reply writes content_type only with a body; with one,
+                # the type goes out once (the JAX gateway sends it twice)
+                out = {"Content-Type": ctype, **out}
+            self._reply(status, data, headers=out, content_type=ctype)
 
         def _copy_object(self, bucket: str, key: str, copy_src: str):
             src = urllib.parse.unquote(copy_src).lstrip("/")

@@ -140,8 +140,8 @@ def make_filer_store(store: str, meta_dir: Optional[str],
             database=opts.get("database", "seaweedfs"))
     raise ValueError(
         f"unknown filer store {store!r} (memory | sqlite | weedkv | "
-        "redis | etcd | mongodb | cassandra | elastic7 | hbase | "
-        "mysql | postgres)")
+        "redis | redis_cluster | redis_cluster2 | etcd | mongodb | "
+        "cassandra | elastic7 | hbase | mysql | postgres)")
 
 
 def _advance_and_filter(events, prefix: str, since: int):

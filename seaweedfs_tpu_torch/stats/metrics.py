@@ -507,6 +507,12 @@ SwallowedErrorsCounter = REGISTRY.counter(
     "SeaweedFS_swallowed_errors_total",
     "errors absorbed by intentional broad except handlers", ("site",))
 
+# Runtime concurrency sanitizer (util/sanitizer.py, SEAWEED_SANITIZE):
+# `kind` is "cycle" (lock-order cycle = potential deadlock) or "hold"
+# (lock held past the watchdog threshold).
+SanitizerFindingsCounter = REGISTRY.counter(
+    "SeaweedFS_sanitizer_findings_total",
+    "concurrency sanitizer findings", ("kind",))
 
 
 def swallowed(site: str) -> None:

@@ -22,6 +22,7 @@ answers them, and a corrupt read counts in
 ``ScrubCorruptionsFoundCounter{kind="read"}`` on both.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -168,8 +169,44 @@ class Cluster:
         self.master.stop()
 
 
+@contextlib.contextmanager
+def port_sanitizer_armed(suite: str):
+    """The port's runtime concurrency sanitizer armed around a suite, as
+    ``tests/conftest.py`` arms the JAX package's over its chaos and
+    cluster suites: locks made while armed feed the lock-order graph, and
+    on the way out any lock-order cycle (a potential deadlock) fails the
+    suite with both stacks. Hold findings are informational (the suites
+    stall servers on purpose). Disarmed and reset in every case."""
+    from seaweedfs_tpu_torch.util import sanitizer
+    sanitizer.reset()
+    sanitizer.arm()
+    try:
+        yield
+        cycles = sanitizer.cycles()
+        assert not cycles, (
+            f"{suite}: sanitizer observed lock-order cycles "
+            "(potential deadlocks):\n" +
+            "\n\n".join(
+                " -> ".join(c["locks"]) + "\n" +
+                "\n".join(e["edge"] + "\n" + e["stack"]
+                          for e in c["stacks"])
+                for c in cycles))
+    finally:
+        sanitizer.disarm()
+        sanitizer.reset()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_sanitizer():
+    """This module's tests run with the port's sanitizer armed; it arms
+    before ``cluster`` builds servers (which requests it), so their
+    locks are wrapped. Modules importing names from here do not get it."""
+    with port_sanitizer_armed("test_torch_cluster"):
+        yield
+
+
 @pytest.fixture(scope="module")
-def cluster(tmp_path_factory):
+def cluster(tmp_path_factory, _port_sanitizer):
     c = Cluster(tmp_path_factory.mktemp("cluster"))
     yield c
     c.stop()

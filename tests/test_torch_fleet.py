@@ -606,9 +606,9 @@ def test_tagged_pipeline_latches_the_first_error():
 
 def test_tagged_pipeline_handoff_explored():
     """The retire -> writer-lane handoff under 20 seeded schedules of
-    the JAX package's schedule explorer: per-tag writes stay FIFO and
+    the port's schedule explorer: per-tag writes stay FIFO and
     every output lands on its own tag."""
-    from seaweedfs_tpu.util import scheduler
+    from seaweedfs_tpu_torch.util import scheduler
 
     def one_pass():
         got = {0: [], 1: [], 2: []}

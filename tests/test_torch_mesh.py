@@ -686,10 +686,10 @@ def test_decode_fleet_use_mesh_lets_card_faults_through(
 
 def test_bucket_handoff_explored(tmp_path, monkeypatch):
     """The bucket handoff (read -> pack -> dispatch -> FIFO retire ->
-    per-volume writer lanes) under 20 seeded schedules of the JAX
-    package's schedule explorer, byte-identical every time. The dispatch
+    per-volume writer lanes) under 20 seeded schedules of the port's
+    schedule explorer, byte-identical every time. The dispatch
     is the port's host codec, so the explorer drives the machinery."""
-    from seaweedfs_tpu.util import scheduler
+    from seaweedfs_tpu_torch.util import scheduler
 
     rs = ReedSolomon(backend="cpu")
     bases = _write_vols(tmp_path, [2 * ROW + 11, ROW, ROW - 3], seed=12)

@@ -11,7 +11,7 @@ reply must be the same bytes. Then twins of the JAX core tests (split
 heads, a crashing handler, a waiting Expect: 100-continue client, a
 partial head closed by the peer, an early close, the keep-alive LRU
 budget, accept backpressure, the body reader and the chunked scanner,
-and the completion hand-off under the JAX schedule explorer), each
+and the completion hand-off under the port's schedule explorer), each
 waiting on the server's state instead of sleeping. A port volume server
 under ``-serve.async`` answers every GET variant (plain, range, 416,
 HEAD, If-None-Match, compressed with and without gzip accepted, a chunk
@@ -502,7 +502,7 @@ def test_chunked_scanner_and_reader_equal_jax(seed):
         assert decoded[0] == decoded[1]
 
 
-# -- the completion hand-off under the JAX schedule explorer ------------------
+# -- the completion hand-off under the port's schedule explorer ---------------
 
 
 class _NullHandler(FastHandler):
@@ -518,7 +518,7 @@ def test_explorer_completion_vs_close():
     """A worker publishing a finished response races the loop closing the
     connection. Under seeded interleavings the span's fd is released
     exactly once and nothing raises."""
-    from seaweedfs_tpu.util import scheduler
+    from seaweedfs_tpu_torch.util import scheduler
 
     def body():
         srv = _fresh_server()
@@ -567,7 +567,7 @@ def test_explorer_completion_vs_close():
 def test_explorer_pipelined_completion_order():
     """Two connections completing on worker threads each reach their own
     out queue: nothing is lost, nothing crosses connections."""
-    from seaweedfs_tpu.util import scheduler
+    from seaweedfs_tpu_torch.util import scheduler
 
     def body():
         srv = _fresh_server()
