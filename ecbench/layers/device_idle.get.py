@@ -1,0 +1,9 @@
+"""The card under the GETs: percent of the traced window with no kernel,
+copy or set running in the volume servers' process
+(``torch.profiler``)."""
+
+from ecbench.layers._util import device_idle
+
+
+def read(layer: dict):
+    return device_idle(layer)

@@ -1,0 +1,13 @@
+"""The benchmark's own tests: ``python -m pytest ecbench/tests -q``."""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where "
+        "torch.cuda.is_available() is false")
