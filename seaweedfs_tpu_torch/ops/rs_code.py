@@ -14,6 +14,13 @@ Backends:
 Every encode, rebuild and degraded read is one GF(2^8) linear map: the
 decode map is (coding matrix restricted to surviving rows)^-1 composed with
 the rows wanted.
+
+On "cuda" the host's share of a map is traced as ``codec.alloc`` (pinned
+buffers), ``codec.pack`` (the copy into one), ``codec.submit`` (queueing
+H2D, kernel, D2H and the event); the host's wait on the event is timed
+by its caller (``fleet.retire``). The copies are counted in
+``SeaweedFS_codec_h2d_bytes_total`` and
+``SeaweedFS_codec_d2h_bytes_total``.
 """
 
 from __future__ import annotations
@@ -26,12 +33,25 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.ops import gf256, gf_kernel
+from seaweedfs_tpu_torch.stats import trace
+from seaweedfs_tpu_torch.stats.metrics import (CodecD2HBytesCounter,
+                                               CodecH2DBytesCounter)
 
 DATA_SHARDS = 10
 PARITY_SHARDS = 4
 TOTAL_SHARDS = DATA_SHARDS + PARITY_SHARDS
 
 BACKENDS = ("cuda", "cpu")
+
+# resolved once: labels() takes a lock per call
+_H2D_BYTES = CodecH2DBytesCounter.labels()
+_D2H_BYTES = CodecD2HBytesCounter.labels()
+
+
+def _span(backend: str, name: str):
+    """A ``codec.*`` span on "cuda"; the shared no-op on "cpu", which
+    stages nothing."""
+    return trace.span(name) if backend == "cuda" else trace.NOOP
 
 
 @functools.lru_cache(maxsize=16)
@@ -120,8 +140,9 @@ class ReedSolomon:
         """An uninitialised uint8 host tensor to read shard rows into:
         pinned on "cuda", so the H2D copy is a true async DMA. Fill it in
         place through ``.numpy()``."""
-        return torch.empty(tuple(shape), dtype=torch.uint8,
-                           pin_memory=self.backend == "cuda")
+        with _span(self.backend, "codec.alloc"):
+            return torch.empty(tuple(shape), dtype=torch.uint8,
+                               pin_memory=self.backend == "cuda")
 
     def pack(self, arrays: Sequence[np.ndarray],
              stack: bool = False) -> torch.Tensor:
@@ -134,7 +155,8 @@ class ReedSolomon:
             parts = [a[np.newaxis] for a in parts]
         rows = sum(a.shape[0] for a in parts)
         buf = self.host_buffer((rows,) + parts[0].shape[1:])
-        np.concatenate(parts, axis=0, out=buf.numpy())
+        with _span(self.backend, "codec.pack"):
+            np.concatenate(parts, axis=0, out=buf.numpy())
         return buf
 
     # -- matrix helpers ------------------------------------------------------
@@ -167,22 +189,29 @@ class ReedSolomon:
             if isinstance(shards, np.ndarray) else shards.contiguous()
         if host.dtype != torch.uint8 or host.device.type != "cpu":
             raise ValueError("shards must be uint8 on the host")
-        gm = gf_kernel.prepare_matrix(matrix, self.device)
         if self.backend == "cpu":
+            gm = gf_kernel.prepare_matrix(matrix, self.device)
             return _Resolved(gf_kernel.gf_linear(gm, host).numpy())
-        if not host.is_pinned():
-            # pageable memory would make the H2D a synchronous staged copy
-            staged = self.host_buffer(host.shape)
-            staged.copy_(host)
-            host = staged
-        out_host = torch.empty(host.shape[:-2] + (gm.rows, host.shape[-1]),
-                               dtype=torch.uint8, pin_memory=True)
-        with torch.cuda.stream(self._stream):
-            dev = host.to(self.device, non_blocking=True)
-            out = gf_kernel.gf_linear(gm, dev)
-            out_host.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
+        # pageable memory would make the H2D a synchronous staged copy
+        staged = None if host.is_pinned() else self.host_buffer(host.shape)
+        with trace.span("codec.alloc"):
+            out_host = torch.empty(
+                host.shape[:-2] + (matrix.shape[0], host.shape[-1]),
+                dtype=torch.uint8, pin_memory=True)
+        with trace.span("codec.submit"):
+            # the matrix tables upload here on a cache miss (a few KB)
+            gm = gf_kernel.prepare_matrix(matrix, self.device)
+            if staged is not None:
+                staged.copy_(host)
+                host = staged
+            with torch.cuda.stream(self._stream):
+                dev = host.to(self.device, non_blocking=True)
+                out = gf_kernel.gf_linear(gm, dev)
+                out_host.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+        _H2D_BYTES.inc(host.numel())
+        _D2H_BYTES.inc(out_host.numel())
         return PendingApply(event, out_host, host)
 
     def _apply(self, matrix: np.ndarray, shards) -> np.ndarray:

@@ -163,7 +163,8 @@ def verify_ec_repair(base: str, backend: str = "cuda") -> "fleet.VerifyResult":
     """Post-repair stripe verify of ONE volume (the daemon's second
     evidence round: after a data-shard rebuild, any parity mismatch that
     remains is genuine parity damage)."""
-    return fleet.fleet_verify_ec_files([base], backend=backend)[base]
+    with trace.span("scrub.reverify", base=os.path.basename(base)):
+        return fleet.fleet_verify_ec_files([base], backend=backend)[base]
 
 
 def repair_needle(v: Volume, corrupt: Needle,

@@ -95,7 +95,12 @@ def scan_ec_volume_needles(ecv: EcVolume, version: int = 3,
     reconstruction from the others through ``rs``, the card's codec when
     None); the exclusion that makes the CRC pass names the corrupt shard.
     Needles spanning shards this server does not hold are skipped (their
-    holder scrubs them)."""
+    holder scrubs them).
+
+    While tracing is on, each needle's read (``scrub.sweep.read``, tagged
+    with its bytes) and parse with its CRC (``scrub.sweep.crc``) are
+    spans, and so is a localization (``scrub.localize``); off, a needle
+    costs one flag check."""
     res = EcNeedleScan()
     with trace.span("scrub.scan_ec", vid=ecv.volume_id):
         for i in range(len(ecv._keys)):
@@ -103,29 +108,50 @@ def scan_ec_volume_needles(ecv: EcVolume, version: int = 3,
             if t.size_is_deleted(size):
                 continue
             key = int(ecv._keys[i])
+            traced = trace.active()
             try:
-                _, _, intervals = ecv.locate_needle(key, version)
+                if traced:
+                    with trace.Span("scrub.sweep.read", None, {}) as sp:
+                        placed, blob = _read_local_needle(ecv, key, version)
+                        sp.tags["bytes"] = len(blob)
+                else:
+                    placed, blob = _read_local_needle(ecv, key, version)
             except NeedleError:
                 continue  # tombstoned between snapshot and read
-            placed = [iv.to_shard_and_offset(ecv.large_block,
-                                             ecv.small_block) + (iv.size,)
-                      for iv in intervals]
-            if any(sid not in ecv.shards for sid, _, _ in placed):
+            if placed is None:
                 res.skipped_remote += 1
                 continue
-            blob = b"".join(ecv.shards[sid].read_at(off, ln)
-                            for sid, off, ln in placed)
             res.bytes_scanned += len(blob)
             res.needles_verified += 1
             if throttler is not None:
                 throttler.maybe_slowdown(len(blob))
             try:
-                Needle.from_bytes(blob, version)
+                if traced:
+                    with trace.Span("scrub.sweep.crc", None, {}):
+                        Needle.from_bytes(blob, version)
+                else:
+                    Needle.from_bytes(blob, version)
             except PARSE_ERRORS:  # CRC mismatch or a torn/short parse
                 res.corrupt.append(key)
-                res.bad_data_shards |= _localize_bad_shard(
-                    ecv, placed, version, rs)
+                with trace.span("scrub.localize", vid=ecv.volume_id):
+                    res.bad_data_shards |= _localize_bad_shard(
+                        ecv, placed, version, rs)
     return res
+
+
+def _read_local_needle(ecv: EcVolume, key: int, version: int):
+    """(placed intervals, the needle's record bytes) from local shards;
+    (None, b"") when an interval lies on a shard this server does not
+    hold. Raises NeedleError for a needle tombstoned since the
+    snapshot."""
+    _, _, intervals = ecv.locate_needle(key, version)
+    placed = [iv.to_shard_and_offset(ecv.large_block,
+                                     ecv.small_block) + (iv.size,)
+              for iv in intervals]
+    if any(sid not in ecv.shards for sid, _, _ in placed):
+        return None, b""
+    return placed, b"".join(ecv.shards[sid].read_at(off, ln)
+                            for sid, off, ln in placed)
 
 
 def _localize_bad_shard(ecv: EcVolume, placed, version: int,

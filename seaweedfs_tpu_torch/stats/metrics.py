@@ -298,6 +298,18 @@ FleetWriterBacklogGauge = REGISTRY.gauge(
     "SeaweedFS_fleet_writer_lane_backlog",
     "writes queued on one writer lane", ("lane",))
 
+# Codec families (ops/rs_code.py): the host <-> card copies of every
+# GF(2^8) map the "cuda" codec queues. The port's own: the JAX codec
+# has no host staging to count.
+CodecH2DBytesCounter = REGISTRY.counter(
+    "SeaweedFS_codec_h2d_bytes_total",
+    "shard bytes the cuda codec copied host to card, one input per "
+    "queued map (matrix table uploads not counted)")
+CodecD2HBytesCounter = REGISTRY.counter(
+    "SeaweedFS_codec_d2h_bytes_total",
+    "bytes the cuda codec copied card to host, one output per queued "
+    "map (matrix table uploads not counted)")
+
 # Unified mesh scheduler families (parallel/mesh_fleet.py): the bucket
 # stream over the cards. `op` is the dispatch kind (encode | verify |
 # rebuild); a fallback's `reason` is unavailable | timeout | error.
@@ -570,6 +582,12 @@ TraceRequestsCounter = REGISTRY.counter(
 TraceLiveGauge = REGISTRY.gauge(
     "SeaweedFS_trace_live_requests",
     "in-flight traced requests (the /debug/requests table depth)")
+
+# Span tracer (stats/trace.py): spans the bounded ring pushed out. The
+# port's own, like the codec families.
+TraceSpansDroppedCounter = REGISTRY.counter(
+    "SeaweedFS_trace_spans_dropped_total",
+    "oldest spans dropped from the full trace ring")
 
 # Heat telemetry (stats/heat.py): read-path access rate per volume, the
 # measurement half of the heat-driven lifecycle.

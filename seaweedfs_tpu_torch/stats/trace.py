@@ -20,7 +20,12 @@ memory-bounded ring slots, never unbounded growth.
 Set SEAWEED_TRACE=1 to enable at import (for server subprocesses);
 in-process callers use enable()/disable(). `/debug/trace` on the
 metrics port serves the Chrome JSON of everything currently in the
-ring.
+ring. A span that pushes the oldest out of a full ring counts in
+``SeaweedFS_trace_spans_dropped_total``.
+
+Spans carry the OS thread id (``threading.get_native_id()``), and
+``EPOCH_OFFSET`` maps their ``perf_counter`` stamps to Unix time, so spans
+and a ``torch.profiler`` trace of the same window line up in time.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
+
+from seaweedfs_tpu_torch.stats.metrics import TraceSpansDroppedCounter
 
 # Ring capacity: a fleet encode of 64 volumes emits a few spans per
 # chunk — tens of thousands of spans for a big run. 1<<17 slots keep
@@ -53,11 +60,27 @@ _ID_BASE = (random.getrandbits(30) | (1 << 29)) << 33
 _tls = threading.local()
 _thread_names: Dict[int, str] = {}
 
-# perf_counter -> wall-clock offset, taken once at import: the cluster
-# collector exports span timestamps on the epoch timebase so spans from
-# different PROCESSES line up in one stitched view (NTP-grade skew is
-# acceptable at the millisecond scale these traces are read at).
-EPOCH_OFFSET = time.time() - time.perf_counter()
+
+def _epoch_offset(pairs: int = 5) -> float:
+    """time.time() - perf_counter(), from the narrowest of ``pairs``
+    perf_counter readings that bracket a time.time() reading."""
+    best_width, best = float("inf"), 0.0
+    for _ in range(pairs):
+        a = time.perf_counter()
+        wall = time.time()
+        b = time.perf_counter()
+        if b - a < best_width:
+            best_width, best = b - a, wall - (a + b) / 2
+    return best
+
+
+# perf_counter -> wall-clock offset, taken at import and again by
+# enable(), so a traced window maps onto the epoch with the offset of
+# its own start: the cluster collector exports span timestamps on the
+# epoch timebase so spans from different PROCESSES line up in one
+# stitched view, and a device trace's events line up with the spans.
+EPOCH_OFFSET = _epoch_offset()
+_DROPPED = TraceSpansDroppedCounter.labels()
 
 # Cluster-trace hook (stats/cluster_trace.py): when on, spans are also
 # appended to the ambient request's bounded buffer, carried across
@@ -84,10 +107,12 @@ def is_enabled() -> bool:
 
 
 def enable(capacity: Optional[int] = None) -> None:
-    """Turn tracing on (optionally resizing the ring, which clears it)."""
-    global _enabled, _ring
+    """Turn tracing on (optionally resizing the ring, which clears it)
+    and take ``EPOCH_OFFSET`` again."""
+    global _enabled, _ring, EPOCH_OFFSET
     if capacity is not None and capacity != _ring.maxlen:
         _ring = deque(maxlen=capacity)
+    EPOCH_OFFSET = _epoch_offset()
     _enabled = True
 
 
@@ -134,7 +159,7 @@ class Span:
         self.trace_id = 0
 
     def __enter__(self) -> "Span":
-        tid = threading.get_ident()
+        tid = threading.get_native_id()
         self.tid = tid
         if tid not in _thread_names:
             _thread_names[tid] = threading.current_thread().name
@@ -162,7 +187,10 @@ class Span:
         if stack and stack[-1] == self.id:
             stack.pop()
         if _enabled:
-            _ring.append(self)
+            ring = _ring
+            if len(ring) == ring.maxlen:
+                _DROPPED.inc()
+            ring.append(self)
         if _cluster_enabled:
             ctx = _req_ctx.get()
             if ctx is not None:
@@ -262,51 +290,3 @@ def span_dict(s: Span) -> dict:
 
 def chrome_trace_json() -> str:
     return json.dumps(chrome_trace())
-
-
-# -- rollups ------------------------------------------------------------------
-
-def rollup(items: Optional[Sequence[Span]] = None) -> Dict[str, dict]:
-    """Per-span-name totals: {name: {count, total_s, max_s}} — the
-    stage-attribution summary a run attaches to its report."""
-    out: Dict[str, dict] = {}
-    for s in (spans() if items is None else items):
-        r = out.get(s.name)
-        if r is None:
-            r = out[s.name] = {"count": 0, "total_s": 0.0, "max_s": 0.0}
-        r["count"] += 1
-        r["total_s"] += s.dur
-        r["max_s"] = max(r["max_s"], s.dur)
-    for r in out.values():
-        r["total_s"] = round(r["total_s"], 6)
-        r["max_s"] = round(r["max_s"], 6)
-    return out
-
-
-def busy_union_s(items: Sequence[Span], t0: float, t1: float,
-                 prefixes: Optional[Sequence[str]] = None) -> float:
-    """Seconds of [t0, t1] covered by at least one span (optionally
-    restricted to names starting with any of `prefixes`): the coverage
-    measure of how much of a window the spans explain. Spans run
-    on many threads, so this is interval union, not a sum."""
-    ivals = []
-    for s in items:
-        if prefixes is not None and \
-                not any(s.name.startswith(p) for p in prefixes):
-            continue
-        a, b = max(s.t0, t0), min(s.t0 + s.dur, t1)
-        if b > a:
-            ivals.append((a, b))
-    ivals.sort()
-    covered = 0.0
-    cur_a = cur_b = None
-    for a, b in ivals:
-        if cur_b is None or a > cur_b:
-            if cur_b is not None:
-                covered += cur_b - cur_a
-            cur_a, cur_b = a, b
-        else:
-            cur_b = max(cur_b, b)
-    if cur_b is not None:
-        covered += cur_b - cur_a
-    return covered
