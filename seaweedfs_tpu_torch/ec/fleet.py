@@ -7,9 +7,11 @@ volumes serializes on dispatch latency and on that thread's disk reads.
 This module lifts the batch dimension from rows-within-a-volume to
 chunks-ACROSS-volumes:
 
-  pack      same-sized row-spans from many volumes fuse into one
-            [B, 10, small] dispatch, packed straight into one pinned
-            host buffer (``ReedSolomon.pack``).
+  stage     same-sized row-spans from many volumes fuse into one
+            [B, 10, span] dispatch: each batch is ONE host buffer
+            (``ReedSolomon.host_buffer``, pinned on "cuda"), and each
+            reader fills its span's slot of it straight from disk, so
+            the codec uploads the bytes where they were read.
   feed      a bounded reader pool prefetches spans ahead of the card.
             Spans are consumed in submission order (round-robin rounds
             over the volumes), so per-volume row order is preserved by
@@ -70,7 +72,7 @@ FLEET_READERS = 4
 
 # Fused dispatches in flight at once — the writer-queue bound, same
 # double-buffering role as encoder.PIPELINE_DEPTH. Peak host memory is
-# ~(depth + 2) fused batches (queued + packing + retiring).
+# ~(depth + 2) fused batches (queued + filling + retiring).
 FLEET_DEPTH = 2
 
 # Encode pool of the "cpu" backend: torch releases the GIL, so two
@@ -260,7 +262,7 @@ class TaggedPipeline:
 
 class _Gathered:
     """Handle over several in-flight per-span encodes: .result() is the
-    list of per-span outputs, ordered like the spans were packed."""
+    list of per-span outputs, ordered like the batch's slots."""
 
     def __init__(self, handles):
         self._handles = handles
@@ -277,16 +279,44 @@ def _rs_staged(fn, arr: np.ndarray, parent: Optional[int]) -> np.ndarray:
         return fn(arr)
 
 
+class _Batch:
+    """One fused dispatch's input, staged in place: a [cap, 10, width]
+    ``ReedSolomon.host_buffer`` (pinned on "cuda") whose leading rows
+    are handed out as slots, one per span, for the readers to fill
+    straight from disk. The codec takes the filled rows as they are."""
+
+    __slots__ = ("buf", "arr", "rows", "slots")
+
+    def __init__(self, rs: ReedSolomon, cap: int, width: int):
+        self.buf = rs.host_buffer((cap, DATA_SHARDS, width))
+        self.arr = self.buf.numpy()
+        self.rows = 0
+        self.slots: List[np.ndarray] = []  # one view per span, fill order
+
+    def take(self, rows: int) -> np.ndarray:
+        """The next `rows` rows of the buffer: one span's slot."""
+        slot = self.arr[self.rows:self.rows + rows]
+        self.rows += rows
+        self.slots.append(slot)
+        return slot
+
+    def staged(self):
+        """The filled leading rows, as the host tensor the codec uploads
+        (a short last batch leaves the rest of the buffer unused)."""
+        return self.buf[:self.rows]
+
+
 class _Dispatcher:
     """Uniform async-handle dispatch over the codec's backends.
 
-    On "cuda" a fused batch is packed once, straight into a pinned host
-    buffer, and issued as ONE async dispatch on the codec's side stream
-    (H2D, kernel, D2H): the card computes while the host does IO, and
-    handles retire in submission order. There is no host encode pool
-    on this path. On "cpu" each span goes to a small encode pool as
-    its own task (no concatenation copy) and the handles are gathered.
-    Either way .result() yields per-span outputs.
+    On "cuda" a fused batch, already staged in its pinned buffer, is
+    issued as ONE async dispatch on the codec's side stream (H2D,
+    kernel, D2H): the card computes while the host does IO, and handles
+    retire in submission order. There is no host encode pool on this
+    path. On "cpu" each slot of the (unpinned) batch goes to a small
+    encode pool as its own task and the handles are gathered. Either
+    way .result() yields one output per slot, shaped like the slot with
+    the map's output rows in place of the 10 data rows.
     """
 
     def __init__(self, rs: ReedSolomon):
@@ -298,30 +328,30 @@ class _Dispatcher:
                 max_workers=FLEET_ENCODERS,
                 thread_name_prefix="fleet-encode")
 
-    def encode(self, arrays: List[np.ndarray]):
+    def batch(self, cap: int, width: int) -> _Batch:
+        return _Batch(self._rs, cap, width)
+
+    def encode(self, batch: _Batch):
         if _failpoint._armed:
             _failpoint.hit("fleet.dispatch", op="encode")
-        if self._pool is None:
-            handle = self._rs.encode_async(self._rs.pack(arrays))
-            return _SplitHandle(handle, [a.shape[0] for a in arrays])
-        token = trace.handoff()
-        return _Gathered([self._pool.submit(_rs_staged, self._rs.encode,
-                                            a, token)
-                          for a in arrays])
+        return self._dispatch(batch, self._rs.encode_async, self._rs.encode)
 
-    def reconstruct(self, present, missing, arrays: List[np.ndarray]):
+    def reconstruct(self, present, missing, batch: _Batch):
         if _failpoint._armed:
             _failpoint.hit("fleet.dispatch", op="reconstruct")
+        return self._dispatch(
+            batch,
+            functools.partial(self._rs.reconstruct_some_async, present,
+                              missing),
+            functools.partial(self._rs.reconstruct_some, present, missing))
+
+    def _dispatch(self, batch: _Batch, submit_async, compute):
         if self._pool is None:
-            src = self._rs.pack(arrays, stack=True)  # [B, 10, span]
-            return _UnstackHandle(self._rs.reconstruct_some_async(
-                present, missing, src))
+            return _SplitHandle(submit_async(batch.staged()),
+                                [s.shape[0] for s in batch.slots])
         token = trace.handoff()
-        return _Gathered([self._pool.submit(
-            _rs_staged,
-            functools.partial(self._rs.reconstruct_some, present, missing),
-            a, token)
-            for a in arrays])
+        return _Gathered([self._pool.submit(_rs_staged, compute, s, token)
+                          for s in batch.slots])
 
     def close(self) -> None:
         if self._pool is not None:
@@ -329,10 +359,10 @@ class _Dispatcher:
 
 
 class _SplitHandle:
-    """Adapt one fused async encode handle back to per-span outputs.
-    The outputs are numpy views of the handle's pinned output tensor;
-    each view's ``.base`` chain holds that tensor, so the pinned block
-    stays allocated until the last writer lane drops its view."""
+    """Adapt one fused async handle back to per-slot outputs. The
+    outputs are numpy views of the handle's pinned output tensor; each
+    view's ``.base`` chain holds that tensor, so the pinned block stays
+    allocated until the last writer lane drops its view."""
 
     def __init__(self, handle, rows: List[int]):
         self._handle = handle
@@ -347,17 +377,6 @@ class _SplitHandle:
             parts.append(out[row:row + r])
             row += r
         return parts
-
-
-class _UnstackHandle:
-    """Adapt one fused [B, ...] reconstruct handle to per-item outputs."""
-
-    def __init__(self, handle):
-        self._handle = handle
-
-    def result(self) -> List[np.ndarray]:
-        out = self._handle.result()
-        return [out[i] for i in range(out.shape[0])]
 
 
 class _VolState:
@@ -396,23 +415,78 @@ def _round_robin_spans(vols: List[_VolState], span_rows: int):
         pending = nxt
 
 
-def _read_span(base: str, row0: int, rows: int,
-               row_bytes: int, small_block: int) -> np.ndarray:
-    """Rows [row0, row0+rows) of one volume as [rows, 10, small],
-    zero-padded past EOF: one sequential read per span into a fresh
-    buffer (``encoder._read_padded`` zeroes the tail)."""
-    buf = np.empty(rows * row_bytes, dtype=np.uint8)
-    with open(base + ".dat", "rb") as f:
-        _encoder._read_padded(f, row0 * row_bytes, buf)
-    return buf.reshape(rows, DATA_SHARDS, small_block)
+def _grouped(spans, batch_rows: int):
+    """(item, rows) spans, in order, in runs that close at `batch_rows`
+    rows: one run per fused dispatch (the last may be short)."""
+    group, acc = [], 0
+    for item, rows in spans:
+        group.append((item, rows))
+        acc += rows
+        if acc >= batch_rows:
+            yield group
+            group, acc = [], 0
+    if group:
+        yield group
 
 
-def _read_span_staged(base: str, row0: int, rows: int, row_bytes: int,
-                      small_block: int, parent: Optional[int]) -> np.ndarray:
-    """_read_span on a reader-pool thread, attributed to the 'read'
-    stage and parented to the scheduler's root span."""
+def _drive_batches(groups, prefetch: int, new_batch: Callable[[int], _Batch],
+                   submit_read: Callable, flush: Callable) -> None:
+    """THE fill/flush loop of the three fleet passes. `groups` yields
+    each batch's spans (``_grouped``); one ``new_batch(rows)`` buffer is
+    taken per batch, sized to them exactly. Up to `prefetch` reads stay
+    in flight, each reading straight into its slot of its batch
+    (``submit_read(item, slot)`` returns the read's future); reads
+    retire in submission order, and each batch goes to
+    ``flush(items, batch)`` once its last slot is read."""
+    inflight: deque = deque()
+    pending: deque = deque()  # spans of the batch being filled, unread
+    filling: Optional[_Batch] = None
+
+    def fill() -> None:
+        nonlocal filling
+        while len(inflight) < prefetch:
+            if not pending:
+                group = next(groups, None)
+                if group is None:
+                    break
+                filling = new_batch(sum(rows for _, rows in group))
+                pending.extend(group)
+            item, rows = pending.popleft()
+            inflight.append((item, filling,
+                             submit_read(item, filling.take(rows))))
+            # inc/dec deltas so concurrent schedulers SUM on the
+            # shared gauge instead of overwriting each other's depth
+            FleetReaderQueueGauge.inc()
+
+    try:
+        fill()
+        items: List = []
+        while inflight:
+            item, batch, fut = inflight.popleft()
+            FleetReaderQueueGauge.dec()
+            fut.result()
+            items.append(item)
+            fill()
+            # spans retire in order, so the batch's last one is the one
+            # no later span of the same batch follows
+            if not inflight or inflight[0][1] is not batch:
+                flush(items, batch)
+                items = []
+    finally:
+        FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
+
+
+def _read_span(base: str, row0: int, dest: np.ndarray,
+               parent: Optional[int]) -> None:
+    """Rows [row0, row0 + len(dest)) of one volume, read in place into
+    its batch slot `dest` [rows, 10, small] and zero-padded past EOF:
+    one sequential read per span (``encoder._read_padded`` zeroes the
+    tail). Runs on a reader-pool thread, attributed to the 'read' stage
+    and parented to the scheduler's root span."""
     with _StageTimer("read", parent=parent, vol=os.path.basename(base)):
-        return _read_span(base, row0, rows, row_bytes, small_block)
+        with open(base + ".dat", "rb") as f:
+            _encoder._read_padded(f, row0 * dest[0].nbytes,
+                                  dest.reshape(-1))
 
 
 def _write_data_shards(base: str, arr: np.ndarray) -> None:
@@ -467,7 +541,7 @@ def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
     if not alive:
         return  # all empty: 14 empty shard files each, same as serial
     # One fused dispatch ≈ `chunk` bytes of data rows; span size is the
-    # per-volume slice of it, so a full round across the fleet packs
+    # per-volume slice of it, so a full round across the fleet fuses
     # into one dispatch (a single volume degrades to the serial shape).
     batch_rows = max(1, chunk // row_bytes)
     span_rows = max(1, batch_rows // len(alive))
@@ -479,55 +553,36 @@ def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
     pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
                               thread_name_prefix="fleet-read")
     pipe = TaggedPipeline()
-    gen = _round_robin_spans(alive, span_rows)
-    inflight: deque = deque()
+    spans = ((nxt, nxt[2]) for nxt in _round_robin_spans(alive, span_rows))
     root = trace.span("fleet.encode", volumes=len(alive), backend=backend)
     root.__enter__()
     token = root.token()
 
-    def fill() -> None:
-        while len(inflight) < prefetch:
-            nxt = next(gen, None)
-            if nxt is None:
-                break
-            v, row0, rows = nxt
-            inflight.append((v, rows, pool.submit(
-                _read_span_staged, v.base, row0, rows, row_bytes,
-                small_block, token)))
-            # inc/dec deltas so concurrent schedulers SUM on the
-            # shared gauge instead of overwriting each other's depth
-            FleetReaderQueueGauge.inc()
+    def submit_read(item, slot: np.ndarray):
+        v, row0, _ = item
+        return pool.submit(_read_span, v.base, row0, slot, token)
 
-    def flush(pack: List[Tuple[_VolState, int, np.ndarray]]) -> None:
-        with _StageTimer("dispatch", batch=len(pack)):
-            handle = dispatcher.encode([a for _, _, a in pack])
-        FleetDispatchBatchHistogram.observe(len(pack))
+    def flush(items, batch: _Batch) -> None:
+        with _StageTimer("dispatch", batch=len(items)):
+            handle = dispatcher.encode(batch)
+        FleetDispatchBatchHistogram.observe(len(items))
         FleetDispatchedBytesCounter.inc(
-            float(sum(a.nbytes for _, _, a in pack)))
+            float(sum(s.nbytes for s in batch.slots)))
         # data shards need no parity: straight to each volume's lane
-        # (enqueued here, in pack order, so per-volume FIFO holds)
-        for v, _, arr in pack:
+        # (enqueued here, in batch order, so per-volume FIFO holds); the
+        # slot views keep the batch's buffer alive until written
+        for (v, _, _), slot in zip(items, batch.slots):
             pipe.write(v.tag, functools.partial(
-                _write_data_shards, v.base, arr))
+                _write_data_shards, v.base, slot))
         pipe.submit(handle, [
             (v.tag, functools.partial(_write_parity_span, v.base))
-            for v, _, _ in pack])
+            for v, _, _ in items])
 
     try:
-        fill()
-        pack: List[Tuple[_VolState, int, np.ndarray]] = []
-        acc = 0
-        while inflight:
-            v, rows, fut = inflight.popleft()
-            FleetReaderQueueGauge.dec()
-            pack.append((v, rows, fut.result()))
-            acc += rows
-            fill()
-            if acc >= batch_rows or not inflight:
-                flush(pack)
-                pack, acc = [], 0
+        _drive_batches(_grouped(spans, batch_rows), prefetch,
+                       lambda rows: dispatcher.batch(rows, small_block),
+                       submit_read, flush)
     finally:
-        FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
         pool.shutdown(wait=True)
         try:
             pipe.drain()  # may re-raise the latched pipeline error
@@ -585,26 +640,27 @@ def fleet_rebuild_ec_files(base_names: Sequence[str], backend: str = "cuda",
 
 def _write_rebuilt_span(base: str, missing: List[int], valid: int,
                         out: np.ndarray) -> None:
-    """One span's rebuilt shards [len(missing), span] -> append the
+    """One span's rebuilt shards [1, len(missing), span] -> append the
     valid prefix of each row to its .ecNN file."""
     for row, sid in enumerate(missing):
-        _append_rows(base, sid, [out[row, :valid]])
+        _append_rows(base, sid, [out[0, row, :valid]])
 
 
 def _read_present_span(base: str, present: List[int], shard_size: int,
-                       offset: int, span: int,
-                       parent: Optional[int] = None) -> np.ndarray:
-    """[10, span] slice at `offset` of the first 10 present shards,
-    zero-padded past shard end."""
+                       offset: int, dest: np.ndarray,
+                       parent: Optional[int] = None) -> None:
+    """The [10, span] slice at `offset` of the first 10 present shards,
+    read in place into its batch slot `dest` and zeroed past each
+    shard's end (the buffer comes uninitialised)."""
     with _StageTimer("read", parent=parent, vol=os.path.basename(base)):
-        src = np.zeros((DATA_SHARDS, span), dtype=np.uint8)
-        want = min(span, max(shard_size - offset, 0))
-        if want > 0:
-            for row, sid in enumerate(present[:DATA_SHARDS]):
+        want = min(dest.shape[1], max(shard_size - offset, 0))
+        for row, sid in enumerate(present[:DATA_SHARDS]):
+            got = 0
+            if want > 0:
                 with open(shard_file_name(base, sid), "rb") as f:
                     f.seek(offset)
-                    f.readinto(memoryview(src[row])[:want])
-        return src
+                    got = f.readinto(memoryview(dest[row])[:want])
+            dest[row, got:] = 0
 
 
 def _fleet_rebuild_group(present: List[int], missing: List[int],
@@ -614,22 +670,20 @@ def _fleet_rebuild_group(present: List[int], missing: List[int],
         for sid in missing:
             open(shard_file_name(base, sid), "wb").close()
     # Uniform span width so spans from different volumes stack into one
-    # [B, 10, span] dispatch of ~chunk bytes per shard row.
-    span = max(1, chunk // len(members))
-    vols = [(_VolState(base, size, -(-size // span), tag), size)
+    # [B, 10, span] dispatch of ~chunk bytes per shard row, capped at the
+    # largest shard so a lone small volume stages no slab of zeros
+    span = max(1, min(chunk // len(members),
+                      max(size for _, size in members)))
+    vols = [_VolState(base, size, -(-size // span), tag)
             for tag, (base, size) in enumerate(members)]
-
-    def gen_spans():
-        for v, row0, rows in _round_robin_spans([v for v, _ in vols], 1):
-            yield v, row0 * span
+    spans = (((v, row0 * span), 1)
+             for v, row0, _ in _round_robin_spans(vols, 1))
 
     dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
     # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
     pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
                               thread_name_prefix="fleet-read")
     pipe = TaggedPipeline()
-    gen = gen_spans()
-    inflight: deque = deque()
     per_batch = len(members)
     prefetch = max(FLEET_READERS, 2 * per_batch)
     root = trace.span("fleet.rebuild", volumes=len(members),
@@ -637,43 +691,28 @@ def _fleet_rebuild_group(present: List[int], missing: List[int],
     root.__enter__()
     token = root.token()
 
-    def fill() -> None:
-        while len(inflight) < prefetch:
-            nxt = next(gen, None)
-            if nxt is None:
-                break
-            v, offset = nxt
-            inflight.append((v, offset, pool.submit(
-                _read_present_span, v.base, present, v.dat_size,
-                offset, span, token)))
-            FleetReaderQueueGauge.inc()  # delta: concurrent-safe sum
+    def submit_read(item, slot: np.ndarray):
+        v, offset = item
+        return pool.submit(_read_present_span, v.base, present, v.dat_size,
+                           offset, slot[0], token)
 
-    def flush(pack) -> None:
-        with _StageTimer("dispatch", batch=len(pack)):
-            handle = dispatcher.reconstruct(present, missing,
-                                            [a for _, _, a in pack])
-        FleetDispatchBatchHistogram.observe(len(pack))
+    def flush(items, batch: _Batch) -> None:
+        with _StageTimer("dispatch", batch=len(items)):
+            handle = dispatcher.reconstruct(present, missing, batch)
+        FleetDispatchBatchHistogram.observe(len(items))
         FleetDispatchedBytesCounter.inc(
-            float(sum(a.nbytes for _, _, a in pack)))
+            float(sum(s.nbytes for s in batch.slots)))
         pipe.submit(handle, [
             (v.tag, functools.partial(_write_rebuilt_span, v.base,
                                       missing,
                                       min(span, v.dat_size - offset)))
-            for v, offset, _ in pack])
+            for v, offset in items])
 
     try:
-        fill()
-        pack = []
-        while inflight:
-            item = inflight.popleft()
-            FleetReaderQueueGauge.dec()
-            pack.append((item[0], item[1], item[2].result()))
-            fill()
-            if len(pack) >= per_batch or not inflight:
-                flush(pack)
-                pack = []
+        _drive_batches(_grouped(spans, per_batch), prefetch,
+                       lambda rows: dispatcher.batch(rows, span),
+                       submit_read, flush)
     finally:
-        FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
         pool.shutdown(wait=True)
         try:
             pipe.drain()  # may re-raise the latched pipeline error
@@ -759,18 +798,14 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
              parity)
             for tag, (base, size, parity) in enumerate(fleet)]
 
-    def gen_spans():
-        for v, row0, _rows in _round_robin_spans([v for v, _ in vols], 1):
-            yield v, row0 * span
-
+    spans = (((v, row0 * span), 1) for v, row0, _ in
+             _round_robin_spans([v for v, _ in vols], 1))
     parity_by_tag = {v.tag: parity for v, parity in vols}
     dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
     # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
     pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
                               thread_name_prefix="fleet-read")
     pipe = TaggedPipeline()
-    gen = gen_spans()
-    inflight: deque = deque()
     per_batch = len(fleet)
     prefetch = max(FLEET_READERS, 2 * per_batch)
     root = trace.span("fleet.verify", volumes=len(fleet), backend=backend)
@@ -778,21 +813,15 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
     token = root.token()
     data_present = list(range(DATA_SHARDS))
 
-    def fill() -> None:
-        while len(inflight) < prefetch:
-            nxt = next(gen, None)
-            if nxt is None:
-                break
-            v, offset = nxt
-            if throttler is not None:
-                # pace on the read side: one span costs 10 data reads
-                # plus the parity reads the compare will issue
-                throttler.maybe_slowdown(
-                    (DATA_SHARDS + len(parity_by_tag[v.tag])) * span)
-            inflight.append((v, offset, pool.submit(
-                _read_present_span, v.base, data_present, v.dat_size,
-                offset, span, token)))
-            FleetReaderQueueGauge.inc()  # delta: concurrent-safe sum
+    def submit_read(item, slot: np.ndarray):
+        v, offset = item
+        if throttler is not None:
+            # pace on the read side: one span costs 10 data reads
+            # plus the parity reads the compare will issue
+            throttler.maybe_slowdown(
+                (DATA_SHARDS + len(parity_by_tag[v.tag])) * span)
+        return pool.submit(_read_present_span, v.base, data_present,
+                           v.dat_size, offset, slot[0], token)
 
     # parity fds cached per volume for the whole pass: each volume's
     # compares run FIFO on ITS writer lane (single reader per fd), and
@@ -803,10 +832,10 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
     parity_fds: Dict[str, Dict[int, object]] = {}
 
     def compare(v: _VolState, offset: int, out: np.ndarray) -> None:
-        """Runs on v's writer lane: recomputed parity [1, 4, span] (or
-        [4, span] from the host pool) vs the stored parity slices."""
+        """Runs on v's writer lane: recomputed parity [1, 4, span] vs
+        the stored parity slices."""
         with _StageTimer("verify", vol=os.path.basename(v.base)):
-            parity = out[0] if out.ndim == 3 else out
+            parity = out[0]
             valid = min(span, v.dat_size - offset)
             r = results[v.base]
             for sid in parity_by_tag[v.tag]:
@@ -834,34 +863,25 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
             r.bytes_verified += DATA_SHARDS * valid
             r.spans += 1
 
-    def flush(pack) -> None:
-        with _StageTimer("dispatch", batch=len(pack)):
-            handle = dispatcher.encode(
-                [a[np.newaxis] for _, _, a in pack])
-        FleetDispatchBatchHistogram.observe(len(pack))
+    def flush(items, batch: _Batch) -> None:
+        with _StageTimer("dispatch", batch=len(items)):
+            handle = dispatcher.encode(batch)
+        FleetDispatchBatchHistogram.observe(len(items))
         FleetDispatchedBytesCounter.inc(
-            float(sum(a.nbytes for _, _, a in pack)))
+            float(sum(s.nbytes for s in batch.slots)))
         pipe.submit(handle, [
             (v.tag, functools.partial(compare, v, offset))
-            for v, offset, _ in pack])
+            for v, offset in items])
 
     try:
         for v, parity in vols:
             fds = parity_fds[v.base] = {}
             for sid in parity:  # incremental: no fd lost to a partial
                 fds[sid] = open(shard_file_name(v.base, sid), "rb")
-        fill()
-        pack = []
-        while inflight:
-            item = inflight.popleft()
-            FleetReaderQueueGauge.dec()
-            pack.append((item[0], item[1], item[2].result()))
-            fill()
-            if len(pack) >= per_batch or not inflight:
-                flush(pack)
-                pack = []
+        _drive_batches(_grouped(spans, per_batch), prefetch,
+                       lambda rows: dispatcher.batch(rows, span),
+                       submit_read, flush)
     finally:
-        FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
         pool.shutdown(wait=True)
         try:
             pipe.drain()  # may re-raise the latched pipeline error

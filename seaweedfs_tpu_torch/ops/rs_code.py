@@ -20,7 +20,10 @@ buffers), ``codec.pack`` (the copy into one), ``codec.submit`` (queueing
 H2D, kernel, D2H and the event); the host's wait on the event is timed
 by its caller (``fleet.retire``). The copies are counted in
 ``SeaweedFS_codec_h2d_bytes_total`` and
-``SeaweedFS_codec_d2h_bytes_total``.
+``SeaweedFS_codec_d2h_bytes_total``, and the host copies made before an
+H2D (``pack``, and the staging of a pageable input into pinned memory)
+in ``SeaweedFS_codec_host_copy_bytes_total``: a caller that reads
+straight into a ``host_buffer`` makes none.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import torch
 from seaweedfs_tpu_torch.ops import gf256, gf_kernel
 from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.stats.metrics import (CodecD2HBytesCounter,
-                                               CodecH2DBytesCounter)
+                                               CodecH2DBytesCounter,
+                                               CodecHostCopyBytesCounter)
 
 DATA_SHARDS = 10
 PARITY_SHARDS = 4
@@ -46,6 +50,7 @@ BACKENDS = ("cuda", "cpu")
 # resolved once: labels() takes a lock per call
 _H2D_BYTES = CodecH2DBytesCounter.labels()
 _D2H_BYTES = CodecD2HBytesCounter.labels()
+_HOST_COPY_BYTES = CodecHostCopyBytesCounter.labels()
 
 
 def _span(backend: str, name: str):
@@ -157,6 +162,8 @@ class ReedSolomon:
         buf = self.host_buffer((rows,) + parts[0].shape[1:])
         with _span(self.backend, "codec.pack"):
             np.concatenate(parts, axis=0, out=buf.numpy())
+        if self.backend == "cuda":
+            _HOST_COPY_BYTES.inc(buf.numel())
         return buf
 
     # -- matrix helpers ------------------------------------------------------
@@ -203,6 +210,7 @@ class ReedSolomon:
             gm = gf_kernel.prepare_matrix(matrix, self.device)
             if staged is not None:
                 staged.copy_(host)
+                _HOST_COPY_BYTES.inc(host.numel())
                 host = staged
             with torch.cuda.stream(self._stream):
                 dev = host.to(self.device, non_blocking=True)

@@ -309,6 +309,10 @@ CodecD2HBytesCounter = REGISTRY.counter(
     "SeaweedFS_codec_d2h_bytes_total",
     "bytes the cuda codec copied card to host, one output per queued "
     "map (matrix table uploads not counted)")
+CodecHostCopyBytesCounter = REGISTRY.counter(
+    "SeaweedFS_codec_host_copy_bytes_total",
+    "bytes the cuda codec copied on the host before their H2D: pack's "
+    "output and the pinned staging of pageable inputs")
 
 # Unified mesh scheduler families (parallel/mesh_fleet.py): the bucket
 # stream over the cards. `op` is the dispatch kind (encode | verify |

@@ -4,8 +4,10 @@ per-volume encoder.
 
 The port runs ``backend="cpu"`` (the kernel's plain version on the
 "cpu" encode pool) and, through a codec that reports ``"cuda"`` but
-computes on the host, the card's fused path: one packed async dispatch
-per batch. The JAX package runs ``backend="numpy"``. The tolerance is
+computes on the host, the card's fused path: one async dispatch per
+batch, of the buffer its readers filled in place. The JAX package runs
+``backend="numpy"``; the in-place staging is also held to the plain
+numpy codec (``gf256.gf_linear_numpy``). The tolerance is
 exact byte equality, and ``VerifyResult`` fields must be equal. Small
 geometry (LARGE=2048, SMALL=256) keeps volumes a few KB while still
 covering multi-row packing, tail padding, the oversized-volume fallback
@@ -29,8 +31,9 @@ from seaweedfs_tpu.storage.store import Store as JaxStore
 
 from seaweedfs_tpu_torch.ec import encoder, fleet, store_ec
 from seaweedfs_tpu_torch.ec.encoder import shard_file_name
+from seaweedfs_tpu_torch.ops import gf256
 from seaweedfs_tpu_torch.ops.rs_code import (
-    DATA_SHARDS, TOTAL_SHARDS, ReedSolomon)
+    DATA_SHARDS, TOTAL_SHARDS, ReedSolomon, coding_matrix)
 from seaweedfs_tpu_torch.resilience import failpoint
 from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.stats.metrics import FleetDispatchBatchHistogram
@@ -110,8 +113,8 @@ def _base_tensor(arr):
 
 class _CardShapedCodec:
     """Stands in for ``ReedSolomon("cuda")`` on a host without a card: it
-    reports backend "cuda", so the fleet takes its fused async path
-    (``ReedSolomon.pack`` into one host buffer, one async dispatch per
+    reports backend "cuda", so the fleet takes its fused async path (the
+    readers fill one ``host_buffer`` per batch, one async dispatch per
     batch), and computes on the port's CPU codec. It records every
     dispatch and refuses the synchronous calls the card path must not
     make."""
@@ -131,7 +134,7 @@ class _CardShapedCodec:
     pack = ReedSolomon.pack
 
     def _record(self, kind, data, handle):
-        assert isinstance(data, torch.Tensor), "batch was not packed"
+        assert isinstance(data, torch.Tensor), "batch was not staged"
         self.dispatches.append((kind, tuple(data.shape)))
         outer = self
 
@@ -224,8 +227,8 @@ def test_fleet_encode_parity_rows_verify(tmp_path):
 
 @pytest.mark.parametrize("chunk", [3 * ROW, 1 << 20])
 def test_card_path_one_fused_dispatch_per_batch(tmp_path, card_shaped, chunk):
-    """The "cuda" dispatcher packs each batch into one host buffer and
-    issues ONE async encode for it; no host encode pool exists; and the
+    """The "cuda" dispatcher issues ONE async encode for each batch's
+    one host buffer; no host encode pool exists; and the
     per-span outputs the writer lanes hold are views that keep the
     codec's output tensor alive."""
     bases = _make_volumes(tmp_path, SIZES[:5] + [2 * ROW + 9], seed=3)
@@ -466,6 +469,170 @@ def test_fleet_verify_throttled_reads(tmp_path):
                                       throttler=paced)
     assert all(r.clean for r in got.values())
     assert Throttler(0).disabled and Throttler(0).tokens() == float("inf")
+
+
+# --- in-place staging --------------------------------------------------------
+
+# unequal shards (6, 2, 4 and 1 rows of SMALL); the chunks leave a short
+# last batch: encode 13 rows in batches of 4, verify and rebuild ten
+# 384-byte spans (ragged against every shard) in batches of 4
+STAGED = [5 * ROW + 40, 2 * ROW, 3 * ROW + 5, 700]
+STAGED_CHUNK = {"encode": 4 * ROW, "verify": 4 * 384, "rebuild": 4 * 384}
+
+
+def _numpy_shards(base):
+    """A small-row volume's 14 shards from its .dat by the plain numpy
+    codec: rows of 10 x SMALL, zero-padded, parity by gf_linear_numpy."""
+    dat = np.fromfile(base + ".dat", dtype=np.uint8)
+    rows = np.zeros(-(-len(dat) // ROW) * ROW, dtype=np.uint8)
+    rows[:len(dat)] = dat
+    data = rows.reshape(-1, DATA_SHARDS, SMALL).transpose(1, 0, 2) \
+        .reshape(DATA_SHARDS, -1)
+    return np.concatenate(
+        [data, gf256.gf_linear_numpy(coding_matrix()[DATA_SHARDS:], data)])
+
+
+def _shard(base, sid):
+    return np.fromfile(shard_file_name(base, sid), dtype=np.uint8)
+
+
+@pytest.fixture
+def staging(monkeypatch):
+    """Host buffers come back filled with 0xA5, as reused pinned memory
+    does; every slot a reader filled is kept as (base, the shards read
+    or None for the .dat, offset, bytes), and every dispatched batch as (buffer rows, filled rows,
+    slots)."""
+    real_buffer = ReedSolomon.host_buffer
+    monkeypatch.setattr(ReedSolomon, "host_buffer",
+                        lambda self, shape: real_buffer(self, shape)
+                        .fill_(0xA5))
+    got = {"reads": [], "batches": []}
+    real_span, real_present = fleet._read_span, fleet._read_present_span
+    real_dispatch = fleet._Dispatcher._dispatch
+
+    def read_span(base, row0, dest, parent):
+        real_span(base, row0, dest, parent)
+        got["reads"].append((base, None, row0 * ROW,
+                             dest.reshape(-1).copy()))
+
+    def read_present(base, present, shard_size, offset, dest, parent=None):
+        real_present(base, present, shard_size, offset, dest, parent)
+        got["reads"].append((base, present, offset, dest.copy()))
+
+    def dispatch(self, batch, *a):
+        got["batches"].append((batch.buf.shape[0], batch.rows,
+                               len(batch.slots)))
+        return real_dispatch(self, batch, *a)
+
+    monkeypatch.setattr(fleet, "_read_span", read_span)
+    monkeypatch.setattr(fleet, "_read_present_span", read_present)
+    monkeypatch.setattr(fleet._Dispatcher, "_dispatch", dispatch)
+    return got
+
+
+@pytest.mark.parametrize("op", ["encode", "rebuild", "verify"])
+def test_staged_batches_match_numpy_and_jax(tmp_path, staging, op):
+    """Each pass reads straight into its batch's buffer: shards and
+    verdicts equal the JAX package's and the numpy codec's; every slot
+    holds exactly its volume's bytes, zero past the .dat's or shard's
+    end however the buffer came; each buffer is sized to its batch, and
+    the last batch is short."""
+    chunk = STAGED_CHUNK[op]
+    if op == "encode":
+        bases = _make_volumes(tmp_path, STAGED, seed=13)
+        jax_bases = _twins(bases, "jax")
+        _port_encode(bases, chunk=chunk)
+        _jax_encode(jax_bases)
+        _assert_shards_equal(bases, jax_bases)
+        for b in bases:
+            want = _numpy_shards(b)
+            for sid in range(TOTAL_SHARDS):
+                assert np.array_equal(_shard(b, sid), want[sid])
+    else:
+        bases, _ = _encoded(tmp_path, STAGED, seed=13)
+        # the staging fixture also saw set-up's encode: count from here
+        staging["reads"].clear()
+        staging["batches"].clear()
+    if op == "rebuild":
+        for b in bases:
+            for sid in (2, 11):
+                os.remove(shard_file_name(b, sid))
+        jax_bases = _copy_shards(bases, "jax")
+        got = fleet.fleet_rebuild_ec_files(bases, backend="cpu", chunk=chunk)
+        jax_fleet.fleet_rebuild_ec_files(jax_bases, backend="numpy",
+                                         chunk=chunk)
+        assert all(got[b] == [2, 11] for b in bases)
+        _assert_shards_equal(bases, jax_bases)
+        for b in bases:
+            want = _numpy_shards(b)
+            for sid in range(TOTAL_SHARDS):
+                assert np.array_equal(_shard(b, sid), want[sid])
+    if op == "verify":
+        _flip(bases[0] + ".ec12", 1000)
+        _flip(bases[2] + ".ec05", 900)
+        got = fleet.fleet_verify_ec_files(bases, backend="cpu", chunk=chunk)
+        want = jax_fleet.fleet_verify_ec_files(bases, backend="numpy",
+                                               chunk=chunk)
+        assert {b: dataclasses.asdict(r) for b, r in got.items()} == \
+            {b: dataclasses.asdict(r) for b, r in want.items()}
+        for b in bases:
+            disk = np.stack([_shard(b, sid) for sid in range(TOTAL_SHARDS)])
+            parity = gf256.gf_linear_numpy(coding_matrix()[DATA_SHARDS:],
+                                           disk[:DATA_SHARDS])
+            counts, firsts = {}, {}
+            for p in range(parity.shape[0]):
+                diff = np.nonzero(parity[p] != disk[DATA_SHARDS + p])[0]
+                if len(diff):
+                    counts[DATA_SHARDS + p] = len(diff)
+                    firsts[DATA_SHARDS + p] = int(diff[0])
+            assert (got[b].parity_mismatch, got[b].first_mismatch) == \
+                (counts, firsts)
+        assert sorted(got[bases[2]].parity_mismatch) == [10, 11, 12, 13]
+    # every slot: its volume's bytes, then zeros to the slot's end
+    assert staging["reads"]
+    for base, present, offset, slot in staging["reads"]:
+        if present is None:  # an encode's span of the .dat
+            src = [np.fromfile(base + ".dat", dtype=np.uint8)[offset:]]
+            slot = [slot]
+        else:
+            src = [_shard(base, sid)[offset:]
+                   for sid in present[:DATA_SHARDS]]
+        for want, row in zip(src, slot):
+            valid = min(len(want), len(row))
+            assert np.array_equal(row[:valid], want[:valid])
+            assert not row[valid:].any()
+    # one exactly-sized buffer per batch; the last batch is short
+    batches = staging["batches"]
+    assert all(cap == rows for cap, rows, _ in batches)
+    assert sum(n for *_, n in batches) == len(staging["reads"])
+    assert batches[-1][2] < batches[0][2]
+
+
+@pytest.mark.parametrize("path", ["cpu", "card_shaped"])
+def test_one_volume_rebuild_stages_no_wider_than_its_shard(
+        tmp_path, monkeypatch, request, path):
+    """A lone volume's rebuild submits [1, 10, shard size], not a
+    chunk-wide batch of zeros."""
+    bases, originals = _encoded(tmp_path, [3 * ROW + 5], seed=14)
+    shard = os.path.getsize(shard_file_name(bases[0], 0))
+    for sid in (4, 12):
+        os.remove(shard_file_name(bases[0], sid))
+    shapes = []
+    real_submit = ReedSolomon._submit
+
+    def submit(self, matrix, shards):
+        shapes.append(tuple(shards.shape))
+        return real_submit(self, matrix, shards)
+
+    monkeypatch.setattr(ReedSolomon, "_submit", submit)
+    if path == "card_shaped":
+        request.getfixturevalue("card_shaped")
+    chunk = 1 << 20
+    fleet.fleet_rebuild_ec_files(bases, backend="cpu", chunk=chunk)
+    assert shard < chunk and shapes == [(1, DATA_SHARDS, shard)]
+    for sid in (4, 12):
+        assert open(shard_file_name(bases[0], sid), "rb").read() == \
+            originals[(bases[0], sid)]
 
 
 # --- store level --------------------------------------------------------------

@@ -61,6 +61,7 @@ def test_metric_registries_hold_the_same_families():
     # the port's own: the codec's copies and the span ring's drops
     port_only = {"SeaweedFS_codec_h2d_bytes_total",
                  "SeaweedFS_codec_d2h_bytes_total",
+                 "SeaweedFS_codec_host_copy_bytes_total",
                  "SeaweedFS_trace_spans_dropped_total"}
     assert port_only <= set(port) and not port_only & set(jax)
     assert {k: v for k, v in port.items() if k not in port_only} == jax

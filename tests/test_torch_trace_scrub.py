@@ -5,12 +5,15 @@ A traced pass over a small EC fleet with one data flip and one parity
 flip: each needle's ``scrub.sweep.read`` and ``scrub.sweep.crc`` under its
 volume's ``scrub.scan_ec``, ``scrub.localize`` only in the flipped volume,
 a ``scrub.reverify`` after each ``scrub.repair``. With tracing off a whole
-pass makes no ``Span``. The codec's ``codec.*`` spans and its H2D and D2H
-counters exist on the "cuda" path only (the card test checks them there).
+pass makes no ``Span``. The codec's ``codec.*`` spans and its H2D, D2H
+and host-copy counters move on the "cuda" path only (the card test checks
+them there: a fleet pass, which stages its batches in place, makes no
+``codec.pack`` and no host copy).
 Spans carry the OS thread id; ``enable()`` takes the epoch offset
 again; a full ring counts what it drops. The readers under ``ecbench/layers/``
 each against a synthetic layer dict, and a traced ``warm_fleet.scrub``
-run on the CPU path reporting the span metrics and no codec metric.
+run on the CPU path reporting the span metrics, no codec time or H2D
+and D2H metric, and a host copy of 0.
 
 This file imports neither JAX nor the JAX package.
 """
@@ -29,6 +32,7 @@ from seaweedfs_tpu_torch.scrub import ScrubDaemon
 from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.stats.metrics import (CodecD2HBytesCounter,
                                                CodecH2DBytesCounter,
+                                               CodecHostCopyBytesCounter,
                                                TraceSpansDroppedCounter)
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.store import Store
@@ -38,6 +42,7 @@ SCRUB = dict(volumes=3, volume_bytes=1 << 20, chunk_bytes=256 << 10,
 DROPPED = "SeaweedFS_trace_spans_dropped_total"
 H2D = "SeaweedFS_codec_h2d_bytes_total"
 D2H = "SeaweedFS_codec_d2h_bytes_total"
+HOST_COPY = "SeaweedFS_codec_host_copy_bytes_total"
 NEEDLES = 20
 DATA_VID, PARITY_VID = 1, 2
 
@@ -140,6 +145,7 @@ def test_untraced_pass_makes_no_span(tracer, ec_fleet, monkeypatch):
 def test_cpu_codec_copies_nothing_and_stages_no_span(tracer):
     tracer.enable()
     h2d, d2h = _counter(CodecH2DBytesCounter), _counter(CodecD2HBytesCounter)
+    copied = _counter(CodecHostCopyBytesCounter)
     rs = ReedSolomon(backend="cpu")
     data = np.random.default_rng(3).integers(0, 256, (2, 10, 4096),
                                               dtype=np.uint8)
@@ -147,8 +153,8 @@ def test_cpu_codec_copies_nothing_and_stages_no_span(tracer):
     shards = np.concatenate([data, parity], axis=1)
     got = rs.reconstruct_some(list(range(1, 11)), [0], shards[:, 1:11])
     assert np.array_equal(got[:, 0], data[:, 0])
-    assert (_counter(CodecH2DBytesCounter),
-            _counter(CodecD2HBytesCounter)) == (h2d, d2h)
+    assert (_counter(CodecH2DBytesCounter), _counter(CodecD2HBytesCounter),
+            _counter(CodecHostCopyBytesCounter)) == (h2d, d2h, copied)
     assert not [s for s in trace.spans() if s.name.startswith("codec.")]
 
 
@@ -213,6 +219,7 @@ LAYER = {
               ("codec.pack", 1.5), ("codec.submit", 0.25),
               ("fleet.retire", 7.0), ("fleet.dispatch", 3.0)],
     "prom_delta": {H2D: 6.0 * (1 << 30), D2H: 2.0 * (1 << 30),
+                   HOST_COPY: 0.125 * (1 << 30),
                    "SeaweedFS_scrub_pass_seconds_count": 5.0,
                    DROPPED: 0.0},
 }
@@ -223,6 +230,8 @@ READERS = [
     ("scrub_repair_s_per_pass", 9.0 / 5, ("spans", "scrub.reverify")),
     ("codec_host_s_per_gib", 0.5, ("spans", "codec.")),
     ("codec_copy_bytes_per_byte", 2.0, ("prom_delta", "SeaweedFS_codec_")),
+    ("codec_host_copy_bytes_per_byte", 0.125 / 4,
+     ("prom_delta", HOST_COPY)),
 ]
 
 
@@ -258,6 +267,15 @@ def test_repair_reader_needs_passes():
         pytest.approx(8.5 / 5, rel=1e-12)
 
 
+def test_host_copy_reader_reads_zero_when_nothing_was_copied():
+    """The counter is there and did not grow: 0, not nothing."""
+    reader = run.load_reader("codec_host_copy_bytes_per_byte")
+    layer = dict(LAYER, prom_delta=dict(LAYER["prom_delta"],
+                                        **{HOST_COPY: 0.0}))
+    assert reader.read(layer) == 0.0
+    assert reader.read(dict(layer, bytes_scrubbed=0)) is None
+
+
 def test_traced_scrub_cell_reads_span_metrics_on_the_cpu(tracer):
     env = dict(os.environ)
     try:
@@ -271,6 +289,8 @@ def test_traced_scrub_cell_reads_span_metrics_on_the_cpu(tracer):
     assert {"sweep_read_s_per_gib", "sweep_crc_s_per_gib",
             "scrub_repair_s_per_pass"} <= got
     assert not {"codec_host_s_per_gib", "codec_copy_bytes_per_byte"} & got
+    # the "cpu" codec stages nothing: its host-copy counter never grows
+    assert res["metrics"]["codec_host_copy_bytes_per_byte"]["value"] == 0.0
     assert all(res["metrics"][m]["value"] > 0 for m in
                ("sweep_read_s_per_gib", "sweep_crc_s_per_gib",
                 "scrub_repair_s_per_pass"))
@@ -285,19 +305,25 @@ def test_card_codec_spans_nest_under_the_fleet_and_count_copies(tracer,
         pytest.skip("needs a CUDA device")
     bases = [ec_fleet.find_ec_volume(vid).base_name for vid in (1, 2, 3)]
     h2d, d2h = _counter(CodecH2DBytesCounter), _counter(CodecD2HBytesCounter)
+    copied = _counter(CodecHostCopyBytesCounter)
     tracer.enable()
     fleet.fleet_verify_ec_files(bases, backend="cuda")
     torch.cuda.synchronize()
     spans = trace.spans()
     by_id = {s.id: s for s in spans}
     dispatches = [s for s in spans if s.name == "fleet.dispatch"]
-    packed = sum(s.tags["batch"] for s in dispatches)
-    assert packed >= len(bases)
-    for name, parent in (("codec.alloc", "fleet.dispatch"),
-                         ("codec.pack", "fleet.dispatch"),
-                         ("codec.submit", "fleet.dispatch")):
+    staged = sum(s.tags["batch"] for s in dispatches)
+    assert staged >= len(bases)
+    # the readers fill the pinned batch in place: nothing is packed, and
+    # nothing is copied on the host before the H2D
+    assert not [s for s in spans if s.name == "codec.pack"]
+    assert _counter(CodecHostCopyBytesCounter) == copied
+    # the batch's buffer is taken on the pass thread, under a fleet.*
+    # span (the pass's root), the output's under fleet.dispatch
+    for name, parents in (("codec.alloc", ("fleet.",)),
+                          ("codec.submit", ("fleet.dispatch",))):
         mine = [s for s in spans if s.name == name]
-        assert mine and all(by_id[s.parent_id].name == parent
+        assert mine and all(by_id[s.parent_id].name.startswith(parents)
                             for s in mine), name
         assert all(s.tid == by_id[s.parent_id].tid for s in mine)
     in_bytes = _counter(CodecH2DBytesCounter) - h2d
