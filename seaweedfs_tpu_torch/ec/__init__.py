@@ -2,9 +2,9 @@
 
 Disk layout (the same as ``seaweedfs_tpu.ec`` and the reference
 weed/storage/erasure_coding): ``.ec00``-``.ec13`` shard files, the
-key-sorted ``.ecx`` index and the ``.ecj`` delete journal. One volume at
-a time goes through ``encoder``; many volumes at once, fused into shared
-dispatches, through ``fleet``.
+key-sorted ``.ecx`` index and the ``.ecj`` delete journal. ``encoder``
+keeps the file formats; encode, rebuild and verify of one volume or many,
+fused into shared dispatches, run in ``fleet``.
 """
 
 from seaweedfs_tpu_torch.ec.ec_volume import EcShardNotFound, EcVolume  # noqa: F401

@@ -1,28 +1,21 @@
-"""EC encode / rebuild / decode over volume files.
+"""EC file formats: shard names, block geometry, .ecx/.ecj and the
+decode of shards back into a .dat.
 
 The same files, byte for byte, as ``seaweedfs_tpu.ec.encoder`` and the
 reference weed/storage/erasure_coding/ec_encoder.go + ec_decoder.go.
-
-Each 10-block row is encoded as a ``[10, chunk]`` (large rows) or
-``[rows, 10, small]`` (small rows) uint8 slab and parity comes from one
-GF(2^8) linear map (``ops.rs_code``), on the card one kernel launch per
-slab. Slabs are read from disk straight into pinned host buffers
-(``ReedSolomon.host_buffer``), so the copy to the card is a true async
-DMA, and a depth-2 pipeline overlaps the card's work on slab i with the
-disk IO of slabs i-1 and i+1. Data shards never pass through the codec:
-the code is systematic, so they are padded copies of .dat slices.
+The parity itself comes from the fleet (``ec/fleet.py``), the one engine
+of the port's EC batch work: ``write_ec_files`` and ``rebuild_ec_files``
+run one volume through it.
 """
 
 from __future__ import annotations
 
 import os
-from collections import deque
-from typing import Deque, List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 
-from seaweedfs_tpu_torch.ops.rs_code import (
-    DATA_SHARDS, TOTAL_SHARDS, ReedSolomon)
+from seaweedfs_tpu_torch.ops.rs_code import DATA_SHARDS
 from seaweedfs_tpu_torch.storage import idx as idx_codec
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.needle import actual_size
@@ -48,36 +41,11 @@ def write_ec_files(base_name: str, backend: str = "cuda",
                    large_block: int = LARGE_BLOCK_SIZE,
                    small_block: int = SMALL_BLOCK_SIZE,
                    chunk: Optional[int] = None) -> None:
-    """Generate .ec00-.ec13 from <base>.dat.
-
-    Rows are consumed exactly like the reference encoder
-    (ec_encoder.go:194-231): large rows while MORE than 10*large_block
-    remains, then zero-padded small rows.
-    """
-    if chunk is None:
-        chunk = default_chunk_for(backend)
-    rs = ReedSolomon(backend=backend)
-    dat_size = os.path.getsize(base_name + ".dat")
-    outputs = [open(shard_file_name(base_name, i), "wb")
-               for i in range(TOTAL_SHARDS)]
-    pipe = _EncodePipeline()
-    try:
-        with open(base_name + ".dat", "rb") as dat:
-            remaining = dat_size
-            processed = 0
-            while remaining > large_block * DATA_SHARDS:
-                _encode_large_row(rs, dat, processed, large_block, outputs,
-                                  chunk, pipe)
-                remaining -= large_block * DATA_SHARDS
-                processed += large_block * DATA_SHARDS
-            if remaining > 0:
-                n_rows = -(-remaining // (small_block * DATA_SHARDS))
-                _encode_small_rows(rs, dat, processed, small_block, n_rows,
-                                   outputs, chunk, pipe)
-        pipe.drain()
-    finally:
-        for f in outputs:
-            f.close()
+    """Generate .ec00-.ec13 from <base>.dat: a fleet of one volume."""
+    from seaweedfs_tpu_torch.ec import fleet
+    fleet.fleet_write_ec_files([base_name], backend=backend,
+                               large_block=large_block,
+                               small_block=small_block, chunk=chunk)
 
 
 def _read_padded(f, offset: int, buf: np.ndarray) -> None:
@@ -89,83 +57,6 @@ def _read_padded(f, offset: int, buf: np.ndarray) -> None:
     got = f.readinto(memoryview(buf))
     if got < len(buf):
         buf[got:] = 0
-
-
-# Encode dispatches in flight at once. Depth 2 is double buffering: while
-# the card computes parity for slab i, the host writes slab i-1's shards
-# and reads slab i+1 from disk.
-PIPELINE_DEPTH = 2
-
-
-class _EncodePipeline:
-    """Bounded in-flight queue of (pending result, writeback)."""
-
-    def __init__(self, depth: int = PIPELINE_DEPTH):
-        self._inflight: Deque[Tuple] = deque()
-        self._depth = max(1, depth)
-
-    def submit(self, handle, writeback) -> None:
-        self._inflight.append((handle, writeback))
-        while len(self._inflight) >= self._depth:
-            self._retire_one()
-
-    def _retire_one(self) -> None:
-        handle, writeback = self._inflight.popleft()
-        writeback(handle.result())
-
-    def drain(self) -> None:
-        while self._inflight:
-            self._retire_one()
-
-
-def _encode_large_row(rs: ReedSolomon, dat, row_offset: int, block_size: int,
-                      outputs: List, chunk: int,
-                      pipe: _EncodePipeline) -> None:
-    """One large row: shard i gets dat[row_offset + i*block : +block]
-    (padded); parity comes chunk by chunk so a 1GB row never needs 10GB
-    resident."""
-    for c in range(0, block_size, chunk):
-        clen = min(chunk, block_size - c)
-        staged = rs.host_buffer((DATA_SHARDS, clen))
-        data = staged.numpy()
-        for i in range(DATA_SHARDS):
-            _read_padded(dat, row_offset + i * block_size + c, data[i])
-        handle = rs.encode_async(staged)
-        for i in range(DATA_SHARDS):
-            outputs[i].write(data[i])
-
-        def write_parity(parity, outputs=outputs):
-            for p in range(parity.shape[0]):
-                outputs[DATA_SHARDS + p].write(parity[p])
-
-        pipe.submit(handle, write_parity)
-
-
-def _encode_small_rows(rs: ReedSolomon, dat, start_offset: int,
-                       small_block: int, n_rows: int, outputs: List,
-                       chunk: int, pipe: _EncodePipeline) -> None:
-    """Tail small rows, batched: consecutive rows are contiguous in the
-    .dat, so a span of B rows is a ``[B, 10, small]`` view and parity for
-    all of them is one codec call (the kernel takes the batch dimension
-    as it is, no transpose)."""
-    row_bytes = small_block * DATA_SHARDS
-    rows_per_batch = max(1, chunk // row_bytes)
-    for r0 in range(0, n_rows, rows_per_batch):
-        rows = min(rows_per_batch, n_rows - r0)
-        staged = rs.host_buffer((rows * row_bytes,))
-        _read_padded(dat, start_offset + r0 * row_bytes, staged.numpy())
-        staged = staged.view(rows, DATA_SHARDS, small_block)
-        data = staged.numpy()
-        handle = rs.encode_async(staged)
-        for i in range(DATA_SHARDS):
-            outputs[i].write(np.ascontiguousarray(data[:, i, :]))
-
-        def write_parity(parity, outputs=outputs):
-            for p in range(parity.shape[1]):
-                outputs[DATA_SHARDS + p].write(
-                    np.ascontiguousarray(parity[:, p, :]))
-
-        pipe.submit(handle, write_parity)
 
 
 def write_sorted_file_from_idx(base_name: str, ext: str = ".ecx") -> None:
@@ -184,50 +75,13 @@ def write_sorted_file_from_idx(base_name: str, ext: str = ".ecx") -> None:
 def rebuild_ec_files(base_name: str, backend: str = "cuda",
                      chunk: Optional[int] = None,
                      wanted: Optional[List[int]] = None) -> List[int]:
-    """Regenerate missing .ecNN from >=10 present ones.
-
-    ``wanted`` restricts which missing shards get rebuilt (decode to a
-    volume needs only the data shards). Returns the generated shard ids
-    (reference generateMissingEcFiles, ec_encoder.go:88-118).
-    """
-    if chunk is None:
-        chunk = default_chunk_for(backend)
-    present = [i for i in range(TOTAL_SHARDS)
-               if os.path.exists(shard_file_name(base_name, i))]
-    missing = [i for i in (range(TOTAL_SHARDS) if wanted is None else wanted)
-               if i not in present]
-    if not missing:
-        return []
-    if len(present) < DATA_SHARDS:
-        raise ValueError(
-            f"cannot rebuild: only {len(present)} shards present")
-    rs = ReedSolomon(backend=backend)
-    sources = present[:DATA_SHARDS]
-    shard_size = os.path.getsize(shard_file_name(base_name, sources[0]))
-    ins = {i: open(shard_file_name(base_name, i), "rb") for i in sources}
-    outs = {i: open(shard_file_name(base_name, i), "wb") for i in missing}
-    pipe = _EncodePipeline()
-    try:
-        for c in range(0, shard_size, chunk):
-            clen = min(chunk, shard_size - c)
-            staged = rs.host_buffer((DATA_SHARDS, clen))
-            src = staged.numpy()
-            for row, i in enumerate(sources):
-                _read_padded(ins[i], c, src[row])
-            handle = rs.reconstruct_some_async(sources, missing, staged)
-
-            def write_rebuilt(out, outs=outs):
-                for row, i in enumerate(missing):
-                    outs[i].write(out[row])
-
-            pipe.submit(handle, write_rebuilt)
-        pipe.drain()
-    finally:
-        for f in ins.values():
-            f.close()
-        for f in outs.values():
-            f.close()
-    return missing
+    """Regenerate missing .ecNN from >=10 present ones, a fleet of one
+    volume (``fleet.fleet_rebuild_ec_files``). Returns the generated
+    shard ids."""
+    from seaweedfs_tpu_torch.ec import fleet
+    return fleet.fleet_rebuild_ec_files([base_name], backend=backend,
+                                        chunk=chunk,
+                                        wanted=wanted)[base_name]
 
 
 # --- decode back to a volume ------------------------------------------------

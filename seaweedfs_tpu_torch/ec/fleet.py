@@ -1,13 +1,12 @@
-"""Cross-volume batched EC scheduler: the fleet encoder, rebuild and verify.
+"""Cross-volume batched EC scheduler: the port's one engine for encode,
+rebuild and verify.
 
 The counterpart of ``seaweedfs_tpu.ec.fleet``, byte for byte the same
-shard files. ``ec/encoder.py`` encodes ONE volume at a time: every chunk
-is its own RS dispatch and one thread reads for the codec, so a fleet of
-volumes serializes on dispatch latency and on that thread's disk reads.
-This module lifts the batch dimension from rows-within-a-volume to
-chunks-ACROSS-volumes:
+shard files. A single volume is a fleet of one (``encoder.write_ec_files``
+and ``encoder.rebuild_ec_files`` call this module). The batch dimension
+runs over chunks ACROSS volumes:
 
-  stage     same-sized row-spans from many volumes fuse into one
+  stage     same-sized spans from many volumes fuse into one
             [B, 10, span] dispatch: each batch is ONE host buffer
             (``ReedSolomon.host_buffer``, pinned on "cuda"), and each
             reader fills its span's slot of it straight from disk, so
@@ -24,8 +23,9 @@ chunks-ACROSS-volumes:
             volume's writes to that volume's writer LANE (per-volume
             FIFO, parallel across volumes).
 
-Volumes that need large-row striping (> 10 * large_block bytes) fall
-back to the per-volume ``write_ec_files`` path.
+A volume over 10 * large_block bytes is encoded as the reference stripes
+it: first its large rows, each cut into [10, min(chunk, large_block)]
+spans of the ten strided .dat blocks, then its small-row tail.
 """
 
 from __future__ import annotations
@@ -70,9 +70,10 @@ def mesh_fleet_or_none():
 # in flight without degrading each stream to fully random IO.
 FLEET_READERS = 4
 
-# Fused dispatches in flight at once — the writer-queue bound, same
-# double-buffering role as encoder.PIPELINE_DEPTH. Peak host memory is
-# ~(depth + 2) fused batches (queued + filling + retiring).
+# Fused dispatches in flight at once — the writer-queue bound: double
+# buffering, the card computes one batch while the host reads the next
+# and writes the last. Peak host memory is ~(depth + 2) fused batches
+# (queued + filling + retiring).
 FLEET_DEPTH = 2
 
 # Encode pool of the "cpu" backend: torch releases the GIL, so two
@@ -132,8 +133,7 @@ class TaggedPipeline:
     fan out to per-volume writer lanes.
 
     One retire thread awaits dispatch handles strictly in submission
-    order — the deque discipline of `encoder._EncodePipeline` — and
-    routes each tagged span's parity write to `tag % lanes`. All of a
+    order and routes each tagged span's parity write to `tag % lanes`. All of a
     volume's writes carry the volume's tag, so they land on ONE lane in
     enqueue order (per-volume FIFO by construction) while different
     volumes' writes proceed in parallel. Data-shard writes (`write`)
@@ -380,24 +380,28 @@ class _SplitHandle:
 
 
 class _VolState:
-    __slots__ = ("base", "dat_size", "n_rows", "tag")
+    __slots__ = ("base", "dat_size", "n_rows", "tag", "start")
 
-    def __init__(self, base: str, dat_size: int, n_rows: int, tag: int = 0):
+    def __init__(self, base: str, dat_size: int, n_rows: int, tag: int = 0,
+                 start: int = 0):
         self.base = base
         self.dat_size = dat_size
         self.n_rows = n_rows
         self.tag = tag  # writer-lane key: all this volume's writes
         #                 share it, so they stay FIFO on one lane
+        self.start = start  # .dat offset of the first row of n_rows
 
 
-def _append_rows(base: str, shard_id: int,
-                 rows: Sequence[np.ndarray]) -> None:
-    """Append C-contiguous row slices to one shard file: the slices go
-    straight to the (buffered) file object — no ascontiguousarray /
-    tobytes staging copies on the write path."""
-    with open(shard_file_name(base, shard_id), "ab") as f:
-        for r in rows:
-            f.write(r)
+def _append_rows(base: str, shard_ids: Sequence[int], valid: int,
+                 arr: np.ndarray) -> None:
+    """Append ``arr[r, row, :valid]`` for every span row r to shard
+    ``shard_ids[row]``: the slices go straight to the (buffered) file
+    object — no ascontiguousarray / tobytes staging copies on the write
+    path."""
+    for row, sid in enumerate(shard_ids):
+        with open(shard_file_name(base, sid), "ab") as f:
+            for r in range(arr.shape[0]):
+                f.write(arr[r, row, :valid])
 
 
 def _round_robin_spans(vols: List[_VolState], span_rows: int):
@@ -413,6 +417,14 @@ def _round_robin_spans(vols: List[_VolState], span_rows: int):
             if row0 + rows < v.n_rows:
                 nxt.append((v, row0 + rows))
         pending = nxt
+
+
+def _shard_spans(vols: List[_VolState], span: int):
+    """((vol, offset, valid), 1) for every `span`-wide slice of each
+    volume's shards, round-robin: a span is one row of its batch, and
+    `valid` of its bytes lie before the shard's end."""
+    return (((v, row0 * span, min(span, v.dat_size - row0 * span)), 1)
+            for v, row0, _ in _round_robin_spans(vols, 1))
 
 
 def _grouped(spans, batch_rows: int):
@@ -476,29 +488,111 @@ def _drive_batches(groups, prefetch: int, new_batch: Callable[[int], _Batch],
         FleetReaderQueueGauge.dec(len(inflight))  # error path leftovers
 
 
-def _read_span(base: str, row0: int, dest: np.ndarray,
+class _Pass:
+    """One fleet pass's scaffold, set up here and torn down on exit: the
+    dispatcher on its codec, the reader pool, the tagged pipeline, and
+    the ``fleet.<op>`` root span whose token parents the readers. Files
+    handed to ``closing`` are closed in the same teardown. ``drive``
+    runs one stream of same-width spans through it."""
+
+    def __init__(self, op: str, backend: str, device, volumes: int):
+        self.dispatcher = _Dispatcher(ReedSolomon(backend=backend,
+                                                  device=device))
+        # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
+        self._pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
+                                        thread_name_prefix="fleet-read")
+        # a volume's writes all take one lane: more lanes than volumes
+        # would start writer threads that never write
+        self._pipe = TaggedPipeline(writers=min(FLEET_WRITERS, volumes))
+        self._root = trace.span("fleet." + op, volumes=volumes,
+                                backend=backend)
+        self._files: List = []
+        self._token: Optional[int] = None
+
+    def __enter__(self) -> "_Pass":
+        self._root.__enter__()
+        self._token = self._root.token()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._pool.shutdown(wait=True)
+        try:
+            self._pipe.drain()  # may re-raise the latched pipeline error
+        finally:
+            self.dispatcher.close()
+            for f in self._files:
+                f.close()
+            self._root.__exit__(None, None, None)
+        return False
+
+    def closing(self, f):
+        """`f`, closed when the pass ends, whatever fails."""
+        self._files.append(f)
+        return f
+
+    def read(self, fn: Callable, *args):
+        """Queue ``fn(*args, parent)`` on the reader pool, parented to
+        the pass's root span; returns its future."""
+        return self._pool.submit(fn, *args, self._token)
+
+    def drive(self, spans, batch_rows: int, width: int, read: Callable,
+              retire: Callable, dispatch: Optional[Callable] = None,
+              stage: Optional[Callable] = None, span_rows: int = 1) -> None:
+        """Run `spans`, ((vol, ...), rows) items, through
+        ``_drive_batches`` in [batch_rows, 10, width] batches.
+        ``read(item, slot)`` queues a span's read and returns its future;
+        ``dispatch(batch)`` (default: encode) issues a filled batch;
+        ``retire(item, out)`` runs on the volume's writer lane with the
+        span's output, and ``stage(item, slot)``, if given, on the same
+        lane with its input, before the dispatch retires."""
+        dispatch = dispatch or self.dispatcher.encode
+
+        def flush(items, batch: _Batch) -> None:
+            with _StageTimer("dispatch", batch=len(items)):
+                handle = dispatch(batch)
+            FleetDispatchBatchHistogram.observe(len(items))
+            FleetDispatchedBytesCounter.inc(
+                float(sum(s.nbytes for s in batch.slots)))
+            if stage is not None:
+                # enqueued here, in batch order, so per-volume FIFO
+                # holds; the slot views keep the batch's buffer alive
+                # until written
+                for item, slot in zip(items, batch.slots):
+                    self._pipe.write(item[0].tag,
+                                     functools.partial(stage, item, slot))
+            self._pipe.submit(handle, [
+                (item[0].tag, functools.partial(retire, item))
+                for item in items])
+
+        spans_per_batch = -(-batch_rows // span_rows)
+        _drive_batches(_grouped(spans, batch_rows),
+                       max(FLEET_READERS, 2 * spans_per_batch),
+                       lambda rows: self.dispatcher.batch(rows, width),
+                       read, flush)
+
+
+def _read_span(base: str, offset: int, dest: np.ndarray,
                parent: Optional[int]) -> None:
-    """Rows [row0, row0 + len(dest)) of one volume, read in place into
-    its batch slot `dest` [rows, 10, small] and zero-padded past EOF:
-    one sequential read per span (``encoder._read_padded`` zeroes the
-    tail). Runs on a reader-pool thread, attributed to the 'read' stage
-    and parented to the scheduler's root span."""
+    """Small rows of one volume's .dat from byte `offset`, read in place
+    into its batch slot `dest` [rows, 10, small] and zero-padded past
+    EOF: one sequential read per span (``encoder._read_padded`` zeroes
+    the tail). Runs on a reader-pool thread, attributed to the 'read'
+    stage and parented to the scheduler's root span."""
     with _StageTimer("read", parent=parent, vol=os.path.basename(base)):
         with open(base + ".dat", "rb") as f:
-            _encoder._read_padded(f, row0 * dest[0].nbytes,
-                                  dest.reshape(-1))
+            _encoder._read_padded(f, offset, dest.reshape(-1))
 
 
-def _write_data_shards(base: str, arr: np.ndarray) -> None:
-    for i in range(DATA_SHARDS):
-        _append_rows(base, i, [arr[r, i] for r in range(arr.shape[0])])
-
-
-def _write_parity_span(base: str, seg: np.ndarray) -> None:
-    """One span's parity [rows, 4, small] -> append to .ec10-.ec13."""
-    for p in range(seg.shape[1]):
-        _append_rows(base, DATA_SHARDS + p,
-                     [seg[r, p] for r in range(seg.shape[0])])
+def _read_large_span(base: str, offset: int, stride: int, valid: int,
+                     dest: np.ndarray, parent: Optional[int]) -> None:
+    """One span of a large row, read in place into its batch slot `dest`
+    [10, width]: row i holds the `valid` bytes of the .dat at
+    ``offset + i * stride``, then zeros."""
+    with _StageTimer("read", parent=parent, vol=os.path.basename(base)):
+        with open(base + ".dat", "rb") as f:
+            for i in range(DATA_SHARDS):
+                _encoder._read_padded(f, offset + i * stride, dest[i, :valid])
+        dest[:, valid:] = 0
 
 
 def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
@@ -509,86 +603,65 @@ def fleet_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
     """Generate .ec00-.ec13 for MANY volumes, fusing chunks across
     volumes into shared RS dispatches.
 
-    Byte-identical to running `write_ec_files` per volume: small-row
-    volumes ride the fused scheduler; oversized ones (large-row
-    striping) fall back to the per-volume path. One fused dispatch is
-    about `chunk` bytes of data rows (64 MiB on "cuda"). `device` binds
-    the fused dispatches to one card (default: the current one).
+    Rows are consumed exactly like the reference encoder
+    (ec_encoder.go:194-231): large rows while MORE than 10*large_block
+    remains, then zero-padded small rows. A large row goes to the card
+    as [1, 10, min(chunk, large_block)] spans; small rows fuse across
+    volumes, about `chunk` bytes of them per dispatch (64 MiB on
+    "cuda"). `device` binds the fused dispatches to one card (default:
+    the current one).
     """
     if chunk is None:
         chunk = default_chunk_for(backend)
-    fleet: List[str] = []
-    for base in base_names:
-        if os.path.getsize(base + ".dat") > DATA_SHARDS * large_block:
-            _encoder.write_ec_files(base, backend=backend,
-                                    large_block=large_block,
-                                    small_block=small_block, chunk=chunk)
-        else:
-            fleet.append(base)
-    if not fleet:
-        return
     row_bytes = DATA_SHARDS * small_block
+    stripe = DATA_SHARDS * large_block
     vols = []
     # creating/truncating 14 output files per volume is write-side IO,
     # so it carries the write stage's span/metric attribution
-    with _StageTimer("write", setup=len(fleet)):
-        for tag, base in enumerate(fleet):
+    with _StageTimer("write", setup=len(base_names)):
+        for tag, base in enumerate(base_names):
             size = os.path.getsize(base + ".dat")
-            vols.append(_VolState(base, size, -(-size // row_bytes), tag))
+            start = max(0, (size - 1) // stripe) * stripe  # large rows
+            vols.append(_VolState(base, size, -(-(size - start) // row_bytes),
+                                  tag, start))
             for i in range(TOTAL_SHARDS):  # create/truncate all 14 outputs
                 open(shard_file_name(base, i), "wb").close()
     alive = [v for v in vols if v.n_rows > 0]
     if not alive:
         return  # all empty: 14 empty shard files each, same as serial
-    # One fused dispatch ≈ `chunk` bytes of data rows; span size is the
+    # One fused dispatch ≈ `chunk` bytes of small rows; span size is the
     # per-volume slice of it, so a full round across the fleet fuses
-    # into one dispatch (a single volume degrades to the serial shape).
+    # into one dispatch (a single volume gets the whole chunk).
     batch_rows = max(1, chunk // row_bytes)
     span_rows = max(1, batch_rows // len(alive))
-    spans_per_batch = -(-batch_rows // span_rows)
-    prefetch = max(FLEET_READERS, 2 * spans_per_batch)
+    width = min(chunk, large_block)
+    large = (((v, r * stripe + c, min(width, large_block - c)), 1)
+             for v in alive for r in range(v.start // stripe)
+             for c in range(0, large_block, width))
+    small = (((v, v.start + row0 * row_bytes, small_block), rows)
+             for v, row0, rows in _round_robin_spans(alive, span_rows))
 
-    dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
-    # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
-    pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
-                              thread_name_prefix="fleet-read")
-    pipe = TaggedPipeline()
-    spans = ((nxt, nxt[2]) for nxt in _round_robin_spans(alive, span_rows))
-    root = trace.span("fleet.encode", volumes=len(alive), backend=backend)
-    root.__enter__()
-    token = root.token()
+    def stage(item, slot: np.ndarray) -> None:
+        # data shards need no parity: they go to the lane at dispatch
+        _append_rows(item[0].base, range(DATA_SHARDS), item[2], slot)
 
-    def submit_read(item, slot: np.ndarray):
-        v, row0, _ = item
-        return pool.submit(_read_span, v.base, row0, slot, token)
+    def retire(item, out: np.ndarray) -> None:
+        _append_rows(item[0].base, range(DATA_SHARDS, TOTAL_SHARDS),
+                     item[2], out)
 
-    def flush(items, batch: _Batch) -> None:
-        with _StageTimer("dispatch", batch=len(items)):
-            handle = dispatcher.encode(batch)
-        FleetDispatchBatchHistogram.observe(len(items))
-        FleetDispatchedBytesCounter.inc(
-            float(sum(s.nbytes for s in batch.slots)))
-        # data shards need no parity: straight to each volume's lane
-        # (enqueued here, in batch order, so per-volume FIFO holds); the
-        # slot views keep the batch's buffer alive until written
-        for (v, _, _), slot in zip(items, batch.slots):
-            pipe.write(v.tag, functools.partial(
-                _write_data_shards, v.base, slot))
-        pipe.submit(handle, [
-            (v.tag, functools.partial(_write_parity_span, v.base))
-            for v, _, _ in items])
-
-    try:
-        _drive_batches(_grouped(spans, batch_rows), prefetch,
-                       lambda rows: dispatcher.batch(rows, small_block),
-                       submit_read, flush)
-    finally:
-        pool.shutdown(wait=True)
-        try:
-            pipe.drain()  # may re-raise the latched pipeline error
-        finally:
-            dispatcher.close()
-            root.__exit__(None, None, None)
+    with _Pass("encode", backend, device, len(alive)) as p:
+        # every large span of a volume is queued before its small rows,
+        # and each lane is FIFO, so each shard file gets its large-row
+        # bytes first
+        p.drive(large, 1, width,
+                lambda item, slot: p.read(
+                    _read_large_span, item[0].base, item[1], large_block,
+                    item[2], slot[0]),
+                retire, stage=stage)
+        p.drive(small, batch_rows, small_block,
+                lambda item, slot: p.read(
+                    _read_span, item[0].base, item[1], slot),
+                retire, stage=stage, span_rows=span_rows)
 
 
 # --- fleet rebuild -----------------------------------------------------------
@@ -597,15 +670,16 @@ def fleet_rebuild_ec_files(base_names: Sequence[str], backend: str = "cuda",
                            chunk: Optional[int] = None,
                            wanted: Optional[List[int]] = None,
                            device=None) -> Dict[str, List[int]]:
-    """Cross-volume batched `rebuild_ec_files`.
+    """Regenerate missing .ecNN from >=10 present ones, for MANY volumes.
 
-    Volumes sharing a (present, missing) signature share one decode
-    matrix, so their shard chunks fuse into single [B, 10, span]
-    reconstruct dispatches — the rebuild-side twin of
-    `fleet_write_ec_files`. Tail spans are zero-padded to the bucket
-    width (GF maps send 0 to 0) and trimmed on writeback. Returns
-    {base_name: rebuilt shard ids} (empty list where nothing was
-    missing).
+    ``wanted`` restricts which missing shards get rebuilt (decode to a
+    volume needs only the data shards; reference generateMissingEcFiles,
+    ec_encoder.go:88-118). Volumes sharing a (present, missing)
+    signature share one decode matrix, so their shard chunks fuse into
+    single [B, 10, span] reconstruct dispatches. Tail spans are
+    zero-padded to the bucket width (GF maps send 0 to 0) and trimmed on
+    writeback. Returns {base_name: rebuilt shard ids} (empty list where
+    nothing was missing).
 
     `chunk` is per shard ROW here: one fused batch is [B, 10, span]
     with B * span ~= chunk, so 10 * chunk bytes of sources (640 MiB of
@@ -638,14 +712,6 @@ def fleet_rebuild_ec_files(base_names: Sequence[str], backend: str = "cuda",
     return rebuilt
 
 
-def _write_rebuilt_span(base: str, missing: List[int], valid: int,
-                        out: np.ndarray) -> None:
-    """One span's rebuilt shards [1, len(missing), span] -> append the
-    valid prefix of each row to its .ecNN file."""
-    for row, sid in enumerate(missing):
-        _append_rows(base, sid, [out[0, row, :valid]])
-
-
 def _read_present_span(base: str, present: List[int], shard_size: int,
                        offset: int, dest: np.ndarray,
                        parent: Optional[int] = None) -> None:
@@ -676,49 +742,15 @@ def _fleet_rebuild_group(present: List[int], missing: List[int],
                       max(size for _, size in members)))
     vols = [_VolState(base, size, -(-size // span), tag)
             for tag, (base, size) in enumerate(members)]
-    spans = (((v, row0 * span), 1)
-             for v, row0, _ in _round_robin_spans(vols, 1))
-
-    dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
-    # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
-    pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
-                              thread_name_prefix="fleet-read")
-    pipe = TaggedPipeline()
-    per_batch = len(members)
-    prefetch = max(FLEET_READERS, 2 * per_batch)
-    root = trace.span("fleet.rebuild", volumes=len(members),
-                      backend=backend)
-    root.__enter__()
-    token = root.token()
-
-    def submit_read(item, slot: np.ndarray):
-        v, offset = item
-        return pool.submit(_read_present_span, v.base, present, v.dat_size,
-                           offset, slot[0], token)
-
-    def flush(items, batch: _Batch) -> None:
-        with _StageTimer("dispatch", batch=len(items)):
-            handle = dispatcher.reconstruct(present, missing, batch)
-        FleetDispatchBatchHistogram.observe(len(items))
-        FleetDispatchedBytesCounter.inc(
-            float(sum(s.nbytes for s in batch.slots)))
-        pipe.submit(handle, [
-            (v.tag, functools.partial(_write_rebuilt_span, v.base,
-                                      missing,
-                                      min(span, v.dat_size - offset)))
-            for v, offset in items])
-
-    try:
-        _drive_batches(_grouped(spans, per_batch), prefetch,
-                       lambda rows: dispatcher.batch(rows, span),
-                       submit_read, flush)
-    finally:
-        pool.shutdown(wait=True)
-        try:
-            pipe.drain()  # may re-raise the latched pipeline error
-        finally:
-            dispatcher.close()
-            root.__exit__(None, None, None)
+    with _Pass("rebuild", backend, device, len(members)) as p:
+        p.drive(_shard_spans(vols, span), len(members), span,
+                lambda item, slot: p.read(
+                    _read_present_span, item[0].base, present,
+                    item[0].dat_size, item[1], slot[0]),
+                lambda item, out: _append_rows(item[0].base, missing,
+                                               item[2], out),
+                dispatch=functools.partial(p.dispatcher.reconstruct,
+                                           present, missing))
 
 
 # --- fleet verify ------------------------------------------------------------
@@ -794,49 +826,22 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
     # RS-encode) chunk-sized slabs of zero padding per 100KB shard
     span = max(1, min(chunk // max(1, len(fleet)),
                       max(size for _, size, _ in fleet)))
-    vols = [(_VolState(base, size, -(-size // span) if size else 0, tag),
-             parity)
+    vols = [(_VolState(base, size, -(-size // span), tag), parity)
             for tag, (base, size, parity) in enumerate(fleet)]
-
-    spans = (((v, row0 * span), 1) for v, row0, _ in
-             _round_robin_spans([v for v, _ in vols], 1))
     parity_by_tag = {v.tag: parity for v, parity in vols}
-    dispatcher = _Dispatcher(ReedSolomon(backend=backend, device=device))
-    # lint: thread-ok(per-pass reader pool; work items are explicit, no ambient request state)
-    pool = ThreadPoolExecutor(max_workers=FLEET_READERS,
-                              thread_name_prefix="fleet-read")
-    pipe = TaggedPipeline()
-    per_batch = len(fleet)
-    prefetch = max(FLEET_READERS, 2 * per_batch)
-    root = trace.span("fleet.verify", volumes=len(fleet), backend=backend)
-    root.__enter__()
-    token = root.token()
     data_present = list(range(DATA_SHARDS))
-
-    def submit_read(item, slot: np.ndarray):
-        v, offset = item
-        if throttler is not None:
-            # pace on the read side: one span costs 10 data reads
-            # plus the parity reads the compare will issue
-            throttler.maybe_slowdown(
-                (DATA_SHARDS + len(parity_by_tag[v.tag])) * span)
-        return pool.submit(_read_present_span, v.base, data_present,
-                           v.dat_size, offset, slot[0], token)
-
     # parity fds cached per volume for the whole pass: each volume's
     # compares run FIFO on ITS writer lane (single reader per fd), and
     # per-span open/close would cost thousands of syscalls per volume
-    # once large fleets shrink the span. Populated INSIDE the
-    # try/finally below: an open() racing a concurrent shard delete
-    # must still tear down the pools/span and close earlier fds.
+    # once large fleets shrink the span.
     parity_fds: Dict[str, Dict[int, object]] = {}
 
-    def compare(v: _VolState, offset: int, out: np.ndarray) -> None:
+    def compare(item, out: np.ndarray) -> None:
         """Runs on v's writer lane: recomputed parity [1, 4, span] vs
         the stored parity slices."""
+        v, offset, valid = item
         with _StageTimer("verify", vol=os.path.basename(v.base)):
             parity = out[0]
-            valid = min(span, v.dat_size - offset)
             r = results[v.base]
             for sid in parity_by_tag[v.tag]:
                 f = parity_fds[v.base][sid]
@@ -863,32 +868,24 @@ def fleet_verify_ec_files(base_names: Sequence[str], backend: str = "cuda",
             r.bytes_verified += DATA_SHARDS * valid
             r.spans += 1
 
-    def flush(items, batch: _Batch) -> None:
-        with _StageTimer("dispatch", batch=len(items)):
-            handle = dispatcher.encode(batch)
-        FleetDispatchBatchHistogram.observe(len(items))
-        FleetDispatchedBytesCounter.inc(
-            float(sum(s.nbytes for s in batch.slots)))
-        pipe.submit(handle, [
-            (v.tag, functools.partial(compare, v, offset))
-            for v, offset in items])
-
-    try:
+    with _Pass("verify", backend, device, len(fleet)) as p:
+        # opened inside the pass: an open() racing a concurrent shard
+        # delete must still tear the pass down and close earlier fds
         for v, parity in vols:
             fds = parity_fds[v.base] = {}
-            for sid in parity:  # incremental: no fd lost to a partial
-                fds[sid] = open(shard_file_name(v.base, sid), "rb")
-        _drive_batches(_grouped(spans, per_batch), prefetch,
-                       lambda rows: dispatcher.batch(rows, span),
-                       submit_read, flush)
-    finally:
-        pool.shutdown(wait=True)
-        try:
-            pipe.drain()  # may re-raise the latched pipeline error
-        finally:
-            dispatcher.close()
-            for fds in parity_fds.values():
-                for f in fds.values():
-                    f.close()
-            root.__exit__(None, None, None)
+            for sid in parity:
+                fds[sid] = p.closing(open(shard_file_name(v.base, sid), "rb"))
+
+        def read(item, slot: np.ndarray):
+            v, offset, _ = item
+            if throttler is not None:
+                # pace on the read side: one span costs 10 data reads
+                # plus the parity reads the compare will issue
+                throttler.maybe_slowdown(
+                    (DATA_SHARDS + len(parity_by_tag[v.tag])) * span)
+            return p.read(_read_present_span, v.base, data_present,
+                          v.dat_size, offset, slot[0])
+
+        p.drive(_shard_spans([v for v, _ in vols], span), len(fleet), span,
+                read, compare)
     return results

@@ -2,9 +2,9 @@
 
 Counterparts of ``seaweedfs_tpu.ec.store_ec`` and the reference's
 store_ec.go / store_ec_delete.go and
-server/volume_grpc_erasure_coding.go:38-400: generate, rebuild,
-mount/unmount, EC needle reads with live recovery, delete, decode back to
-a normal volume, and the fused generate of many volumes at once. All take
+server/volume_grpc_erasure_coding.go:38-400: generate (one volume or
+many, fused), rebuild, mount/unmount, EC needle reads with live recovery,
+delete and decode back to a normal volume. All take
 the Store as first argument. The codec runs on the card unless the caller
 passes ``backend="cpu"`` (or, for reads, a ``rs=ReedSolomon(backend="cpu")``
 or a ``decoder=DegradedReadFleet("cpu")``).
@@ -64,37 +64,26 @@ def _location_of_base(store: Store, base: str):
 
 
 def generate_ec_shards(store: Store, vid: int, backend: str = "cuda") -> str:
-    """VolumeEcShardsGenerate: .dat/.idx -> .ec00-13 + .ecx.
-
-    The volume is marked read-only and synced first. Returns the base
-    name the shard files were written under.
-    """
-    v = store.find_volume(vid)
-    if v is None:
-        raise NeedleError(f"volume {vid} not found for ec encode")
-    v.read_only = True
-    v.sync()
-    base = v.file_name()
-    with trace.span("store_ec.generate", vid=vid):
-        encoder.write_ec_files(base, backend=backend)
-        encoder.write_sorted_file_from_idx(base)
-    return base
+    """VolumeEcShardsGenerate of one volume: a batch of one. Returns the
+    base name the shard files were written under."""
+    return generate_ec_shards_batch(store, [vid], backend=backend)[vid]
 
 
 def generate_ec_shards_batch(store: Store, vids: Sequence[int],
                              backend: str = "cuda",
                              mesh_cfg: Optional[dict] = None
                              ) -> Dict[int, str]:
-    """VolumeEcShardsGenerate for MANY volumes in one fused pass.
+    """VolumeEcShardsGenerate: .dat/.idx -> .ec00-13 + .ecx for one or
+    MANY volumes in one fused pass.
 
     Every vid is validated before any volume is frozen (a bad vid must
     not strand earlier volumes read-only with no shards); then every
     volume is frozen (read-only + sync) and ONE scheduler packs chunks
     from all of them into shared RS dispatches: with `mesh_cfg` (keywords
-    of ``parallel/mesh_fleet.pod_write_ec_files``) the unified mesh
-    scheduler, which falls back to the per-card fleets on a scheduler
-    failure; without it the fleet scheduler (``ec/fleet.py``). Shard bytes
-    are identical to ``generate_ec_shards`` per volume either way.
+    of ``parallel/mesh_fleet.pod_write_ec_files``) and two or more
+    volumes the unified mesh scheduler, which falls back to the per-card
+    fleets on a scheduler failure; otherwise the fleet scheduler
+    (``ec/fleet.py``). Shard bytes are the same either way.
     Returns {vid: base_name}.
     """
     vols = []
@@ -109,8 +98,11 @@ def generate_ec_shards_batch(store: Store, vids: Sequence[int],
         v.sync()
         bases[vid] = v.file_name()
     with trace.span("store_ec.generate_batch", volumes=len(bases)):
+        # a one-volume request stays on the fleet: it cannot fill the
+        # default mesh's dp slots, and the attempt would count as a mesh
+        # fallback
         mesh_fleet = fleet.mesh_fleet_or_none() \
-            if mesh_cfg is not None else None
+            if mesh_cfg is not None and len(bases) > 1 else None
         if mesh_fleet is not None:
             mesh_fleet.pod_write_ec_files(list(bases.values()),
                                           backend=backend, **mesh_cfg)
@@ -132,7 +124,7 @@ def rebuild_ec_shards(store: Store, vid: int,
     if base is None:
         raise EcShardNotFound(f"no local ec files for volume {vid}")
     with trace.span("store_ec.rebuild", vid=vid):
-        return encoder.rebuild_ec_files(base, backend=backend)
+        return fleet.fleet_rebuild_ec_files([base], backend=backend)[base]
 
 
 def mount_ec_shards(store: Store, vid: int, collection: str,
@@ -322,8 +314,8 @@ def ec_shards_to_volume(store: Store, vid: int, collection: str = "",
     loc = _location_of_base(store, base)
     stem = os.path.basename(base)
     collection = stem.rsplit("_", 1)[0] if "_" in stem else ""
-    encoder.rebuild_ec_files(base, backend=backend,
-                             wanted=list(range(encoder.DATA_SHARDS)))
+    fleet.fleet_rebuild_ec_files([base], backend=backend,
+                                 wanted=list(range(encoder.DATA_SHARDS)))
     encoder.write_dat_file(base, encoder.find_dat_file_size(base),
                            backend=backend, large_block=large_block,
                            small_block=small_block)

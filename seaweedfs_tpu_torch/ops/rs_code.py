@@ -16,14 +16,13 @@ decode map is (coding matrix restricted to surviving rows)^-1 composed with
 the rows wanted.
 
 On "cuda" the host's share of a map is traced as ``codec.alloc`` (pinned
-buffers), ``codec.pack`` (the copy into one), ``codec.submit`` (queueing
-H2D, kernel, D2H and the event); the host's wait on the event is timed
-by its caller (``fleet.retire``). The copies are counted in
-``SeaweedFS_codec_h2d_bytes_total`` and
-``SeaweedFS_codec_d2h_bytes_total``, and the host copies made before an
-H2D (``pack``, and the staging of a pageable input into pinned memory)
-in ``SeaweedFS_codec_host_copy_bytes_total``: a caller that reads
-straight into a ``host_buffer`` makes none.
+buffers) and ``codec.submit`` (queueing H2D, kernel, D2H and the event);
+the host's wait on the event is timed by its caller (``fleet.retire``).
+The copies are counted in ``SeaweedFS_codec_h2d_bytes_total`` and
+``SeaweedFS_codec_d2h_bytes_total``, and the host copy made before an
+H2D (the staging of a pageable input into pinned memory) in
+``SeaweedFS_codec_host_copy_bytes_total``: a caller that reads straight
+into a ``host_buffer`` makes none.
 """
 
 from __future__ import annotations
@@ -148,23 +147,6 @@ class ReedSolomon:
         with _span(self.backend, "codec.alloc"):
             return torch.empty(tuple(shape), dtype=torch.uint8,
                                pin_memory=self.backend == "cuda")
-
-    def pack(self, arrays: Sequence[np.ndarray],
-             stack: bool = False) -> torch.Tensor:
-        """``arrays`` concatenated along axis 0 (or stacked along a new
-        axis 0) straight into one ``host_buffer``: a fused batch costs one
-        host copy, and on "cuda" the buffer is pinned, so ``_submit``
-        does not stage it again."""
-        parts = [np.asarray(a, dtype=np.uint8) for a in arrays]
-        if stack:
-            parts = [a[np.newaxis] for a in parts]
-        rows = sum(a.shape[0] for a in parts)
-        buf = self.host_buffer((rows,) + parts[0].shape[1:])
-        with _span(self.backend, "codec.pack"):
-            np.concatenate(parts, axis=0, out=buf.numpy())
-        if self.backend == "cuda":
-            _HOST_COPY_BYTES.inc(buf.numel())
-        return buf
 
     # -- matrix helpers ------------------------------------------------------
 

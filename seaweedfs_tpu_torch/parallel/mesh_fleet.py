@@ -1030,8 +1030,8 @@ def _mesh_rebuild_group(mesh, present: Tuple[int, ...],
 
 # -- the pod entry points (fallback ladder) -----------------------------------
 #
-# the mesh when it can, the per-card fleet schedulers when it cannot, the
-# per-volume path for large-row volumes. Only scheduler failures demote:
+# the mesh when it can, the per-card fleet schedulers when it cannot and
+# for large-row volumes. Only scheduler failures demote:
 # a fault of a kernel or of the card (is_kernel_fault) propagates.
 
 def _fallback(op: str, reason: str, exc: Optional[BaseException] = None
@@ -1068,7 +1068,7 @@ def pod_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
                        small_block: int = SMALL_BLOCK_SIZE) -> str:
     """Encode a fleet of volumes on the strongest available scheduler.
 
-    Ladder: (1) oversized volumes take the per-volume large-row path;
+    Ladder: (1) oversized volumes take the fleet's large-row path;
     (2) the rest ride the unified mesh scheduler when a multi-card mesh
     exists and the batch fills its dp slots; (3) a MeshError or other
     scheduler failure falls back to the per-card fleet schedulers,
@@ -1077,9 +1077,10 @@ def pod_write_ec_files(base_names: Sequence[str], backend: str = "cuda",
     propagates. Returns the path taken: "mesh" | "fleet"."""
     big = [b for b in base_names
            if os.path.getsize(b + ".dat") > DATA_SHARDS * LARGE_BLOCK_SIZE]
-    for b in big:
-        _encoder.write_ec_files(b, backend=backend,
-                                small_block=small_block)
+    if big:
+        _fleet.fleet_write_ec_files(big, backend=backend,
+                                    large_block=LARGE_BLOCK_SIZE,
+                                    small_block=small_block)
     big_set = set(big)
     rest = [b for b in base_names if b not in big_set]
     if not rest:

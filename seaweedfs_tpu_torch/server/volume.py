@@ -841,16 +841,12 @@ class VolumeServer:
         backend = self._ec_backend(context, request.encoder)
         vids = list(request.volume_ids) or [request.volume_id]
         try:
-            if len(vids) == 1:
-                self._codec_call(context, store_ec.generate_ec_shards,
-                                 self.store, vids[0], backend=backend)
-            else:
-                # cross-volume fused encode: one scheduler packs all the
-                # volumes' chunks into shared dispatches (the mesh
-                # scheduler under -ec.mesh, the fleet otherwise)
-                self._codec_call(context, store_ec.generate_ec_shards_batch,
-                                 self.store, vids, backend=backend,
-                                 mesh_cfg=self.ec_mesh_cfg)
+            # one scheduler packs all the volumes' chunks into shared
+            # dispatches (the mesh scheduler under -ec.mesh for two or
+            # more volumes, the fleet otherwise)
+            self._codec_call(context, store_ec.generate_ec_shards_batch,
+                             self.store, vids, backend=backend,
+                             mesh_cfg=self.ec_mesh_cfg)
         except NeedleError as e:
             context.abort(rpc.StatusCode.NOT_FOUND, str(e))
         for vid in vids:

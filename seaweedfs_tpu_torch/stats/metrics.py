@@ -311,8 +311,8 @@ CodecD2HBytesCounter = REGISTRY.counter(
     "map (matrix table uploads not counted)")
 CodecHostCopyBytesCounter = REGISTRY.counter(
     "SeaweedFS_codec_host_copy_bytes_total",
-    "bytes the cuda codec copied on the host before their H2D: pack's "
-    "output and the pinned staging of pageable inputs")
+    "bytes the cuda codec copied on the host before their H2D: the "
+    "pinned staging of pageable inputs")
 
 # Unified mesh scheduler families (parallel/mesh_fleet.py): the bucket
 # stream over the cards. `op` is the dispatch kind (encode | verify |

@@ -793,6 +793,33 @@ def test_ec_mesh_without_a_mesh_says_so_at_start(tmp_path):
                "per-card fleet" in r.getMessage() for r in records)
 
 
+def test_one_volume_generate_under_ec_mesh_tries_no_mesh(tmp_path):
+    """-ec.mesh: a one-volume VolumeEcShardsGenerate runs the fleet and
+    never tries the mesh, so it counts no mesh fallback."""
+    from seaweedfs_tpu_torch.stats.metrics import FleetMeshFallbacksCounter
+
+    def fallbacks():
+        return sum(FleetMeshFallbacksCounter.labels(r).value
+                   for r in ("unavailable", "timeout", "error"))
+
+    c = Cluster(tmp_path, n_volume_servers=1, ec_mesh=True)
+    try:
+        vid, _, owner = _fill_volume(c, "solo")
+        stub = volume_stub(owner)
+        stub.VolumeMarkReadonly(
+            volume_server_pb2.VolumeMarkReadonlyRequest(volume_id=vid))
+        before = fallbacks()
+        stub.VolumeEcShardsGenerate(
+            volume_server_pb2.VolumeEcShardsGenerateRequest(
+                volume_id=vid, collection="solo", encoder="cpu"))
+        assert fallbacks() == before
+        base = c.volume_servers[0].store.find_volume(vid).file_name()
+        assert all(os.path.exists(shard_file_name(base, i))
+                   for i in range(14))
+    finally:
+        c.stop()
+
+
 def _normalize(out: str, urls, vids) -> list:
     for i, u in enumerate(urls):
         out = out.replace(u, f"<node{i}>")

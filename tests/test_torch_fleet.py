@@ -131,8 +131,6 @@ class _CardShapedCodec:
     def host_buffer(self, shape):
         return self._rs.host_buffer(shape)
 
-    pack = ReedSolomon.pack
-
     def _record(self, kind, data, handle):
         assert isinstance(data, torch.Tensor), "batch was not staged"
         self.dispatches.append((kind, tuple(data.shape)))
@@ -198,11 +196,14 @@ def test_fleet_encode_matches_jax_fleet_and_serial(tmp_path, chunk):
 
 
 def test_fleet_encode_single_volume_matches_port_serial(tmp_path):
+    """A fleet of one is the port's serial path (``write_ec_files``):
+    held to the JAX package's per-volume encoder."""
     bases = _make_volumes(tmp_path, [3 * ROW + 5])
     serial = _twins(bases, "serial")
-    encoder.write_ec_files(serial[0], backend="cpu", large_block=LARGE,
+    jax_ec.write_ec_files(serial[0], backend="numpy", large_block=LARGE,
+                          small_block=SMALL, chunk=512)
+    encoder.write_ec_files(bases[0], backend="cpu", large_block=LARGE,
                            small_block=SMALL, chunk=512)
-    _port_encode(bases, chunk=512)
     _assert_shards_equal(bases, serial)
 
 
@@ -249,14 +250,37 @@ def test_card_path_one_fused_dispatch_per_batch(tmp_path, card_shaped, chunk):
     assert max(shape[0] for _, shape in codec.dispatches) > 1
     assert sum(shape[0] for _, shape in codec.dispatches) == rows
     assert len(codec.dispatches) < alive * 3
-    handle = fleet._SplitHandle(
-        codec.encode_async(codec.pack([np.zeros((2, 10, 8), np.uint8),
-                                       np.ones((1, 10, 8), np.uint8)])),
-        [2, 1])
+    staged = codec.host_buffer((3, DATA_SHARDS, 8))
+    staged.numpy()[:2], staged.numpy()[2:] = 0, 1
+    handle = fleet._SplitHandle(codec.encode_async(staged), [2, 1])
     parts = handle.result()
     assert [p.shape for p in parts] == [(2, 4, 8), (1, 4, 8)]
     assert all(_base_tensor(p) is _base_tensor(parts[0]) is not None
                for p in parts)
+
+
+@pytest.mark.parametrize("chunk", [512, 3 * ROW])
+def test_large_row_volume_in_a_fleet_matches_jax(tmp_path, card_shaped,
+                                                 chunk):
+    """Volumes over 10 * LARGE (one and two large rows, then a small-row
+    tail) ride one fleet with small volumes: the card gets each large
+    row as [1, 10, min(chunk, LARGE)] spans and the tails as small rows,
+    and every shard is the JAX per-volume encoder's."""
+    sizes = [2 * ROW + 7, 10 * LARGE + 5 * ROW, 700, 20 * LARGE + 999]
+    bases = _make_volumes(tmp_path, sizes, seed=15)
+    serial = _twins(bases, "serial")
+    fleet.fleet_write_ec_files(bases, large_block=LARGE, small_block=SMALL,
+                               chunk=chunk)
+    for t in serial:
+        jax_ec.write_ec_files(t, backend="numpy", large_block=LARGE,
+                              small_block=SMALL, chunk=512)
+    _assert_shards_equal(bases, serial)
+    (codec,) = _CardShapedCodec.made
+    width = min(chunk, LARGE)
+    large = [shape for _, shape in codec.dispatches if shape[2] != SMALL]
+    assert large == [(1, DATA_SHARDS, width)] * (3 * LARGE // width)
+    small = [shape for _, shape in codec.dispatches if shape[2] == SMALL]
+    assert sum(rows for rows, _, _ in small) == 3 + 5 + 1 + 1
 
 
 def test_cpu_path_uses_the_host_encode_pool(tmp_path, monkeypatch):
@@ -510,10 +534,9 @@ def staging(monkeypatch):
     real_span, real_present = fleet._read_span, fleet._read_present_span
     real_dispatch = fleet._Dispatcher._dispatch
 
-    def read_span(base, row0, dest, parent):
-        real_span(base, row0, dest, parent)
-        got["reads"].append((base, None, row0 * ROW,
-                             dest.reshape(-1).copy()))
+    def read_span(base, offset, dest, parent):
+        real_span(base, offset, dest, parent)
+        got["reads"].append((base, None, offset, dest.reshape(-1).copy()))
 
     def read_present(base, present, shard_size, offset, dest, parent=None):
         real_present(base, present, shard_size, offset, dest, parent)
@@ -696,6 +719,57 @@ def test_generate_ec_shards_batch_unknown_vid_freezes_nothing(tmp_path):
                                       + ".ec00")
     finally:
         store.close()
+
+
+def _ec_files_of(base):
+    exts = [f".ec{i:02d}" for i in range(TOTAL_SHARDS)] + \
+        [".ecx", ".dat", ".idx"]
+    return {ext: open(base + ext, "rb").read() for ext in exts
+            if os.path.exists(base + ext)}
+
+
+@pytest.mark.parametrize("entry", ["generate_ec_shards", "rebuild_ec_shards",
+                                   "ec_shards_to_volume"])
+def test_single_volume_entry_points_run_the_fleet(tmp_path, entry):
+    """Each one-volume store entry runs the fleet, under its root span,
+    and leaves the files the JAX package's same call leaves."""
+    store = Store([str(tmp_path / "port")])
+    jstore = JaxStore([str(tmp_path / "jax")], ip="127.0.0.1", port=8080)
+    try:
+        _fill(store, (1,))
+        base = store.find_volume(1).file_name()
+        store.find_volume(1).sync()
+        jdir = jstore.locations[0].directory
+        for ext in (".dat", ".idx"):
+            shutil.copy(base + ext, os.path.join(jdir, "1" + ext))
+        jstore.locations[0].load_existing_volumes()
+        jbase = os.path.join(jdir, "1")
+        if entry != "generate_ec_shards":
+            store_ec.generate_ec_shards(store, 1, backend="cpu")
+            jax_store_ec.generate_ec_shards(jstore, 1, backend="numpy")
+            if entry == "ec_shards_to_volume":
+                store.location_of(1).delete_volume(1)
+                jstore.location_of(1).delete_volume(1)
+            for b in (base, jbase):
+                for sid in (2, 11):
+                    os.remove(shard_file_name(b, sid))
+        trace.enable()
+        trace.clear()
+        try:
+            getattr(store_ec, entry)(store, 1, backend="cpu")
+            names = {s.name for s in trace.spans()}
+        finally:
+            trace.disable()
+            trace.clear()
+        getattr(jax_store_ec, entry)(jstore, 1, backend="numpy")
+        assert ("fleet.encode" if entry == "generate_ec_shards"
+                else "fleet.rebuild") in names
+        got, want = _ec_files_of(base), _ec_files_of(jbase)
+        assert sorted(got) == sorted(want)
+        assert all(got[ext] == want[ext] for ext in got), entry
+    finally:
+        store.close()
+        jstore.close()
 
 
 def test_generate_ec_shards_batch_defaults_to_the_card(tmp_path):

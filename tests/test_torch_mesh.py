@@ -533,19 +533,26 @@ def test_pod_chunks_under_the_fd_budget(mesh, tmp_path, monkeypatch, op):
 
 def test_pod_large_row_volume_takes_the_serial_path(mesh2, tmp_path,
                                                     monkeypatch):
-    serial = []
-    orig = mesh_fleet._encoder.write_ec_files
+    """A volume over ten large blocks leaves the mesh for the fleet's
+    large-row spans, one [10, large block] span a row, and its shards are
+    the JAX encoder's at that geometry."""
+    large = []
+    orig = mesh_fleet._fleet._read_large_span
 
-    def spy(base, **kw):
-        serial.append(base)
-        return orig(base, **kw)
+    def spy(base, *a):
+        large.append(base)
+        return orig(base, *a)
 
-    monkeypatch.setattr(mesh_fleet._encoder, "write_ec_files", spy)
+    monkeypatch.setattr(mesh_fleet._fleet, "_read_large_span", spy)
     monkeypatch.setattr(mesh_fleet, "LARGE_BLOCK_SIZE", SMALL)
     bases = _write_vols(tmp_path, [ROW * 3, ROW // 2, ROW // 4], seed=11)
+    (ref,) = _twins(bases[:1], "ref")
+    jax_write_ec_files(ref, backend="numpy", large_block=SMALL,
+                       small_block=SMALL)
     assert parallel.pod_write_ec_files(bases, backend="cpu", mesh=mesh2,
                                        small_block=SMALL) == "mesh"
-    assert serial == [bases[0]]
+    assert large == [bases[0]] * 2
+    _assert_shards_equal(bases[:1], [ref])
 
 
 # -- hooks --------------------------------------------------------------------------
